@@ -19,6 +19,7 @@ from ..ops.retrieval import (
     _Q_TILE,
     _SCORE_BUDGET_BYTES,
     _pad_rows,
+    check_k,
     topk_select,
 )
 from .api import load_inference_model
@@ -80,7 +81,9 @@ class RetrievalService:
 
     ``mesh``, ``use_int8_gallery``, ``rerank_window``, ``int8_calib_imgs``,
     ``int8_qfn`` and ``TPU.FAST_DECODE`` are not ported yet and raise
-    ``NotImplementedError``. An empty gallery raises ``ValueError``.
+    ``NotImplementedError``, as does a k above 4096 against more than 32768
+    gallery rows (``ops.retrieval.check_k``). An empty gallery raises
+    ``ValueError``.
     """
 
     def __init__(self, cfg, gallery_embeddings: np.ndarray,
@@ -116,6 +119,7 @@ class RetrievalService:
             gf = gf / np.maximum(np.linalg.norm(gf, axis=1, keepdims=True),
                                  1e-12)
         gf, gn = _pad_gallery(gf, _G_TILE)
+        check_k(self.k, gf.shape[0])
         gf_t = torch.from_numpy(gf).to(self.device)
         kernel_dtype = torch.bfloat16 if use_bf16_kernel else torch.float32
         self._gf = gf_t.to(kernel_dtype)

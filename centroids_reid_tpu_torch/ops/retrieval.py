@@ -33,6 +33,8 @@ _SCORE_BUDGET_BYTES = 512 << 20
 # tile this gives 196 blocks, about 1.5 waves over the H100's 132 SMs
 _STREAM_SPLIT = 512
 _KPASS_MAX_W = 32768  # one fp32 row in shared memory (128 KB)
+# the hierarchical top-k's final pass runs K3 on 8k columns
+_HIER_MAX_K = _KPASS_MAX_W // 8
 _INF = float("inf")
 
 LAUNCHES: Dict[str, int] = {"scores": 0, "stream_topk": 0, "kpass_topk": 0}
@@ -90,6 +92,9 @@ def _check_score_inputs(qf, gf, gn_row) -> Tuple[int, int, int]:
     if not (qf.is_contiguous() and gf.is_contiguous()
             and gn_row.is_contiguous()):
         raise ValueError("q, g and gn_row must be contiguous")
+    # the kernels read q and g with 16-byte loads and gn_row with float4s
+    if any(t.data_ptr() % 16 for t in (qf, gf, gn_row)):
+        raise ValueError("q, g and gn_row must start on a 16-byte boundary")
     return q, g, d
 
 
@@ -196,6 +201,19 @@ def kpass_topk(x, k: int):
 
 # ---------------------------------------------------------- selection ----
 
+def check_k(k: int, gallery_rows: int) -> None:
+    """Refuse a k that the hierarchical top-k cannot serve on K3: above
+    4096, against more than 32768 (padded) gallery rows, its base case or
+    final pass would be wider than one K3 row. Raises on every device, so
+    the port serves the same k on the CPU as on the card."""
+    if k > _HIER_MAX_K and gallery_rows > _KPASS_MAX_W:
+        raise NotImplementedError(
+            f"k={k} > {_HIER_MAX_K} against {gallery_rows} gallery rows (> "
+            f"{_KPASS_MAX_W}) is not ported yet: it needs K3 over rows wider "
+            f"than {_KPASS_MAX_W} columns (ROADMAP.md queue 2)"
+        )
+
+
 def _hier_topk_build(scores_, k: int):
     """Exact top-k-smallest via hierarchical group-min pruning (proof in
     ``centroids_reid_tpu.ops.retrieval.topk_retrieval``): the k smallest
@@ -247,15 +265,12 @@ def _pad_rows(x, rows: int):
     return torch.cat([x, x.new_zeros((rows, x.shape[1]))]) if rows else x
 
 
-def topk_retrieval(qf, gf, k: int, dist: str = "euclidean",
-                   approx: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+def topk_retrieval(qf, gf, k: int,
+                   dist: str = "euclidean") -> Tuple[np.ndarray, np.ndarray]:
     """Top-k nearest gallery entries per query: (distances [Q, k], indices
     [Q, k]) as numpy arrays. Distances are the reference's eval flavours:
     squared euclidean without sqrt, or ``|1 - cos|``. bf16 inputs select on
-    the kernels; ``approx=True`` casts fp32 inputs to bf16 first. Runs on
-    the device of ``qf``."""
-    if approx and qf.dtype != torch.bfloat16:
-        qf, gf = qf.to(torch.bfloat16), gf.to(torch.bfloat16)
+    the kernels. Runs on the device of ``qf``."""
     if dist == "cosine":
         in_dtype = qf.dtype
         qf32, gf32 = qf.float(), gf.float()
@@ -270,6 +285,7 @@ def topk_retrieval(qf, gf, k: int, dist: str = "euclidean",
     g = gf.shape[0]
     k_eff = min(k, g)
     pad_g = (-g) % _G_TILE
+    check_k(k_eff, g + pad_g)
     gf = _pad_rows(gf, pad_g)
     gnorm2 = torch.cat([gnorm2, gnorm2.new_full((pad_g,), _INF)])
     gn_row = gnorm2[None, :]

@@ -8,7 +8,8 @@ holds each against its plain PyTorch version at the serving path's shapes,
 then serves ResNet-50 (BNNeck, last stride 1, 256x128, bf16 embed) with
 seeded random weights against a 100,000 x 2048 bf16 gallery through
 ``RetrievalService`` at k=10 and k=100, and times the embed, the requests
-and the kernels with CUDA events. Exits non-zero on any failure; the last
+and the kernels with CUDA events, and a request's device busy time with
+``torch.profiler``. Exits non-zero on any failure; the last
 line is ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
@@ -65,6 +66,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def request_ms(svc, imgs, n: int) -> list:
+    """Host-clock ms of ``n`` requests (each ends in a device-to-host
+    copy)."""
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        svc.query_arrays(imgs)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def device_busy_ms(svc, imgs, n: int):
+    """Device time per request in ms: torch.profiler's kernel and copy
+    time over ``n`` requests (one stream, so nothing overlaps). None when
+    the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            svc.query_arrays(imgs)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / n / 1e3 if us > 0 else None
 
 
 def require(cond: bool, msg: str) -> None:
@@ -347,16 +378,22 @@ def phase_timing(state: dict) -> dict:
 
     imgs = state["imgs"][:REQUEST]
     for k, svc in state["services"].items():
-        for _ in range(5):
-            svc.query_arrays(imgs)
-        lat = []
-        for _ in range(30):
-            t0 = time.perf_counter()
-            svc.query_arrays(imgs)   # ends in a device-to-host copy
-            lat.append((time.perf_counter() - t0) * 1e3)
-        log(f"request of {REQUEST} images, k={k} (host clock, 30 runs): "
-            f"p50 {np.percentile(lat, 50):.3f} ms, p90 "
-            f"{np.percentile(lat, 90):.3f} ms")
+        request_ms(svc, imgs, 5)
+        # unprofiled, profiled, unprofiled: the busy time and the latency
+        # it is divided by come from the same run
+        before = request_ms(svc, imgs, 30)
+        busy = device_busy_ms(svc, imgs, 10)
+        after = request_ms(svc, imgs, 30)
+        p50 = np.percentile(before + after, 50)
+        log(f"request of {REQUEST} images, k={k} (host clock, 2 x 30 runs): "
+            f"p50 {p50:.4f} ms (windows {np.percentile(before, 50):.4f} / "
+            f"{np.percentile(after, 50):.4f}), p90 "
+            f"{np.percentile(before + after, 90):.4f} ms")
+        log(f"  device busy per request (torch.profiler, 10 requests "
+            f"between the windows): "
+            + (f"{busy:.4f} ms; idle share 1 - busy / p50 = "
+               f"{1 - busy / p50:.4f}" if busy is not None
+               else "not measured (the profiler saw no device time)"))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE
@@ -382,6 +419,11 @@ def phase_timing(state: dict) -> dict:
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         log(f"{name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms")
+    # every byte K1 moves: q, g and gn read, the fp32 scores written
+    k1_bytes = sum(t.numel() * t.element_size() for t in (q, g, gn)) \
+        + q.shape[0] * gp * 4
+    log(f"scores moves {k1_bytes} bytes: "
+        f"{k1_bytes / times['scores'][0] / 1e6:.1f} GB/s")
     return times
 
 

@@ -100,6 +100,14 @@ def test_wrappers_refuse_bad_inputs_on_cuda(cuda):
         R.kpass_topk(gn.expand(4, -1).t(), 4)
     with pytest.raises(ValueError, match="W <= 32768"):
         R.kpass_topk(torch.zeros((2, 40000), device=cuda), 4)
+    # contiguous views that start off a 16-byte boundary
+    q_off = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    gn_off = torch.zeros((1, gn.shape[1] + 4), device=cuda)[:, 1:-3]
+    for args in ((q_off.view(q.shape), g, gn), (q, g, gn_off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            R.scores(*args)
+        with pytest.raises(ValueError, match="16-byte"):
+            R.stream_topk(*args, 10)
 
 
 @pytest.mark.parametrize("bf16,k", [(True, 5), (True, 40), (False, 40)])

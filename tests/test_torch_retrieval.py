@@ -144,6 +144,40 @@ def test_topk_retrieval_matches_jax(dtype, k, dist):
     np.testing.assert_allclose(d, rd, rtol=1e-5, atol=1e-5)
 
 
+def test_topk_retrieval_refuses_k_beyond_one_kpass_row():
+    """k > 4096 against more than 32768 gallery rows would need K3 over a
+    row wider than 32768 columns: refused up front on every device. At
+    either edge of the limit the answer holds the k smallest distances of
+    a full sort, each at its own index (fp32 summation order: rtol 1e-5)."""
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(1, 4).astype(np.float32))
+    wide = torch.from_numpy(rng.randn(32769, 4).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="k=4097"):
+        R.topk_retrieval(q, wide, 4097)
+    for g, k in ((wide, 4096), (wide[:32768], 4097)):
+        d, i = R.topk_retrieval(q, g, k)
+        full = ((g - q) ** 2).sum(dim=1).numpy()
+        assert len(set(i[0])) == k
+        np.testing.assert_allclose(d[0], np.sort(full)[:k], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(d[0], full[i[0]], rtol=1e-5, atol=1e-5)
+
+
+def test_score_input_checks_refuse_misaligned_views():
+    """The kernels read q, g and gn_row with 16-byte loads: a contiguous
+    view that starts off a 16-byte boundary is refused before a launch."""
+    q = torch.zeros((128, 32), dtype=torch.bfloat16)
+    g = torch.zeros((1024, 32), dtype=torch.bfloat16)
+    gn = torch.zeros((1, 1024))
+    assert R._check_score_inputs(q, g, gn) == (128, 1024, 32)
+    q_off = torch.zeros(128 * 32 + 1, dtype=torch.bfloat16)[1:].view(128, 32)
+    gn_off = torch.zeros((1, 1028))[:, 1:1025]
+    for args in ((q_off, g, gn), (q, g, gn_off)):
+        assert all(t.is_contiguous() for t in args)
+        with pytest.raises(ValueError, match="16-byte"):
+            R._check_score_inputs(*args)
+
+
 def test_wrappers_take_plain_path_only_on_cpu():
     """A CPU tensor runs the plain version and launches nothing; a tensor
     on another non-CUDA device, or on mixed devices, raises."""

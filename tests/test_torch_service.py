@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from centroids_reid_tpu.config import get_default_cfg
@@ -67,27 +68,61 @@ def _png(img):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("bf16,k", [(True, 5), (True, 40), (False, 5)])
-def test_service_matches_jax(slice_setup, monkeypatch, bf16, k):
-    """bf16 k=5 runs K2, bf16 k=40 K1 + the hierarchical top-k on K3, fp32
-    the exact path. query_bytes (PNG, lossless) answers as query_arrays."""
+def _serve_both(slice_setup, monkeypatch, **kw):
+    """The same queries through the JAX and the port's service built with
+    ``kw``; asserts equal indices and paths, close distances, and each
+    gallery image's top-1 its own row. Returns the port's service and
+    answer."""
     cfg, bundle, port, emb, paths, queries = slice_setup
     monkeypatch.setattr(jservice, "topk_select",
                         functools.partial(jax_topk_select, interpret=True))
-    ref = jservice.RetrievalService(cfg, emb, paths, k=k,
-                                    use_bf16_kernel=bf16, model_bundle=bundle)
-    svc = RetrievalService(cfg, emb, paths, k=k, use_bf16_kernel=bf16,
-                           device="cpu", model=port)
+    ref = jservice.RetrievalService(cfg, emb, paths, model_bundle=bundle,
+                                    **kw)
+    svc = RetrievalService(cfg, emb, paths, device="cpu", model=port, **kw)
     rd, ri, rp = ref.query_arrays(queries)
     d, i, p = svc.query_arrays(queries)
     np.testing.assert_array_equal(i, ri)
     np.testing.assert_array_equal(p, rp)
     np.testing.assert_allclose(d, rd, rtol=1e-4, atol=1e-4)
     assert (i[:4, 0] == [3, 17, 30, 47]).all()
+    return svc, d, i
 
+
+@pytest.mark.parametrize("bf16,k", [(True, 5), (True, 40), (False, 5)])
+def test_service_matches_jax(slice_setup, monkeypatch, bf16, k):
+    """bf16 k=5 runs K2, bf16 k=40 K1 + the hierarchical top-k on K3, fp32
+    the exact path. query_bytes (PNG, lossless) answers as query_arrays."""
+    svc, d, i = _serve_both(slice_setup, monkeypatch, k=k,
+                            use_bf16_kernel=bf16)
+    queries = slice_setup[-1]
     db, ib, _ = svc.query_bytes([_png(q) for q in queries])
     np.testing.assert_array_equal(ib, i)
     np.testing.assert_array_equal(db, d)
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_service_without_exact_rescore_matches_jax(slice_setup, monkeypatch,
+                                                   k):
+    """exact_rescore=False keeps no fp32 gallery copy: both packages
+    re-score the winners from the bf16 rows in fp32 arithmetic."""
+    svc, _, _ = _serve_both(slice_setup, monkeypatch, k=k,
+                            use_bf16_kernel=True, exact_rescore=False)
+    assert svc._gf32 is svc._gf and svc._gf.dtype == torch.bfloat16
+
+
+def test_service_refuses_k_beyond_one_kpass_row(slice_setup):
+    """k > 4096 against more than 32768 gallery rows is refused when the
+    service is built, not at its first query."""
+    cfg, _, port, _, _, _ = slice_setup
+    gallery = np.ones((32769, 4), np.float32)
+    paths = [str(r) for r in range(32769)]
+    with pytest.raises(NotImplementedError, match="k=4097"):
+        RetrievalService(cfg, gallery, paths, k=4097, device="cpu",
+                         model=port)
+    assert RetrievalService(cfg, gallery, paths, k=4096, device="cpu",
+                            model=port).k == 4096
+    assert RetrievalService(cfg, gallery[:32768], paths[:32768], k=4097,
+                            device="cpu", model=port).k == 4097
 
 
 def test_service_chunks_large_batches(slice_setup):
