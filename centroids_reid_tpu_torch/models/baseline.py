@@ -24,6 +24,8 @@ class ReidModel(nn.Module):
                  num_classes: int = 0, mixed_precision: bool = False):
         super().__init__()
         self.mixed_precision = mixed_precision
+        self.backbone_name = backbone_name
+        self.last_stride = last_stride
         self.backbone = build_backbone(backbone_name, last_stride)
         emb = backbone_emb_size(backbone_name)
         self.bn = nn.BatchNorm1d(emb, eps=1e-5)

@@ -1,10 +1,11 @@
-"""Build and load the retrieval kernels (``csrc/retrieval.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the source into a shared library with a plain C interface
-for ``sm_90a`` (Hopper), which ``ctypes`` loads. The library is built at
-first use into ``ops/_build/`` (listed in ``.gitignore``), under a name
-keyed on a hash of the sources and the compiler flags, so an edited source
-is rebuilt and an unchanged one is reused.
+``nvcc`` compiles each source for ``sm_90a`` (Hopper), all at once in
+parallel processes, and links the objects into one shared library with a
+plain C interface, which ``ctypes`` loads. The library is built at first use
+into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed on a
+hash of the sources and the compiler flags, so an edited source is rebuilt
+and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ import time
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-_SOURCES = ("retrieval.cu",)
+_SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 1
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ABI_VERSION = 2
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -39,7 +40,7 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the retrieval kernels are "
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
         "compiled from source on first use on a CUDA machine"
     )
 
@@ -54,6 +55,43 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_stream_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.crt_kpass_topk.restype = i
     lib.crt_kpass_topk.argtypes = [p, p, p, i, i, i, p]
+    lib.crt_scores_i8.restype = i
+    lib.crt_scores_i8.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.crt_matmul_requant.restype = i
+    lib.crt_matmul_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
+    lib.crt_conv3x3_requant.restype = i
+    lib.crt_conv3x3_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
+                                        p]
+
+
+def _compile(so: str) -> str:
+    """One nvcc process per source, all started together, then one link.
+    Returns what the compilers printed; raises if any step fails."""
+    tmp = f"{so}.build{os.getpid()}"
+    objs = [f"{tmp}.{n}.o" for n in _SOURCES]
+    procs = [
+        subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", obj,
+                          os.path.join(_CSRC, name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for name, obj in zip(_SOURCES, objs)
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    failed = [n for n, proc in zip(_SOURCES, procs) if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    os.replace(tmp, so)  # atomic against a concurrent build
+    return log
 
 
 def load() -> ctypes.CDLL:
@@ -68,21 +106,12 @@ def load() -> ctypes.CDLL:
         for name in _SOURCES:
             with open(os.path.join(_CSRC, name), "rb") as f:
                 h.update(f.read())
-        so = os.path.join(_BUILD_DIR, f"crt_retrieval_{h.hexdigest()[:16]}.so")
+        so = os.path.join(_BUILD_DIR, f"crt_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.build{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", tmp,
-                 *(os.path.join(_CSRC, n) for n in _SOURCES)],
-                capture_output=True, text=True,
-            )
+            build_log = _compile(so)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{build_log}")
-            os.replace(tmp, so)  # atomic against a concurrent build
         lib = ctypes.CDLL(so)
         _declare(lib)
         if lib.crt_abi_version() != _ABI_VERSION:

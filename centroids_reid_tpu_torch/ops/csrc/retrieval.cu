@@ -341,7 +341,7 @@ __global__ void kpass_topk_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-int crt_abi_version() { return 1; }
+int crt_abi_version() { return 2; }
 
 int crt_scores(const void* q, const void* g, const float* gn, float* out,
                int Q, int G, int D, void* stream) {

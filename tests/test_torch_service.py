@@ -1,6 +1,7 @@
 """The serving slice: the port's RetrievalService against the JAX package's
 on the same weights, uint8 queries and gallery (resnet18, 64x32, fp32
-embed). The JAX service selects on its Pallas kernels in interpret mode.
+embed, or the int8 PTQ embed from one artifact). The JAX service selects on
+its Pallas kernels in interpret mode.
 
 Tolerance: indices equal; distances are exact fp32 re-scores of the same
 rows, so they differ only by the embeddings' fp32 conv/reduction order
@@ -19,6 +20,7 @@ from PIL import Image
 from centroids_reid_tpu.config import get_default_cfg
 from centroids_reid_tpu.inference import service as jservice
 from centroids_reid_tpu.models import create_model as jax_create_model
+from centroids_reid_tpu.ops import retrieval_int8 as jax_retrieval_int8
 from centroids_reid_tpu.ops.retrieval import topk_select as jax_topk_select
 from centroids_reid_tpu_torch.inference import RetrievalService
 from centroids_reid_tpu_torch.models import ReidModel, from_jax_params
@@ -70,14 +72,22 @@ def _png(img):
 
 def _serve_both(slice_setup, monkeypatch, **kw):
     """The same queries through the JAX and the port's service built with
-    ``kw``; asserts equal indices and paths, close distances, and each
-    gallery image's top-1 its own row. Returns the port's service and
-    answer."""
+    ``kw`` (``jax_int8_qfn`` goes to the JAX service as its ``int8_qfn``);
+    asserts equal indices and paths, close distances, and each gallery
+    image's top-1 its own row. Returns the port's service and answer."""
     cfg, bundle, port, emb, paths, queries = slice_setup
     monkeypatch.setattr(jservice, "topk_select",
                         functools.partial(jax_topk_select, interpret=True))
+    monkeypatch.setattr(
+        jax_retrieval_int8, "topk_select_int8",
+        functools.partial(jax_retrieval_int8.topk_select_int8,
+                          interpret=True))
+    jax_kw = dict(kw)
+    if "jax_int8_qfn" in kw:  # the int8 embed of each package
+        jax_kw["int8_qfn"] = jax_kw.pop("jax_int8_qfn")
+        del kw["jax_int8_qfn"]
     ref = jservice.RetrievalService(cfg, emb, paths, model_bundle=bundle,
-                                    **kw)
+                                    **jax_kw)
     svc = RetrievalService(cfg, emb, paths, device="cpu", model=port, **kw)
     rd, ri, rp = ref.query_arrays(queries)
     d, i, p = svc.query_arrays(queries)
@@ -139,3 +149,4 @@ def test_service_chunks_large_batches(slice_setup):
     wide = RetrievalService(cfg, emb, paths, k=40, device="cpu", model=port,
                             max_query_batch=1 << 20)
     assert wide.max_query_batch == _SCORE_BUDGET_BYTES // (1024 * 4) // 128 * 128
+
