@@ -1,6 +1,7 @@
-"""The configuration tree: the JAX package's ``config`` is framework-free
-(it imports neither jax nor flax), so the port shares it."""
+"""The configuration tree: a copy of the JAX package's ``config`` (same
+keys and defaults, so the same YAML files and ``KEY VALUE`` opts merge)."""
 
-from centroids_reid_tpu.config import ConfigNode, cfg, get_default_cfg
+from .defaults import cfg, get_default_cfg
+from .node import ConfigNode
 
 __all__ = ["cfg", "get_default_cfg", "ConfigNode"]

@@ -1,8 +1,10 @@
-"""Serving-path image transforms: host decode + resize, device normalise.
+"""Eval and serving image transforms: host decode + resize, device
+normalise.
 
 Counterpart of the eval half of ``centroids_reid_tpu/data/transforms.py``
-(``decode_and_resize_bytes``, the RGB branch of ``ingest_blobs`` and
-``normalize_batch``), carried here because that module imports jax.
+(``decode_and_resize_bytes``, ``load_and_resize``, the RGB branch of
+``ingest_blobs`` and ``normalize_batch``). The native JPEG decoder is the
+port's own copy (``centroids_reid_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ def _pil():
 
 
 def available_decoder() -> Optional[str]:
-    """'native' (g++ + libjpeg build of ``centroids_reid_tpu.native``),
+    """'native' (g++ + libjpeg build of ``centroids_reid_tpu_torch.native``),
     'pil', or None when neither can decode."""
-    from centroids_reid_tpu import native
+    from .. import native
 
     if native.available():
         return "native"
@@ -39,7 +41,7 @@ def decode_and_resize_bytes(data: bytes,
     JPEGs take the native decoder when it is built (bit-exact with PIL);
     anything it declines, or every image when it is unavailable, goes to
     PIL. Raises when neither is available."""
-    from centroids_reid_tpu.native import decode_resize
+    from ..native import decode_resize
 
     out = decode_resize(data, size_hw)
     if out is not None:
@@ -53,6 +55,14 @@ def decode_and_resize_bytes(data: bytes,
     img = image.open(io.BytesIO(data)).convert("RGB")
     h, w = size_hw
     return np.asarray(img.resize((w, h), image.BILINEAR), np.uint8)
+
+
+def load_and_resize(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
+    """File variant of ``decode_and_resize_bytes`` (the eval and offline
+    loaders)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_and_resize_bytes(data, size_hw)
 
 
 def ingest_blobs(fmt: str, size_hw: Tuple[int, int],

@@ -1,4 +1,5 @@
-from .api import load_inference_model
+from .api import build_embeddings, find_similar, load_inference_model
 from .service import RetrievalService, ranked_query
 
-__all__ = ["RetrievalService", "load_inference_model", "ranked_query"]
+__all__ = ["RetrievalService", "build_embeddings", "find_similar",
+           "load_inference_model", "ranked_query"]

@@ -21,7 +21,6 @@ from ..ops.retrieval import (
     _Q_TILE,
     _SCORE_BUDGET_BYTES,
     _pad_rows,
-    check_k,
     topk_select,
 )
 from ..ops.retrieval_int8 import (
@@ -115,16 +114,15 @@ class RetrievalService:
     which takes the uint8 RGB batch directly; ``int8_qfn`` takes precedence.
 
     ``mesh``, ``rerank_window`` and ``TPU.FAST_DECODE`` without an int8
-    embed are not ported yet and raise ``NotImplementedError``, as does a
-    selection depth above 4096 against more than 32768 gallery rows
-    (``ops.retrieval.check_k``). An empty gallery, and the reference's
-    refused combinations (``mesh`` or, in capacity mode, ``rerank_window``
-    with the int8 gallery), raise ``ValueError``.
+    embed are not ported yet and raise ``NotImplementedError``. The service
+    runs on the card unless ``device`` says otherwise. An empty gallery,
+    and the reference's refused combinations (``mesh`` or, in capacity
+    mode, ``rerank_window`` with the int8 gallery), raise ``ValueError``.
     """
 
     def __init__(self, cfg, gallery_embeddings: np.ndarray,
                  gallery_paths: Sequence, k: int = 10, normalize: bool = True,
-                 use_bf16_kernel: bool = True, *, device, model=None,
+                 use_bf16_kernel: bool = True, *, device="cuda", model=None,
                  max_query_batch: int = 512, exact_rescore: bool = True,
                  mesh=None, use_int8_gallery: bool = False,
                  rerank_window: int = 0, int8_calib_imgs=None, int8_qfn=None):
@@ -170,7 +168,6 @@ class RetrievalService:
             # the margin is clamped to the REAL row count, so +inf pad rows
             # never become candidates
             self._int8_sel = min(g, default_margin(self.k))
-            check_k(self._int8_sel, gf.shape[0])
             gal = quantize_gallery(gf_t)  # zero pad rows -> zero codes
             gn_i8 = gal.gn.clone()
             gn_i8[g:] = float("inf")      # pads never win selection
@@ -178,7 +175,6 @@ class RetrievalService:
             # capacity mode: the codes are the only resident gallery state
             self._gf32 = gf_t[:g].contiguous() if exact_rescore else None
         else:
-            check_k(self.k, gf.shape[0])
             kernel_dtype = torch.bfloat16 if use_bf16_kernel else torch.float32
             self._gf = gf_t.to(kernel_dtype)
             self._gf32 = gf_t[:g].contiguous() if exact_rescore else self._gf

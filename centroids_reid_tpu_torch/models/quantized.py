@@ -577,8 +577,13 @@ class QuantizedEmbed:
         np.savez(path, __meta__=np.asarray(meta), **flat)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "QuantizedEmbed":
-        """Read a ``.npz`` written by either package's ``save``."""
+    def load(path: str, device="cuda", use_pallas=None,
+             acc_dtype=None) -> "QuantizedEmbed":
+        """Read a ``.npz`` written by either package's ``save``, onto
+        ``device`` (the card unless the caller asks for the CPU). The
+        engine options default to the artifact's own; ``use_pallas`` /
+        ``acc_dtype`` override them (how the embed runs, not what it
+        computes from the stored weights and scales)."""
         raw = np.load(QuantizedEmbed.npz_path(path), allow_pickle=False)
         meta = json.loads(str(raw["__meta__"]))
         tree: Dict[str, Any] = {}
@@ -599,8 +604,10 @@ class QuantizedEmbed:
         }
         out = QuantizedEmbed(
             qtree, meta["plan"], meta["stem_relu"],
-            use_pallas=meta.get("use_pallas", False),
-            acc_dtype=getattr(torch, meta.get("acc_dtype", "bfloat16")),
+            use_pallas=(meta.get("use_pallas", False) if use_pallas is None
+                        else use_pallas),
+            acc_dtype=(getattr(torch, meta.get("acc_dtype", "bfloat16"))
+                       if acc_dtype is None else acc_dtype),
         )
         out.extra_meta = meta.get("extra", {})
         return out
@@ -644,6 +651,63 @@ def serving_identity(cfg, model) -> Dict:
         # dataflow format 2: int8-domain InstanceNorm (".pre" act scales)
         "format": 2,
     }
+
+
+def quantize_for_serving(cfg, model, records, store=None) -> QuantizedEmbed:
+    """The cfg-driven serving flow of the ONLY_TEST int8 eval and the
+    offline CLIs, on the model's device:
+
+    * ``TPU.INT8_CACHE_PATH`` set and present: load the saved artifact
+      after checking its identity metadata (``serving_identity``) against
+      the current config; a mismatch recalibrates and overwrites it;
+    * otherwise: calibrate on the leading ``TPU.INT8_CALIB_BATCHES`` full
+      batches of ``records`` (a ``Record`` list), honouring
+      ``TPU.INT8_CALIB_PCT``, and save to the cache path when one is set.
+
+    The embed runs the eligible convs on K5 / K6 and the others with an
+    exact int32 accumulator, whatever engine a loaded artifact names; the
+    reference's flow runs its convs unfused with a bf16 accumulator
+    (ROADMAP.md queue 3)."""
+    import logging
+
+    from ..data.loader import EvalLoader
+
+    log = logging.getLogger(__name__)
+    device = next(model.parameters()).device
+    identity = serving_identity(cfg, model)
+    cache = cfg.TPU.INT8_CACHE_PATH
+    cache = QuantizedEmbed.npz_path(cache) if cache else ""
+    if cache and os.path.exists(cache):
+        qfn = QuantizedEmbed.load(cache, device, use_pallas=True,
+                                  acc_dtype=torch.int32)
+        if qfn.extra_meta == identity:
+            log.info(f"int8 serving: loaded quantized model {cache}")
+            return qfn
+        log.warning(
+            f"int8 serving: cached artifact {cache} was built for "
+            f"{qfn.extra_meta}, current run is {identity}; recalibrating")
+
+    n = max(1, cfg.TPU.INT8_CALIB_BATCHES) * cfg.TEST.IMS_PER_BATCH
+    # full batches only, so every calibration batch has one shape; a
+    # partial tail is detectable through the loader's valid mask
+    calib = [b["images"][b["valid"]]
+             for b in EvalLoader(records[:n], cfg, store=store)
+             if bool(b["valid"].all())]
+    if not calib:  # fewer records than one batch: pad by repetition
+        b = next(iter(EvalLoader(records[:n], cfg, store=store)))
+        imgs = b["images"][b["valid"]]
+        reps = -(-cfg.TEST.IMS_PER_BATCH // max(len(imgs), 1))
+        calib = [np.tile(imgs, (reps, 1, 1, 1))[:cfg.TEST.IMS_PER_BATCH]]
+    qfn = quantize_reid_model(model, calib, cfg.INPUT.PIXEL_MEAN,
+                              cfg.INPUT.PIXEL_STD, use_pallas=True,
+                              acc_dtype=torch.int32,
+                              calib_percentile=cfg.TPU.INT8_CALIB_PCT)
+    log.info(f"int8 serving active (calibrated on {len(calib)} batches)")
+    if cache:
+        qfn.save(cache, extra_meta=identity)
+        qfn.extra_meta = identity
+        log.info(f"saved quantized model to {cache}")
+    return qfn
 
 
 def folded_fp_embed(model, pixel_mean, pixel_std):

@@ -24,7 +24,7 @@ _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 2
+_ABI_VERSION = 3
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,6 +53,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_scores.argtypes = [p, p, p, p, i, i, i, p]
     lib.crt_stream_topk.restype = i
     lib.crt_stream_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.crt_stream_topk_unpacked.restype = i
+    lib.crt_stream_topk_unpacked.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                             p]
     lib.crt_kpass_topk.restype = i
     lib.crt_kpass_topk.argtypes = [p, p, p, i, i, i, p]
     lib.crt_scores_i8.restype = i

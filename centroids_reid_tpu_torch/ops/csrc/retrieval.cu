@@ -4,6 +4,7 @@
 //   K1 crt_scores          scores = gn - 2 q.g^T             (bf16 in, fp32 out)
 //   K2 crt_stream_topk     streaming top-k at bf16 key resolution, k <= 32,
 //                          never materialises the Q x G score matrix
+//   K2u crt_stream_topk_unpacked  the same selection by exact fp32 score
 //   K3 crt_kpass_topk      exact fp32 k smallest of each row, row in smem
 //
 // Plain C interface, loaded with ctypes (ops/_build.py). Every entry point
@@ -142,25 +143,50 @@ scores_kernel(const __nv_bfloat16* __restrict__ q,
 // The TPU kernel starts from k entries (+inf, column 0) that win every tie
 // at +inf; the lists here start from the same keys.
 //
+// K2u. Replaces the same _retrieval_kernel with _merge_topk (via
+// _topk_pallas(packed=False)): the TPU kernel selects by the exact fp32
+// score with jnp.min / argmin over [best entries | tile], i.e. by (fp32
+// score, global column). The same two passes run on the key
+// (mono32(score) << 32 | global column): mono32 is the order-preserving
+// map of the fp32 bits, with -0.0 folded to +0.0 (min/argmin treat them as
+// equal, so the column decides), and key_value inverts it exactly. Only
+// the key functions differ (template parameter kPacked).
+//
 // Bound: like K1 it reads the gallery once (411 MB at the serving shape)
 // and never writes the score matrix. The merge costs one ballot per 32
 // candidates once a row's list is full; a candidate enters only if it
 // beats the row's k-th key, which a random gallery rarely does.
 // ---------------------------------------------------------------------------
+template <bool kPacked>
 __device__ __forceinline__ u64 make_key(float s, unsigned col) {
-  const unsigned bits = __bfloat16_as_ushort(__float2bfloat16_rn(s));
-  const unsigned u = (bits & 0x8000u) ? (0xFFFFu - bits) : (bits | 0x8000u);
+  if constexpr (kPacked) {
+    const unsigned bits = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+    const unsigned u = (bits & 0x8000u) ? (0xFFFFu - bits) : (bits | 0x8000u);
+    return ((u64)u << 32) | col;
+  }
+  unsigned bits = __float_as_uint(s);
+  if (bits == 0x80000000u) bits = 0u;  // -0.0 orders as +0.0
+  const unsigned u = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
   return ((u64)u << 32) | col;
 }
 
+template <bool kPacked>
 __device__ __forceinline__ float key_value(u64 key) {
   const unsigned u = (unsigned)(key >> 32);
-  const unsigned bits = (u >= 0x8000u) ? (u - 0x8000u) : (0xFFFFu - u);
-  return __uint_as_float(bits << 16);
+  if constexpr (kPacked) {
+    const unsigned bits = (u >= 0x8000u) ? (u - 0x8000u) : (0xFFFFu - u);
+    return __uint_as_float(bits << 16);
+  }
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
 }
 
-// mono16(bf16(+inf)) << 32 | column 0: the TPU kernel's initial entry
-constexpr u64 KEY_INIT = (u64)(0x7F80u | 0x8000u) << 32;
+// mono(+inf) << 32 | column 0: the TPU kernel's initial entry
+template <bool kPacked>
+struct KeyInit {
+  static constexpr u64 value =
+      kPacked ? (u64)(0x7F80u | 0x8000u) << 32
+              : (u64)(0x7F800000u | 0x80000000u) << 32;
+};
 
 // Warp-wide insert of one warp-uniform key into the sorted list held one
 // entry per lane (lane i = i-th smallest; lanes >= k hold KEY_MAX).
@@ -186,6 +212,7 @@ __device__ __forceinline__ void list_offer(u64& mine, u64& thr, u64 key, int k,
   }
 }
 
+template <bool kPacked>
 __global__ void __launch_bounds__(THREADS)
 stream_topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ g,
@@ -203,7 +230,7 @@ stream_topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int c_end = min(G, c_begin + split_cols);
 
   for (int i = threadIdx.x; i < BM * 32; i += THREADS)
-    L[i] = (i % 32) < k ? KEY_INIT : KEY_MAX;
+    L[i] = (i % 32) < k ? KeyInit<kPacked>::value : KEY_MAX;
   __syncthreads();
 
   for (int g0 = c_begin; g0 < c_end; g0 += BN) {
@@ -216,7 +243,7 @@ stream_topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c0 = 0; c0 < BN; c0 += 32) {
         const int col = g0 + c0 + lane;
         const float sc = gn[col] - 2.0f * Cs[r * LDC + c0 + lane];
-        list_offer(mine, thr, make_key(sc, (unsigned)col), k, lane);
+        list_offer(mine, thr, make_key<kPacked>(sc, (unsigned)col), k, lane);
       }
       L[r * 32 + lane] = mine;
     }
@@ -229,6 +256,7 @@ stream_topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // Pass 2: one warp per query row merges the n_splits * k partial keys.
+template <bool kPacked>
 __global__ void stream_topk_merge_kernel(const u64* __restrict__ part,
                                          float* __restrict__ val,
                                          int64_t* __restrict__ idx, int Q,
@@ -243,7 +271,7 @@ __global__ void stream_topk_merge_kernel(const u64* __restrict__ part,
     list_offer(mine, thr, key, k, lane);
   }
   if (lane < k) {
-    val[(size_t)row * k + lane] = key_value(mine);
+    val[(size_t)row * k + lane] = key_value<kPacked>(mine);
     idx[(size_t)row * k + lane] = (int64_t)(mine & 0xFFFFFFFFull);
   }
 }
@@ -341,7 +369,7 @@ __global__ void kpass_topk_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-int crt_abi_version() { return 2; }
+int crt_abi_version() { return 3; }
 
 int crt_scores(const void* q, const void* g, const float* gn, float* out,
                int Q, int G, int D, void* stream) {
@@ -355,25 +383,51 @@ int crt_scores(const void* q, const void* g, const float* gn, float* out,
   return (int)cudaGetLastError();
 }
 
+}  // extern "C"
+
+namespace {
+
 // part: scratch of Q * n_splits * k keys, n_splits = ceil(G / split_cols).
-int crt_stream_topk(const void* q, const void* g, const float* gn, void* part,
-                    float* val, int64_t* idx, int Q, int G, int D, int k,
-                    int split_cols, void* stream) {
+template <bool kPacked>
+int launch_stream_topk(const void* q, const void* g, const float* gn,
+                       void* part, float* val, int64_t* idx, int Q, int G,
+                       int D, int k, int split_cols, cudaStream_t stream) {
   const size_t smem = kStageBytes + kTileBytes + kListBytes;
-  cudaError_t e = cudaFuncSetAttribute(stream_topk_partial_kernel,
+  cudaError_t e = cudaFuncSetAttribute(stream_topk_partial_kernel<kPacked>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_splits = (G + split_cols - 1) / split_cols;
   dim3 grid(n_splits, Q / BM);
-  stream_topk_partial_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  stream_topk_partial_kernel<kPacked><<<grid, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)g, gn, (u64*)part, G, D,
       k, split_cols, n_splits);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  stream_topk_merge_kernel<<<(Q + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+  stream_topk_merge_kernel<kPacked><<<(Q + 7) / 8, 256, 0, stream>>>(
       (const u64*)part, val, idx, Q, n_splits * k, k);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2: selection at bf16 key resolution.
+int crt_stream_topk(const void* q, const void* g, const float* gn, void* part,
+                    float* val, int64_t* idx, int Q, int G, int D, int k,
+                    int split_cols, void* stream) {
+  return launch_stream_topk<true>(q, g, gn, part, val, idx, Q, G, D, k,
+                                  split_cols, (cudaStream_t)stream);
+}
+
+// K2u: selection by the exact fp32 score.
+int crt_stream_topk_unpacked(const void* q, const void* g, const float* gn,
+                             void* part, float* val, int64_t* idx, int Q,
+                             int G, int D, int k, int split_cols,
+                             void* stream) {
+  return launch_stream_topk<false>(q, g, gn, part, val, idx, Q, G, D, k,
+                                   split_cols, (cudaStream_t)stream);
 }
 
 int crt_kpass_topk(const float* x, float* val, int64_t* idx, int Q, int W,

@@ -8,9 +8,13 @@ beside its plain PyTorch version:
 * K1 ``scores`` / ``scores_plain``: the bf16 score matrix, fp32 accumulate;
 * K2 ``stream_topk`` / ``stream_topk_plain``: streaming top-k for bf16 at
   k <= 32, selected at bf16 score resolution, ties to the lower column;
+* K2u ``stream_topk(packed=False)`` / ``stream_topk_plain(packed=False)``:
+  the same streaming selection on exact fp32 scores (the TPU kernel's
+  unpacked merge);
 * K3 ``kpass_topk`` / ``kpass_topk_plain``: the exact fp32 k smallest of
   each row, ties to the lower column; the base case and final pass of the
-  hierarchical top-k.
+  hierarchical top-k. Rows wider than one K3 row (32768 columns) take a
+  stable sort instead, as the reference sends them to ``lax.top_k``.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises. Each launch adds one to
@@ -33,11 +37,10 @@ _SCORE_BUDGET_BYTES = 512 << 20
 # tile this gives 196 blocks, about 1.5 waves over the H100's 132 SMs
 _STREAM_SPLIT = 512
 _KPASS_MAX_W = 32768  # one fp32 row in shared memory (128 KB)
-# the hierarchical top-k's final pass runs K3 on 8k columns
-_HIER_MAX_K = _KPASS_MAX_W // 8
 _INF = float("inf")
 
-LAUNCHES: Dict[str, int] = {"scores": 0, "stream_topk": 0, "kpass_topk": 0}
+LAUNCHES: Dict[str, int] = {"scores": 0, "stream_topk": 0,
+                            "stream_topk_unpacked": 0, "kpass_topk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -122,25 +125,35 @@ def scores(qf, gf, gn_row):
     return out
 
 
-# --------------------------------------------------------------- K2 ------
+# ---------------------------------------------------------- K2 / K2u ------
 
-def stream_topk_plain(qf, gf, gn_row, k: int):
-    """The k smallest scores per row, ordered by (bf16-rounded score,
-    column) — the order of the TPU kernel's packed key. Values are the
-    bf16-rounded scores. Slots at +inf take column 0, as the TPU kernel's
-    initial (+inf, 0) entries win every tie there."""
-    s = scores_plain(qf, gf, gn_row).to(torch.bfloat16).float()
+def stream_topk_plain(qf, gf, gn_row, k: int, packed: bool = True):
+    """The k smallest scores per row, ordered by (score, column): with
+    ``packed`` the bf16-rounded score of the TPU kernel's packed key, and
+    the values are those bf16-rounded scores; without it the exact fp32
+    score. Slots at +inf take column 0, as the TPU kernel's initial (+inf,
+    0) entries win every tie there."""
+    s = scores_plain(qf, gf, gn_row)
+    if packed:
+        s = s.to(torch.bfloat16).float()
     v, i = torch.sort(s, dim=1, stable=True)
     v, i = v[:, :k], i[:, :k]
     return v, torch.where(torch.isposinf(v), torch.zeros_like(i), i)
 
 
-def stream_topk(qf, gf, gn_row, k: int):
-    """K2: streaming bf16 top-k (k <= 32) -> (fp32 [Qp, k], int64 [Qp, k])."""
+def stream_topk(qf, gf, gn_row, k: int, packed: bool = True):
+    """Streaming top-k (k <= 32) -> (fp32 [Qp, k], int64 [Qp, k]).
+
+    ``packed=True`` is K2: selection at bf16 score resolution. ``packed=
+    False`` is K2u: exact fp32 scores (the TPU kernel's unpacked merge).
+    Diverges from the TPU's unpacked kernel only where a row holds fewer
+    than k scores below +inf: its +inf slots here take column 0, where the
+    TPU kernel repeats the column of the row's minimum over its earlier
+    gallery tiles (a taken entry stays in its merge buffer at +inf)."""
     if not 1 <= k <= 32:
         raise ValueError(f"stream_topk needs 1 <= k <= 32, got {k}")
     if _on_cpu(qf, gf, gn_row):
-        return stream_topk_plain(qf, gf, gn_row, k)
+        return stream_topk_plain(qf, gf, gn_row, k, packed)
     from . import _build
 
     q, g, d = _check_score_inputs(qf, gf, gn_row)
@@ -150,12 +163,15 @@ def stream_topk(qf, gf, gn_row, k: int):
     part = torch.empty((q, n_splits, k), dtype=torch.int64, device=qf.device)
     val = torch.empty((q, k), dtype=torch.float32, device=qf.device)
     idx = torch.empty((q, k), dtype=torch.int64, device=qf.device)
-    rc = _build.load().crt_stream_topk(
+    lib = _build.load()
+    launch, name = ((lib.crt_stream_topk, "stream_topk") if packed
+                    else (lib.crt_stream_topk_unpacked, "stream_topk_unpacked"))
+    rc = launch(
         qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(), part.data_ptr(),
         val.data_ptr(), idx.data_ptr(), q, g, d, k, _STREAM_SPLIT, _stream(),
     )
-    _check(rc, "stream_topk")
-    LAUNCHES["stream_topk"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return val, idx
 
 
@@ -201,17 +217,14 @@ def kpass_topk(x, k: int):
 
 # ---------------------------------------------------------- selection ----
 
-def check_k(k: int, gallery_rows: int) -> None:
-    """Refuse a k that the hierarchical top-k cannot serve on K3: above
-    4096, against more than 32768 (padded) gallery rows, its base case or
-    final pass would be wider than one K3 row. Raises on every device, so
-    the port serves the same k on the CPU as on the card."""
-    if k > _HIER_MAX_K and gallery_rows > _KPASS_MAX_W:
-        raise NotImplementedError(
-            f"k={k} > {_HIER_MAX_K} against {gallery_rows} gallery rows (> "
-            f"{_KPASS_MAX_W}) is not ported yet: it needs K3 over rows wider "
-            f"than {_KPASS_MAX_W} columns (ROADMAP.md queue 2)"
-        )
+def _exact_topk(x, k: int):
+    """Exact k smallest per row, ties to the lower column: K3 for rows of
+    up to 32768 columns, else a stable sort (the reference's ``lax.top_k``
+    on rows too wide for its kernel; not a K3 launch)."""
+    if x.shape[1] <= _KPASS_MAX_W:
+        return kpass_topk(x, k)
+    v, i = torch.sort(x, dim=1, stable=True)
+    return v[:, :k], i[:, :k]
 
 
 def _hier_topk_build(scores_, k: int):
@@ -225,7 +238,7 @@ def _hier_topk_build(scores_, k: int):
     position, as ``lax.top_k`` does there."""
     q, w = scores_.shape
     if w <= max(16384, 8 * k):
-        return kpass_topk(scores_, k)
+        return _exact_topk(scores_, k)
     pad = (-w) % 8
     if pad:
         scores_ = torch.cat(
@@ -236,7 +249,7 @@ def _hier_topk_build(scores_, k: int):
     _, gsel = _hier_topk_build(gm.contiguous(), k)
     cols = (gsel[:, :, None]
             + w8 * torch.arange(8, device=scores_.device)).reshape(q, k * 8)
-    v, sel = kpass_topk(torch.gather(scores_, 1, cols), k)
+    v, sel = _exact_topk(torch.gather(scores_, 1, cols), k)
     return v, torch.gather(cols, 1, sel)
 
 
@@ -244,7 +257,7 @@ def topk_select(qf, gf, gn_row, k: int):
     """[Qp, D] x [Gp, D] (+ gn_row [1, Gp]) -> top-k ``(scores [Qp, k],
     indices [Qp, k])`` by the raw score ``||g||^2 - 2 q.g``.
 
-    * bf16, k <= 32 -> K2 (values at bf16 resolution);
+    * bf16, k <= 32 -> K2 (``packed=True``; values at bf16 resolution);
     * bf16, k > 32  -> K1 + hierarchical exact top-k on K3;
     * fp32          -> a plain fp32 matmul (as the reference leaves its
       fp32 path to XLA) + the same hierarchical top-k.
@@ -254,7 +267,7 @@ def topk_select(qf, gf, gn_row, k: int):
     gn_row at +inf."""
     if qf.dtype == torch.bfloat16:
         if k <= 32:
-            return stream_topk(qf, gf, gn_row, k)
+            return stream_topk(qf, gf, gn_row, k, packed=True)
         s = scores(qf, gf, gn_row)
     else:
         s = scores_plain(qf, gf, gn_row)
@@ -285,7 +298,6 @@ def topk_retrieval(qf, gf, k: int,
     g = gf.shape[0]
     k_eff = min(k, g)
     pad_g = (-g) % _G_TILE
-    check_k(k_eff, g + pad_g)
     gf = _pad_rows(gf, pad_g)
     gnorm2 = torch.cat([gnorm2, gnorm2.new_full((pad_g,), _INF)])
     gn_row = gnorm2[None, :]

@@ -35,7 +35,6 @@ from .retrieval import (
     _on_cpu,
     _pad_rows,
     _stream,
-    check_k,
 )
 
 LAUNCHES: Dict[str, int] = {"scores_i8": 0}
@@ -149,7 +148,6 @@ def topk_select_int8(qf, gal: Int8Gallery, gf32: Optional[torch.Tensor],
     g = gal.num_rows
     k_eff = min(int(k), g)
     n_sel = min(g, int(sel) if sel else default_margin(k_eff))
-    check_k(n_sel, g)
     scores = scores_i8(qf.to(torch.bfloat16).contiguous(), gal.codes,
                        gal.scale[None, :], gal.gn[None, :])
     _, cand = _hier_topk_build(scores, n_sel)                 # [Q, n_sel]
@@ -191,7 +189,6 @@ def topk_retrieval_int8(qf, gal: Int8Gallery, gf32: Optional[torch.Tensor],
             scale=torch.cat([gal.scale, gal.scale.new_ones(pad_g)]),
             gn=torch.cat([gal.gn, gal.gn.new_full((pad_g,), _INF)]),
         )
-    check_k(sel, gal.num_rows)
 
     q, gp = qf.shape[0], gal.num_rows
     chunk = max(_Q_TILE, min(4096, (_SCORE_BUDGET_BYTES // (gp * 4))

@@ -4,20 +4,28 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``centroids_reid_tpu_torch/ops/csrc``, holds
-each against its plain PyTorch version at the serving paths' shapes, then
-drives both serving paths of ResNet-50 (BNNeck, last stride 1, 256x128)
-with seeded random weights through ``RetrievalService``:
+each against its plain PyTorch version at the main paths' shapes, then
+drives the port's paths with ResNet-50 (BNNeck, last stride 1, 256x128,
+bf16 autocast) and seeded random weights:
 
-* bf16: the bf16 embed against a 100,000 x 2048 bf16 gallery at k=10 and
-  k=100 (K1, K2, K3);
-* int8: the int8 PTQ embed (folded and calibrated from the same model; K5,
-  K6) against the int8 index of the same gallery (K4, K3) at k=10 and
-  k=100, and in capacity mode at k=10.
+* serving through ``RetrievalService``: the bf16 embed against a 100,000 x
+  2048 bf16 gallery at k=10 and k=100 (K1, K2, K3), and the int8 PTQ embed
+  (K5, K6) against the int8 index of the same gallery (K4, K3) at k=10,
+  k=100 and in capacity mode at k=10;
+* K2u through its own entry point, ``stream_topk(packed=False)``;
+* evaluation: ONLY_TEST through ``engine.runner.main`` on a synthetic
+  Market-1501-layout dataset, in bf16 and with ``TPU.INT8_EVAL`` (K5, K6),
+  both centroid modes, each metric held against the same metric computed
+  on the CPU from the same embeddings;
+* the offline CLIs: ``inference.create_embeddings`` (with and without
+  centroids) and ``inference.get_similar`` at ``--topk`` 10 and 100 (K3),
+  the gallery images as queries.
 
-Times the embeds, the requests and the kernels with CUDA events, and a
-request's device busy time with ``torch.profiler``. Exits non-zero on any
-failure; the last line is ``{"ok": true, "device": {...}}``. Imports no
-JAX.
+Times the embeds, the requests and the kernels (with each kernel's bound
+and, where one PyTorch call computes the same function, that call) with
+CUDA events, and a request's device busy time with ``torch.profiler``.
+Exits non-zero on any failure; the last line is ``{"ok": true, "device":
+{...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,13 +46,17 @@ N_IMAGES = 64           # synthetic images embedded into known gallery rows
 REQUEST = 8             # images per served request
 SEED = 0
 SELF_DIST_TOL = 1e-2    # squared distance of an image to its own row
-HBM_PEAK_GBS = 3350     # H100 SXM data sheet
+HBM_PEAK_GBS = 3350     # H100 SXM data sheet: 3.35 TB/s
+# H100 SXM data sheet, dense: operations per second by type
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 CSRC = "centroids_reid_tpu_torch/ops/csrc/"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "scores": ("retrieval.cu", "centroids_reid_tpu/ops/retrieval.py:141"),
     "stream_topk": ("retrieval.cu",
                     "centroids_reid_tpu/ops/retrieval.py:360"),
+    "stream_topk_unpacked": ("retrieval.cu",
+                             "centroids_reid_tpu/ops/retrieval.py:360"),
     "kpass_topk": ("retrieval.cu", "centroids_reid_tpu/ops/retrieval.py:192"),
     "scores_i8": ("retrieval_int8.cu",
                   "centroids_reid_tpu/ops/retrieval_int8.py:106"),
@@ -252,6 +264,41 @@ def phase_compare() -> dict:
         "values: values and indices exact")
     torch.cuda.synchronize()
     return errs
+
+
+def phase_compare_k2u() -> dict:
+    """K2u against its plain version at the serving shape: exact on integer
+    inputs at k=10 and k=32; on unit rows near-ties may swap under another
+    summation order, so a share of equal indices and a value tolerance."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import retrieval as R
+
+    log("== phase 3a: K2u (streaming top-k on exact fp32 scores)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE   # 100352
+    qi, gi = int_rows(128, gen), int_rows(gp, gen)
+    gni = gn_row(gi, GALLERY_ROWS)
+    q = unit_rows(128, gen, torch.bfloat16)
+    g = unit_rows(gp, gen, torch.bfloat16)
+    gn = gn_row(g, GALLERY_ROWS)
+    err = 0.0
+    for k in (10, 32):
+        v, i = R.stream_topk(qi, gi, gni, k, packed=False)
+        rv, ri = R.stream_topk_plain(qi, gi, gni, k, packed=False)
+        require(torch.equal(i, ri) and torch.equal(v, rv),
+                f"K2u k={k} differs on integer inputs")
+        v, i = R.stream_topk(q, g, gn, k, packed=False)
+        rv, ri = R.stream_topk_plain(q, g, gn, k, packed=False)
+        share = (i == ri).float().mean().item()
+        e = (v - rv).abs().max().item()
+        err = max(err, e)
+        log(f"K2u stream_topk(packed=False) k={k} [128, {DIM}] x [{gp}, "
+            f"{DIM}]: integer inputs exact; unit rows indices equal "
+            f"{share:.4f} (need >= 0.99), max |err| {e:.3e} (tol 1e-4)")
+        require(share >= 0.99 and e <= 1e-4, f"K2u k={k} disagrees")
+    torch.cuda.synchronize()
+    return {"stream_topk_unpacked": err}
 
 
 def requant_inputs(gen, m: int, k: int, n: int, res_shape=None):
@@ -572,6 +619,253 @@ def phase_serve_int8(state: dict) -> dict:
     return {"launches": launches, "qfn": qfn, "services": services}
 
 
+def phase_k2u_entry() -> dict:
+    """K2u has no caller in the system (the reference's dispatch sends
+    every k <= 32 request to the packed K2); its path is its own entry
+    point, ``stream_topk(packed=False)``, driven once at the serving
+    shape with the counts set to 0 just before."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+        retrieval as R,
+    )
+
+    log("== phase 4c: K2u through its entry point")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE
+    q, g = unit_rows(128, gen, torch.bfloat16), unit_rows(gp, gen,
+                                                          torch.bfloat16)
+    gn = gn_row(g, GALLERY_ROWS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    v, i = R.stream_topk(q, g, gn, 10, packed=False)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(launches["stream_topk_unpacked"] > 0
+            and bool(torch.isfinite(v).all())
+            and bool((v[:, 1:] >= v[:, :-1]).all()),
+            "K2u entry point: no launch, or values not finite and sorted")
+    log(f"kernel launches through stream_topk(packed=False): {launches}")
+    return launches
+
+
+EVAL_PIDS = 100          # synthetic Market-1501 cut: 100 identities,
+EVAL_QUERIES = 2         # 2 queries and 18 gallery images each, 6 cameras,
+EVAL_GALLERY = 18        # 128x64 JPEGs (the dataset's native crop size)
+EVAL_CAMS = 6
+
+
+def _write_market(root: str) -> None:
+    """A Market-1501 layout: each identity a seeded pattern of coloured
+    blocks; each image that pattern under its own brightness shift and
+    pixel noise. Queries sit on two cameras per identity, the gallery on
+    all six, the train folder holds one image per identity."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 7)
+    patterns = rng.randint(0, 256, (EVAL_PIDS, 8, 4, 3)).astype(np.float32)
+    base = os.path.join(root, "market1501")
+    for sub in ("bounding_box_train", "query", "bounding_box_test"):
+        os.makedirs(os.path.join(base, sub))
+
+    def write(sub, pid, cam, i):
+        img = np.kron(patterns[pid], np.ones((16, 16, 1), np.float32))
+        img = img + rng.randint(-30, 31, (1, 1, 3)) + rng.normal(0, 10,
+                                                                 img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(base, sub,
+                         f"{pid + 1:04d}_c{cam + 1}s1_{i:06d}_00.jpg"))
+
+    for pid in range(EVAL_PIDS):
+        write("bounding_box_train", pid, pid % EVAL_CAMS, 0)
+        for j in range(EVAL_QUERIES):
+            write("query", pid, (pid + 3 * j) % EVAL_CAMS, 100 + j)
+        for j in range(EVAL_GALLERY):
+            write("bounding_box_test", pid, j % EVAL_CAMS, 200 + j)
+
+
+def _eval_opts(ckpt: str, root: str, logs: str, *extra) -> list:
+    return ["DATASETS.NAMES", "market1501", "DATASETS.ROOT_DIR", root,
+            "MODEL.PRETRAIN_PATH", ckpt, "TEST.ONLY_TEST", "True",
+            "MODEL.USE_CENTROIDS", "True", "REPRODUCIBLE_NUM_RUNS", "1",
+            "OUTPUT_DIR", logs, *extra]
+
+
+def phase_eval(tmp: str, ckpt: str) -> dict:
+    """ONLY_TEST through ``engine.runner.main`` (the configs default:
+    ResNet-50, 256x128, bf16), then again with ``TPU.INT8_EVAL True``.
+    Every metric the runner computed on the card is held against the same
+    metric computed on the CPU from the same embeddings (captured at
+    ``compute_reid_metrics``). Returns the launch counts of the int8 run
+    and the timings."""
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.data import EvalLoader, ImageStore
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.engine import evaluate, runner
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 5: evaluation (ONLY_TEST through the runner)")
+    root = os.path.join(tmp, "eval_data")
+    t0 = time.perf_counter()
+    _write_market(root)
+    log(f"synthetic Market-1501 layout: {EVAL_PIDS} pids, {EVAL_CAMS} "
+        f"cameras, {EVAL_PIDS * EVAL_QUERIES} queries, "
+        f"{EVAL_PIDS * EVAL_GALLERY} gallery images, 128x64 JPEGs resized "
+        f"to 256x128 (cut from Market-1501's 19,281 test images: 3,368 "
+        f"queries and 15,913 gallery images of 750 pids), written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    captured = []
+    compute = evaluate.compute_reid_metrics
+
+    def capture(cfg, emb, pids, camids, nq, use_centroids, **kw):
+        m = compute(cfg, emb, pids, camids, nq, use_centroids, **kw)
+        captured.append((cfg, emb, pids, camids, nq, use_centroids, m))
+        return m
+
+    evaluate.compute_reid_metrics = capture
+    runs = {}
+    try:
+        for name, extra in (("bf16", ()),
+                            ("int8", ("TPU.INT8_EVAL", "True"))):
+            captured.clear()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = runner.main(_eval_opts(
+                ckpt, root, os.path.join(tmp, f"logs_{name}"), *extra))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = launch_counts()
+            require(len(captured) == 2, f"{name}: expected two evaluations")
+            for cfg, emb, pids, camids, nq, cent, m in captured:
+                require(emb.shape == (EVAL_PIDS * (EVAL_QUERIES
+                                                   + EVAL_GALLERY), DIM)
+                        and np.isfinite(emb).all(),
+                        f"{name}: bad embeddings {emb.shape}")
+                ref = compute(cfg, emb, pids, camids, nq, cent, device="cpu")
+                tag = "centroids" if cent else "plain"
+                require(np.array_equal(m.all_topk, ref.all_topk)
+                        and np.array_equal(m.cmc, ref.cmc)
+                        and abs(m.mAP - ref.mAP) <= 1e-6,
+                        f"{name} {tag}: card metrics differ from the CPU's")
+                require(out[f"test_{tag}_mAP"] == m.mAP,
+                        f"{name} {tag}: runner output is not the metric")
+                log(f"{name} eval, {tag}: mAP {m.mAP:.6f}, R1 "
+                    f"{m.all_topk[0]:.6f}, R5 {m.all_topk[1]:.6f} (CPU "
+                    f"recompute from the same embeddings: mAP "
+                    f"{ref.mAP:.6f}, CMC and top-k equal)")
+            log(f"{name} ONLY_TEST: {secs:.2f} s for both centroid modes "
+                f"(host clock: decode, model load"
+                + (", calibration" if name == "int8" else "")
+                + f", two evaluations); kernel launches: {launches}")
+            runs[name] = {"launches": launches, "seconds": secs,
+                          "metrics": out}
+    finally:
+        evaluate.compute_reid_metrics = compute
+    for kname in ("matmul_requant", "conv3x3_requant"):
+        require(runs["int8"]["launches"][kname] > 0,
+                f"kernel {kname} was not launched by the int8 evaluation")
+
+    # extraction rate of the eval loader + bf16 embed, warm image cache
+    cfg = get_default_cfg()
+    cfg.merge_from_list(_eval_opts(ckpt, root, os.path.join(tmp, "x")))
+    dataset = init_dataset("market1501", cfg)
+    model = runner.load_model_for_test(cfg)
+    store = ImageStore(tuple(cfg.INPUT.SIZE_TEST), True)
+    rates = []
+    for _ in range(3):   # cold (decode), then two warm passes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb, _, _ = evaluate.extract_embeddings(
+            model, cfg, EvalLoader(dataset.val, cfg, store=store))
+        rates.append(len(emb) / (time.perf_counter() - t0))
+    log(f"extraction, {len(emb)} images, batch {cfg.TEST.IMS_PER_BATCH}, "
+        f"bf16 (host clock, loader + embed + copy to host): "
+        f"{rates[0]:.1f} embeddings/s with decode, {rates[1]:.1f} / "
+        f"{rates[2]:.1f} from the warm image cache")
+    return {"runs": runs, "rates": rates, "root": root}
+
+
+def phase_cli(tmp: str, ckpt: str, root: str) -> dict:
+    """``create_embeddings`` over a subfolder copy of the gallery (one
+    folder per pid) with and without centroids, then ``get_similar`` with
+    the gallery images as queries against the non-centroid index at
+    ``--topk`` 10 and 100: each query's top-1 is its own row. Returns the
+    launch counts of the ``get_similar`` runs."""
+    import os
+    import shutil
+
+    import torch
+
+    from centroids_reid_tpu_torch.inference import (
+        create_embeddings,
+        get_similar,
+    )
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 6: offline CLIs")
+    gallery = os.path.join(root, "market1501", "bounding_box_test")
+    sub = os.path.join(tmp, "gallery_by_pid")
+    names = sorted(os.listdir(gallery))
+    for name in names:
+        os.makedirs(os.path.join(sub, name[:4]), exist_ok=True)
+        shutil.copy(os.path.join(gallery, name), os.path.join(sub, name[:4]))
+    common = ["MODEL.PRETRAIN_PATH", ckpt, "DATASETS.ROOT_DIR"]
+    index = {}
+    for cent in (False, True):
+        out = os.path.join(tmp, f"index_{'centroids' if cent else 'flat'}")
+        t0 = time.perf_counter()
+        emb, paths = create_embeddings.main([
+            "--images-in-subfolders", *common, sub,
+            "MODEL.USE_CENTROIDS", str(cent), "OUTPUT_DIR", out])
+        n = EVAL_PIDS if cent else len(names)
+        require(emb.shape == (n, DIM) and np.isfinite(emb).all()
+                and len(paths) == n, f"create_embeddings {cent}: bad index")
+        log(f"create_embeddings, centroids {cent}: {emb.shape[0]} x "
+            f"{emb.shape[1]} in {time.perf_counter() - t0:.2f} s")
+        index[cent] = out
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for topk in (10, 100):
+        t0 = time.perf_counter()
+        res = get_similar.main([
+            "--gallery_data", index[False], "--topk", str(topk),
+            "--normalize_features", *common, gallery,
+            "OUTPUT_DIR", os.path.join(tmp, f"similar_{topk}")])
+        secs = time.perf_counter() - t0
+        worst = 0.0
+        require(len(res) == len(names), "get_similar: one result per query")
+        for qp, r in res.items():
+            require(len(r["indices"]) == min(topk, len(names))
+                    and np.isfinite(r["distances"]).all()
+                    and (np.diff(r["distances"]) >= -1e-6).all(),
+                    f"get_similar topk={topk}: bad result for {qp}")
+            require(os.path.basename(r["paths"][0]) == os.path.basename(qp),
+                    f"get_similar topk={topk}: top-1 of {qp} is "
+                    f"{r['paths'][0]}")
+            worst = max(worst, float(abs(r["distances"][0])))
+        require(worst <= SELF_DIST_TOL,
+                f"get_similar topk={topk}: self distance {worst}")
+        log(f"get_similar --topk {topk}, {len(res)} queries: every top-1 "
+            f"is its own row, self distance <= {worst:.2e} (tol "
+            f"{SELF_DIST_TOL}); {secs:.2f} s")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"kernel launches while running get_similar: {launches}")
+    require(launches["kpass_topk"] > 0,
+            "kernel kpass_topk was not launched by get_similar")
+    return launches
+
+
 def time_requests(name: str, svc, imgs) -> None:
     """Request p50 (host clock) and device busy time per request, as
     described in the log line."""
@@ -593,19 +887,40 @@ def time_requests(name: str, svc, imgs) -> None:
            else "not measured (the profiler saw no device time)"))
 
 
-def time_pair(name: str, kern, plain, shape: str):
-    """(kernel ms, plain ms), each the mean of two CUDA-event runs taken
-    plain, kernel, kernel, plain: one card, one call, in turns."""
+def time_pair(name: str, kern, plain, shape: str, library=None):
+    """(kernel ms, plain ms, library ms or None), kernel and plain each the
+    mean of two CUDA-event runs taken plain, kernel, kernel, plain (one
+    card, one call, in turns); the library call timed twice after them."""
     p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                       cuda_ms(plain))
+    lib = None
+    if library is not None:
+        lib = (cuda_ms(library) + cuda_ms(library)) / 2
     log(f"{name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-        f"{p1:.4f}/{p2:.4f} ms")
-    return (k1 + k2) / 2, (p1 + p2) / 2
+        f"{p1:.4f}/{p2:.4f} ms"
+        + (f", library call {lib:.4f} ms" if lib is not None else ""))
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, moved: int, ops: float, kind: str):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes moved
+    (each input read once, each output written once) over 3.35 TB/s and
+    the operations over the H100 SXM's dense peak for their type."""
+    by_bytes = moved / (HBM_PEAK_GBS * 1e9) * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    b = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    log(f"{name} bound: {moved} bytes -> {by_bytes:.5f} ms, {ops:.4g} {kind} "
+        f"operations -> {by_ops:.5f} ms; bound by {b[1]}")
+    return b
 
 
 def phase_timing(state: dict, int8_state: dict) -> dict:
-    """Embeddings/s, request p50 per cell, and (kernel ms, plain ms) per
-    kernel, returned for the kernels line."""
+    """Embeddings/s, request p50 per cell, and per kernel (kernel ms, plain
+    ms, library ms, bound ms, bound by), returned for the kernels line."""
     import torch
 
     from centroids_reid_tpu_torch.inference.service import embed_query
@@ -613,7 +928,7 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     from centroids_reid_tpu_torch.ops import retrieval as R
     from centroids_reid_tpu_torch.ops import retrieval_int8 as R8
 
-    log("== phase 5: timings (CUDA events unless stated)")
+    log("== phase 7: timings (CUDA events unless stated)")
     cfg, model = state["cfg"], state["model"]
     x = torch.from_numpy(_images(256, SEED + 2)).cuda()
 
@@ -642,17 +957,8 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     q, g = unit_rows(128, gen, torch.bfloat16), unit_rows(gp, gen,
                                                           torch.bfloat16)
     gn = gn_row(g, GALLERY_ROWS)
+    q32, g32 = q.float(), g.float()
     x3 = torch.randn((128, gp // 8), generator=gen, device="cuda")
-    pairs = {
-        "scores": (lambda: R.scores(q, g, gn),
-                   lambda: R.scores_plain(q, g, gn), "[128,2048]x[100352,2048]"),
-        "stream_topk": (lambda: R.stream_topk(q, g, gn, 10),
-                        lambda: R.stream_topk_plain(q, g, gn, 10),
-                        "k=10 over [128,2048]x[100352,2048]"),
-        "kpass_topk": (lambda: R.kpass_topk(x3, 100),
-                       lambda: R.kpass_topk_plain(x3, 100),
-                       "[128,12544] k=100"),
-    }
     gal = R8.quantize_gallery(g.float())
     s8, gn8 = gal.scale[None, :], gn
     x5, w5, sc5, b5, r5, rs5 = requant_inputs(gen, 16384, 64, 256,
@@ -660,31 +966,62 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     x6, w6, sc6, b6, _, _ = requant_inputs(gen, 8 * 64 * 32, 9 * 64, 64)
     x6 = x6[:, :64].reshape(8, 64, 32, 64).contiguous()
     w6 = w6.reshape(3, 3, 64, 64)
-    pairs.update({
+    full = "[128,2048]x[100352,2048]"
+    # name -> (kernel, plain, shape, library call or None, bytes moved,
+    #          operations, operation type)
+    score_out = torch.empty((128, gp), device="cuda")
+    topk_out = (torch.empty((128, 10), device="cuda"),
+                torch.empty((128, 10), dtype=torch.int64, device="cuda"))
+    mm_ops = 2.0 * 128 * gp * DIM
+    cases = {
+        "scores": (lambda: R.scores(q, g, gn),
+                   lambda: R.scores_plain(q, g, gn), full,
+                   # TF32 is off: one fp32 addmm on fp32 copies
+                   lambda: torch.addmm(gn, q32, g32.T, alpha=-2.0),
+                   nbytes(q, g, gn, score_out), mm_ops, "bf16"),
+        "stream_topk": (lambda: R.stream_topk(q, g, gn, 10),
+                        lambda: R.stream_topk_plain(q, g, gn, 10),
+                        "k=10 over " + full, None,
+                        nbytes(q, g, gn, *topk_out), mm_ops, "bf16"),
+        "stream_topk_unpacked": (
+            lambda: R.stream_topk(q, g, gn, 10, packed=False),
+            lambda: R.stream_topk_plain(q, g, gn, 10, packed=False),
+            "k=10 over " + full, None, nbytes(q, g, gn, *topk_out), mm_ops,
+            "bf16"),
+        "kpass_topk": (lambda: R.kpass_topk(x3, 100),
+                       lambda: R.kpass_topk_plain(x3, 100),
+                       "[128,12544] k=100",
+                       lambda: torch.topk(x3, 100, dim=1, largest=False),
+                       nbytes(x3) + 128 * 100 * (4 + 8), 128.0 * (gp // 8),
+                       "fp32"),
         "scores_i8": (lambda: R8.scores_i8(q, gal.codes, s8, gn8),
                       lambda: R8.scores_i8_plain(q, gal.codes, s8, gn8),
-                      "[128,2048]x[100352,2048] int8"),
+                      full + " int8", None,
+                      nbytes(q, gal.codes, s8, gn8, score_out), mm_ops,
+                      "bf16"),
         "matmul_requant": (
             lambda: C.matmul_requant(x5, w5, sc5, b5, res=r5, res_scale=rs5),
             lambda: C.matmul_requant_plain(x5, w5, sc5, b5, res=r5,
                                            res_scale=rs5),
-            "[16384,64]x[64,256] residual+ReLU"),
+            "[16384,64]x[64,256] residual+ReLU", None,
+            # r5 twice: the residual read and the int8 output written
+            nbytes(x5, w5, sc5, b5, r5, rs5, r5), 2.0 * 16384 * 64 * 256,
+            "int8"),
         "conv3x3_requant": (
             lambda: C.conv3x3_requant(x6, w6, sc6, b6),
             lambda: C.conv3x3_requant_plain(x6, w6, sc6, b6),
-            "[8,64,32,64] -> 64 channels, ReLU"),
-    })
-    times = {name: time_pair(name, kern, plain, shape)
-             for name, (kern, plain, shape) in pairs.items()}
-    # every byte K1 and K4 move: q, the gallery, its row vectors read, the
-    # fp32 scores written
-    score_out = q.shape[0] * gp * 4
-    for name, ins in (("scores", (q, g, gn)),
-                      ("scores_i8", (q, gal.codes, s8, gn8))):
-        nbytes = sum(t.numel() * t.element_size() for t in ins) + score_out
-        gbs = nbytes / times[name][0] / 1e6
-        log(f"{name} moves {nbytes} bytes: {gbs:.1f} GB/s, "
-            f"{gbs / HBM_PEAK_GBS:.3f} of the H100 SXM's {HBM_PEAK_GBS} GB/s")
+            "[8,64,32,64] -> 64 channels, ReLU", None,
+            # x6 twice: the input read and the same-shape output written
+            nbytes(x6, w6, sc6, b6, x6), 2.0 * 16384 * 9 * 64 * 64, "int8"),
+    }
+    times = {}
+    for name, (kern, plain, shape, lib, moved, ops, kind) in cases.items():
+        k_ms, p_ms, lib_ms = time_pair(name, kern, plain, shape, lib)
+        b_ms, b_by = bound(name, moved, ops, kind)
+        times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        log(f"{name}: {moved / k_ms / 1e6:.1f} GB/s moved, "
+            f"{b_ms / k_ms:.3f} of its bound")
     return times
 
 
@@ -699,23 +1036,41 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase_env()
     phase_build()
     errs = phase_compare()
+    errs.update(phase_compare_k2u())
     errs.update(phase_compare_int8())
     with tempfile.TemporaryDirectory() as tmp:
         state = phase_serve(tmp)
-    int8_state = phase_serve_int8(state)
-    times = phase_timing(state, int8_state)
-    # each kernel's launches from the path it was read on: K1-K3 the bf16
-    # path, K4-K6 the int8 path
-    launches = {**int8_state["launches"],
-                **{n: state["launches"][n] for n in BF16_KERNELS}}
+        int8_state = phase_serve_int8(state)
+        k2u_launches = phase_k2u_entry()
+        ckpt = state["cfg"].MODEL.PRETRAIN_PATH
+        eval_state = phase_eval(tmp, ckpt)
+        cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
+        times = phase_timing(state, int8_state)
+    # each kernel's launches from the path it was read on: K1 and K2 the
+    # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
+    # serving path, K5 and K6 the int8 evaluation
+    eval_launches = eval_state["runs"]["int8"]["launches"]
+    launches = {
+        "scores": state["launches"]["scores"],
+        "stream_topk": state["launches"]["stream_topk"],
+        "stream_topk_unpacked": k2u_launches["stream_topk_unpacked"],
+        "kpass_topk": cli_launches["kpass_topk"],
+        "scores_i8": int8_state["launches"]["scores_i8"],
+        "matmul_requant": eval_launches["matmul_requant"],
+        "conv3x3_requant": eval_launches["conv3x3_requant"],
+    }
+    log(f"bf16 evaluation kernel launches (it runs no hand-written kernel: "
+        f"cuDNN embed, matmul distances, argsort): "
+        f"{eval_state['runs']['bf16']['launches']}")
+    log(f"all checks passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "max_abs_err": errs[name], **times[name]}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,11 @@ imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Integer-valued bf16 inputs make every dot product an exact fp32 integer,
-so K1, K2 and K4 must equal their plain versions bit for bit; K3 is exact
-by construction; K5 and K6 accumulate exactly in int32 and round their
-epilogue op by op, so they equal their plain versions bit for bit."""
+so K1, K2, K2u and K4 must equal their plain versions bit for bit; K3 is
+exact by construction; K5 and K6 accumulate exactly in int32 and round
+their epilogue op by op, so they equal their plain versions bit for bit.
+The evaluation metrics and the wide-row selection run on the card against
+the same code on the CPU."""
 
 import numpy as np
 import pytest
@@ -66,6 +68,96 @@ def test_stream_topk_kernel_sparse_rows(cuda):
     v, i = R.stream_topk(q, g, gn, 32)
     rv, ri = R.stream_topk_plain(q, g, gn, 32)
     assert torch.equal(i, ri) and torch.equal(v, rv)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("g", [4096, 4224])   # 4224: a ragged last split
+def test_stream_topk_unpacked_kernel_exact(cuda, k, g):
+    """K2u: exact fp32 (score, column) order on integer inputs."""
+    q, gal, gn = _inputs(cuda, g=g, real=g - 96)
+    R.reset_launch_counts()
+    v, i = R.stream_topk(q, gal, gn, k, packed=False)
+    rv, ri = R.stream_topk_plain(q, gal, gn, k, packed=False)
+    assert torch.equal(i, ri) and torch.equal(v, rv)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES["stream_topk_unpacked"] == 1
+    assert R.LAUNCHES["stream_topk"] == 0
+
+
+def test_stream_topk_unpacked_kernel_sparse_rows_and_signed_zero(cuda):
+    """Fewer finite columns than k: the tail takes (+inf, column 0); a
+    score of -0.0 ties with +0.0 and the column decides."""
+    q, g, gn = _inputs(cuda)
+    gn[:] = float("inf")
+    gn[0, 7:27:2] = 1.0
+    v, i = R.stream_topk(q, g, gn, 32, packed=False)
+    rv, ri = R.stream_topk_plain(q, g, gn, 32, packed=False)
+    assert torch.equal(i, ri) and torch.equal(v, rv)
+    zq = torch.zeros_like(q)
+    gz = torch.zeros_like(gn)
+    gz[0, ::2] = -0.0
+    v, i = R.stream_topk(zq, g, gz, 8, packed=False)
+    assert torch.equal(i[0].cpu(), torch.arange(8))
+    assert (v == 0).all()
+
+
+def test_topk_retrieval_beyond_one_kpass_row_on_card(cuda):
+    """k=5000 against 40,960 rows: the base case on K3, the final pass
+    (40,000 columns) as a stable sort; equal to the CPU on integer rows."""
+    rng = np.random.RandomState(12)
+    qf = rng.randint(-6, 7, (5, 8)).astype(np.float32)
+    gf = rng.randint(-6, 7, (40960, 8)).astype(np.float32)
+    R.reset_launch_counts()
+    d, i = R.topk_retrieval(torch.from_numpy(qf).to(cuda),
+                            torch.from_numpy(gf).to(cuda), 5000)
+    assert R.LAUNCHES["kpass_topk"] == 1
+    rd, ri = R.topk_retrieval(torch.from_numpy(qf), torch.from_numpy(gf),
+                              5000)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(d, rd)
+
+
+def test_service_beyond_one_kpass_row_on_card(cuda):
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.INPUT.SIZE_TEST = [64, 32]
+    rng = np.random.RandomState(13)
+    gallery = rng.randn(40960, 512).astype(np.float32)
+    queries = rng.randint(0, 256, (3, 64, 32, 3)).astype(np.uint8)
+    paths = [str(r) for r in range(40960)]
+    svc = RetrievalService(cfg, gallery, paths, k=5000, model=create_model(cfg))
+    d, i, _ = svc.query_arrays(queries)
+    assert svc.device.type == "cuda" and d.shape == (3, 5000)
+    assert (np.diff(d, axis=1) >= -1e-5).all()
+    assert all(len(set(row)) == 5000 for row in i)
+
+
+@pytest.mark.parametrize("respect", [False, True])
+def test_eval_metrics_on_card_match_cpu(cuda, respect):
+    """R1mAP with centroids on the card (distance matrix, stable argsort,
+    mask algebra, bitmasks with cameras >= 32) against the CPU."""
+    from centroids_reid_tpu_torch.metrics import R1mAP, build_centroid_eval_set
+
+    rng = np.random.RandomState(14)
+    emb = np.round(rng.randn(300, 16) * 2).astype(np.float32)
+    pids = rng.randint(0, 20, 300)
+    camids = rng.choice([0, 1, 2, 33, 40], 300)
+    out = {}
+    for dev in ("cpu", cuda):
+        es = build_centroid_eval_set(torch.from_numpy(emb).to(dev), pids,
+                                     camids, 60, respect)
+        out[str(dev)] = R1mAP(60, feat_norm=False, device=dev).compute(
+            es.embeddings, es.labels, es.camids, respect_camids=respect)
+    c, g = out["cpu"], out[str(cuda)]
+    np.testing.assert_array_equal(g.cmc, c.cmc)
+    np.testing.assert_array_equal(g.all_topk, c.all_topk)
+    assert abs(g.mAP - c.mAP) <= 1e-6
 
 
 @pytest.mark.parametrize("w,k", [(100, 1), (1000, 32), (20000, 100),

@@ -1,7 +1,12 @@
-"""The port stands without JAX: importing it and serving a query on the CPU,
-through the bf16 path and the int8 path (PTQ embed + int8 gallery), loads
-neither jax nor flax; and the service refuses what is not ported."""
+"""The port stands without JAX and without the JAX package: importing it,
+serving a query on the CPU through the bf16 path and the int8 path (PTQ
+embed + int8 gallery), an ONLY_TEST evaluation through its runner, the
+offline CLIs' flows, and importing ``chip_smoke`` load neither jax nor
+flax nor any module of ``centroids_reid_tpu``; no source file of the port
+imports it; and the service refuses what is not ported."""
 
+import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -11,15 +16,21 @@ import pytest
 
 from conftest import cpu_subprocess_env
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 _SCRIPT = textwrap.dedent("""
-    import io, sys
+    import io, os, sys, tempfile
     import numpy as np
+    import torch
     from PIL import Image
     import centroids_reid_tpu_torch
     from centroids_reid_tpu_torch.config import get_default_cfg
-    from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.engine import runner
+    from centroids_reid_tpu_torch.inference import (
+        RetrievalService, build_embeddings, find_similar)
     from centroids_reid_tpu_torch.models import create_model
     from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
+    import chip_smoke
 
     cfg = get_default_cfg()
     cfg.MODEL.NAME = "resnet18"
@@ -41,19 +52,68 @@ _SCRIPT = textwrap.dedent("""
                            use_int8_gallery=True)
     d, idx, _ = svc.query_bytes([buf.getvalue()])
     assert d.shape == (1, 3) and np.isfinite(d).all(), d
+
+    tmp = tempfile.mkdtemp()
+    pth = os.path.join(tmp, "reid.pth")
+    torch.save({"state_dict": model.state_dict()}, pth)
+    base = os.path.join(tmp, "data", "market1501")
+    for sub, cams in (("bounding_box_train", (1,)), ("query", (1,)),
+                      ("bounding_box_test", (2, 3))):
+        os.makedirs(os.path.join(base, sub))
+        for pid in range(3):
+            for cam in cams:
+                Image.fromarray(rng.randint(0, 256, (32, 16, 3)).astype(
+                    np.uint8)).save(os.path.join(
+                        base, sub, f"{pid + 1:04d}_c{cam}s1_000000_00.jpg"))
+    cfg.USE_MIXED_PRECISION = False
+    cfg.TEST.ONLY_TEST = True
+    cfg.MODEL.PRETRAIN_PATH = pth
+    cfg.DATASETS.ROOT_DIR = os.path.join(tmp, "data")
+    cfg.LOG_DIR = os.path.join(tmp, "logs")
+    out = runner.run_single(cfg, "ctl", "test", device="cpu")
+    assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+    cfg.DATASETS.ROOT_DIR = os.path.join(base, "bounding_box_test")
+    cfg.OUTPUT_DIR = os.path.join(tmp, "index")
+    build_embeddings(cfg, False, device="cpu")
+    cfg.DATASETS.ROOT_DIR = os.path.join(base, "query")
+    cfg.OUTPUT_DIR = os.path.join(tmp, "results")
+    res = find_similar(cfg, os.path.join(tmp, "index"), False, False, 2,
+                       device="cpu")
+    assert len(res) == 3 and all(len(r["indices"]) == 2
+                                 for r in res.values()), res
+
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                        "centroids_reid_tpu"))
     assert not bad, bad
     print("OK")
 """)
 
-
 def test_port_imports_and_serves_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT],
                           env=cpu_subprocess_env(), capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300, cwd=_REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from|import) centroids_reid_tpu(\.| |$)", re.MULTILINE)
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    """Not even lazily inside a function: every ``.py`` of the port and
+    ``chip_smoke.py``."""
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO,
+                                               "centroids_reid_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            if _JAX_PACKAGE_IMPORT.search(f.read()):
+                offenders.append(os.path.relpath(path, _REPO))
+    assert len(files) > 20 and not offenders, offenders
 
 
 class _Int8EmbedStub:

@@ -97,7 +97,7 @@ def check_folded_fp_embed(m):
 
 
 def check_jax_artifact(m):
-    tq = TQ.QuantizedEmbed.load(m["jax_path"])
+    tq = TQ.QuantizedEmbed.load(m["jax_path"], device="cpu")
     assert tq.extra_meta == {"origin": "jax"}
     assert tq._use_pallas is True and tq._acc_dtype == torch.int32
     got = tq(m["queries"]).numpy()
@@ -135,7 +135,7 @@ def check_unfused_bf16_engine(m, tmp_dir):
     jq = JQ.quantize_reid_model(*m["jax"], m["calib"], MEAN, STD)
     path = str(tmp_dir / "jax_int8_bf16.npz")
     jq.save(path)
-    tq = TQ.QuantizedEmbed.load(path)
+    tq = TQ.QuantizedEmbed.load(path, device="cpu")
     assert tq._use_pallas is False and tq._acc_dtype == torch.bfloat16
     ref = np.asarray(jq(jnp.asarray(m["queries"])))
     assert _cos(tq(m["queries"]).numpy(), ref).min() > 0.998
@@ -194,7 +194,7 @@ def test_port_artifact_loads_into_jax(models, tmp_path):
     got = tq(models["queries"]).numpy()
     ref = np.asarray(jq(jnp.asarray(models["queries"])))
     assert _cos(got, ref).min() > 0.99999
-    again = TQ.QuantizedEmbed.load(path)
+    again = TQ.QuantizedEmbed.load(path, device="cpu")
     np.testing.assert_array_equal(again(models["queries"]).numpy(), got)
 
 
@@ -222,7 +222,7 @@ def test_int8_engine_routes_convs(models, monkeypatch, use_pallas, fused):
 
     for name in fused:
         monkeypatch.setattr(int8_conv, name, counted(name))
-    tq = TQ.QuantizedEmbed.load(models["jax_path"])
+    tq = TQ.QuantizedEmbed.load(models["jax_path"], device="cpu")
     tq._use_pallas = use_pallas
     tq(models["queries"])
     assert calls == fused

@@ -73,6 +73,51 @@ def test_stream_topk_plain_matches_packed_merge_interpret(k, finite):
     np.testing.assert_array_equal(v.numpy(), np.asarray(val))
 
 
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("finite", ["pads", "sparse"])
+def test_stream_topk_unpacked_matches_merge_interpret(k, finite):
+    """K2u: the exact fp32 (score, column) order with heavy ties and +inf
+    pad columns, against the TPU kernel's unpacked merge; values and
+    indices exact on integer inputs. "sparse" leaves 10 finite columns:
+    at k > 10 the +inf tail is a stated divergence. The port's +inf slots
+    take column 0 (the initial entries); the TPU kernel repeats the column
+    of the row's minimum over its first gallery tile, because its merge
+    leaves each taken entry in the buffer at +inf. Values agree there."""
+    rng = np.random.RandomState(1)
+    qf, gf = _int_inputs(rng, 128, 2048, 64)
+    gn = _gn(gf, 1900)
+    if finite == "sparse":
+        gn[:] = np.inf
+        gn[0, 5:25:2] = 1.0
+    val, idx = J._topk_pallas(_jbf(qf), _jbf(gf), jnp.asarray(gn), k,
+                              interpret=True, packed=False)
+    v, i = R.stream_topk(_tbf(qf), _tbf(gf), torch.from_numpy(gn), k,
+                         packed=False)
+    val, idx, v, i = np.asarray(val), np.asarray(idx), v.numpy(), i.numpy()
+    np.testing.assert_array_equal(v, val)
+    fin = np.isfinite(val)
+    np.testing.assert_array_equal(i[fin], idx[fin])
+    assert (i[~fin] == 0).all()
+    assert fin.all() == (finite == "pads" or k <= 10)
+
+
+def test_stream_topk_unpacked_random_matches_merge_interpret():
+    """K2u on random bf16 inputs: the same indices, values within fp32
+    summation order (rtol 1e-5, atol 1e-5, as for K1)."""
+    rng = np.random.RandomState(8)
+    qf = rng.randn(128, 64).astype(np.float32)
+    gf = rng.randn(2048, 64).astype(np.float32)
+    gn = _gn(gf, 2000)
+    for k in (1, 10, 32):
+        val, idx = J._topk_pallas(_jbf(qf), _jbf(gf), jnp.asarray(gn), k,
+                                  interpret=True, packed=False)
+        v, i = R.stream_topk(_tbf(qf), _tbf(gf), torch.from_numpy(gn), k,
+                             packed=False)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(idx))
+        np.testing.assert_allclose(v.numpy(), np.asarray(val), rtol=1e-5,
+                                   atol=1e-5)
+
+
 def test_kpass_topk_plain_matches_vmem_topk_interpret():
     """K3: the cases of test_ops::test_vmem_topk_interpret_matches_lax_topk
     (tie row, duplicated value, +inf columns, ragged shapes); values and
@@ -144,23 +189,26 @@ def test_topk_retrieval_matches_jax(dtype, k, dist):
     np.testing.assert_allclose(d, rd, rtol=1e-5, atol=1e-5)
 
 
-def test_topk_retrieval_refuses_k_beyond_one_kpass_row():
-    """k > 4096 against more than 32768 gallery rows would need K3 over a
-    row wider than 32768 columns: refused up front on every device. At
-    either edge of the limit the answer holds the k smallest distances of
-    a full sort, each at its own index (fp32 summation order: rtol 1e-5)."""
+@pytest.mark.parametrize("g,k", [(40000, 5000), (32769, 4097),
+                                 (32768, 4097), (32769, 4096)])
+def test_topk_retrieval_refuses_k_beyond_one_kpass_row(g, k):
+    """k > 4096 against more than 32768 gallery rows is answered, as the
+    reference answers it: a base case or final pass wider than one K3 row
+    (32768 columns) takes a stable sort, the reference's ``lax.top_k``
+    there. Integer-valued fp32 rows make every distance an exact integer
+    (many ties), so indices and distances must equal the JAX package's
+    fp32 path exactly, ties broken by the same positions."""
     rng = np.random.RandomState(5)
-    q = torch.from_numpy(rng.randn(1, 4).astype(np.float32))
-    wide = torch.from_numpy(rng.randn(32769, 4).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="k=4097"):
-        R.topk_retrieval(q, wide, 4097)
-    for g, k in ((wide, 4096), (wide[:32768], 4097)):
-        d, i = R.topk_retrieval(q, g, k)
-        full = ((g - q) ** 2).sum(dim=1).numpy()
-        assert len(set(i[0])) == k
-        np.testing.assert_allclose(d[0], np.sort(full)[:k], rtol=1e-5,
-                                   atol=1e-5)
-        np.testing.assert_allclose(d[0], full[i[0]], rtol=1e-5, atol=1e-5)
+    qf = rng.randint(-6, 7, (3, 8)).astype(np.float32)
+    gf = rng.randint(-6, 7, (g, 8)).astype(np.float32)
+    rd, ri = J.topk_retrieval(jnp.asarray(qf), jnp.asarray(gf), k,
+                              use_pallas=False)
+    R.reset_launch_counts()
+    d, i = R.topk_retrieval(torch.from_numpy(qf), torch.from_numpy(gf), k)
+    assert R.LAUNCHES["kpass_topk"] == 0   # the CPU launches no kernel
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(d, rd)
+    assert len(set(i[0])) == k
 
 
 def test_score_input_checks_refuse_misaligned_views():
@@ -187,11 +235,14 @@ def test_wrappers_take_plain_path_only_on_cpu():
     gn = torch.zeros((1, 1024))
     R.scores(q, g, gn)
     R.stream_topk(q, g, gn, 4)
+    R.stream_topk(q, g, gn, 4, packed=False)
     R.kpass_topk(gn, 4)
-    assert R.LAUNCHES == {"scores": 0, "stream_topk": 0, "kpass_topk": 0}
+    assert R.LAUNCHES == {"scores": 0, "stream_topk": 0,
+                          "stream_topk_unpacked": 0, "kpass_topk": 0}
     with pytest.raises(ValueError, match="no retrieval kernel"):
         R.kpass_topk(gn.to("meta"), 4)
     with pytest.raises(ValueError, match="different devices"):
         R.scores(q, g.to("meta"), gn)
-    with pytest.raises(ValueError, match="1 <= k <= 32"):
-        R.stream_topk(q, g, gn, 33)
+    for packed in (True, False):
+        with pytest.raises(ValueError, match="1 <= k <= 32"):
+            R.stream_topk(q, g, gn, 33, packed=packed)

@@ -157,9 +157,22 @@ def test_scores_i8_takes_plain_path_only_on_cpu():
 
 
 def test_margin_beyond_one_kpass_row_is_refused():
-    """A margin above 4096 against more than 32768 rows would need K3 over
-    a row wider than 32768 columns: refused before any scoring."""
-    gal = R.Int8Gallery(torch.zeros((33792, 4), dtype=torch.int8),
-                        torch.ones(33792), torch.zeros(33792))
-    with pytest.raises(NotImplementedError, match="k=4097"):
-        R.topk_select_int8(torch.zeros((128, 4)), gal, None, 4, sel=4097)
+    """A margin above 4096 against more than 32768 rows is answered, as the
+    reference answers it (its int8 path has no margin limit): the
+    selection rows wider than one K3 row take a stable sort. Integer rows
+    whose largest magnitude is 127 quantize exactly (scale 1), so scores,
+    ties and re-scores are exact integers and the answer must equal the
+    JAX package's exactly."""
+    rng = np.random.RandomState(6)
+    gf = rng.randint(-6, 7, (40960, 8)).astype(np.float32)
+    gf[:, 0] = 127.0
+    qf = rng.randint(-3, 4, (5, 8)).astype(np.float32)
+    gal = R.quantize_gallery(torch.from_numpy(gf))
+    assert bool((gal.scale == 1.0).all())
+    rd, ri = J.topk_retrieval_int8(jnp.asarray(qf), _jgal(gal),
+                                   jnp.asarray(gf), 10, sel=5000,
+                                   use_pallas=False)
+    d, i = R.topk_retrieval_int8(torch.from_numpy(qf), gal,
+                                 torch.from_numpy(gf), 10, sel=5000)
+    np.testing.assert_array_equal(i, np.asarray(ri))
+    np.testing.assert_array_equal(d, np.asarray(rd))

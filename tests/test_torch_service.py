@@ -23,6 +23,7 @@ from centroids_reid_tpu.models import create_model as jax_create_model
 from centroids_reid_tpu.ops import retrieval_int8 as jax_retrieval_int8
 from centroids_reid_tpu.ops.retrieval import topk_select as jax_topk_select
 from centroids_reid_tpu_torch.inference import RetrievalService
+from centroids_reid_tpu_torch.inference.service import embed_query
 from centroids_reid_tpu_torch.models import ReidModel, from_jax_params
 from torch_oracle import randomize_params, randomize_stats
 
@@ -120,19 +121,37 @@ def test_service_without_exact_rescore_matches_jax(slice_setup, monkeypatch,
     assert svc._gf32 is svc._gf and svc._gf.dtype == torch.bfloat16
 
 
+class _IntegerEmbed(torch.nn.Module):
+    """Stands in for the model: an integer-valued 8-d embedding of the
+    normalised image, so every distance is an exact fp32 integer."""
+
+    def embed(self, x):
+        return torch.round(x.float().flatten(1)[:, :8] * 2)
+
+
 def test_service_refuses_k_beyond_one_kpass_row(slice_setup):
-    """k > 4096 against more than 32768 gallery rows is refused when the
-    service is built, not at its first query."""
-    cfg, _, port, _, _, _ = slice_setup
-    gallery = np.ones((32769, 4), np.float32)
-    paths = [str(r) for r in range(32769)]
-    with pytest.raises(NotImplementedError, match="k=4097"):
-        RetrievalService(cfg, gallery, paths, k=4097, device="cpu",
-                         model=port)
-    assert RetrievalService(cfg, gallery, paths, k=4096, device="cpu",
-                            model=port).k == 4096
-    assert RetrievalService(cfg, gallery[:32768], paths[:32768], k=4097,
-                            device="cpu", model=port).k == 4097
+    """k=5000 against 40,960 gallery rows, beyond one K3 row, is answered
+    as the reference answers it (a stable sort where the row is wider than
+    32768 columns): equal to the JAX package's ``ranked_query`` on the same
+    embeddings and gallery, exactly, since every distance is an integer."""
+    cfg, _, _, _, _, queries = slice_setup
+    rng = np.random.RandomState(9)
+    gallery = rng.randint(-6, 7, (40960, 8)).astype(np.float32)
+    paths = np.array([str(r) for r in range(40960)])
+    stub = _IntegerEmbed()
+    svc = RetrievalService(cfg, gallery, paths, k=5000, normalize=False,
+                           use_bf16_kernel=False, device="cpu", model=stub)
+    d, i, p = svc.query_arrays(queries)
+    e = embed_query(stub, torch.from_numpy(queries), cfg.INPUT.PIXEL_MEAN,
+                    cfg.INPUT.PIXEL_STD, torch.float32, normalize=False)
+    gn = (gallery * gallery).sum(axis=1)[None, :]
+    rd, ri = jservice.ranked_query(jnp.asarray(e.numpy()),
+                                   jnp.asarray(gallery), jnp.asarray(gallery),
+                                   jnp.asarray(gn), 5000, use_pallas=False)
+    np.testing.assert_array_equal(i, np.asarray(ri))
+    np.testing.assert_array_equal(d, np.asarray(rd))
+    np.testing.assert_array_equal(p, paths[i])
+    assert d.shape == (len(queries), 5000)
 
 
 def test_service_chunks_large_batches(slice_setup):

@@ -41,7 +41,7 @@ def int8_artifact(slice_setup, tmp_path_factory):
                                 cfg.INPUT.PIXEL_STD, acc_dtype=jnp.int32)
     path = str(tmp_path_factory.mktemp("int8") / "q.npz")
     jq.save(path)
-    return jq, TQ.QuantizedEmbed.load(path)
+    return jq, TQ.QuantizedEmbed.load(path, device="cpu")
 
 
 @pytest.mark.parametrize("gallery", ["int8", "int8_capacity", "bf16"])

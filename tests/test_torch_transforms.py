@@ -1,8 +1,11 @@
-"""The port's serving transforms (centroids_reid_tpu_torch/data/
-transforms.py) against the JAX package's: decode is bit-exact (the same
-native decoder or PIL), normalisation equal to fp32 rounding."""
+"""The port's serving and eval transforms (centroids_reid_tpu_torch/data/
+transforms.py, its copy of the native decoder, native/) against the JAX
+package's: decode is bit-exact (the same native decoder source or PIL),
+normalisation equal to fp32 rounding; and the port's copy of the config
+tree equals the JAX package's, key for key."""
 
 import io
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,9 @@ from PIL import Image
 
 from centroids_reid_tpu.data import transforms as JT
 from centroids_reid_tpu_torch.data import transforms as TT
+
+_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
 
 
 def _blobs():
@@ -36,7 +42,7 @@ def test_ingest_blobs_matches_jax():
 
 
 def test_decode_without_any_decoder_raises(monkeypatch):
-    from centroids_reid_tpu import native
+    from centroids_reid_tpu_torch import native
 
     monkeypatch.setattr(native, "decode_resize", lambda data, size: None)
     monkeypatch.setattr(TT, "_pil", lambda: None)
@@ -56,3 +62,48 @@ def test_normalize_batch_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_load_and_resize_matches_jax(tmp_path):
+    for i, blob in enumerate(_blobs()):
+        path = tmp_path / f"img{i}"
+        path.write_bytes(blob)
+        np.testing.assert_array_equal(
+            TT.load_and_resize(str(path), (64, 32)),
+            JT.load_and_resize(str(path), (64, 32)))
+
+
+def test_native_copy_decodes_as_the_jax_package_and_builds_its_own_library():
+    """The port's native decoder decodes a JPEG batch to the JAX package's
+    bytes, and its cached library has a name of its own."""
+    from centroids_reid_tpu import native as jnative
+    from centroids_reid_tpu_torch import native
+
+    jpegs = _blobs()[:2]
+    if not native.available():
+        pytest.skip("native decoder not buildable here (g++ / libjpeg)")
+    got, failed = native.decode_resize_batch(jpegs, (64, 32))
+    ref, jfailed = jnative.decode_resize_batch(jpegs, (64, 32))
+    assert failed == jfailed == []
+    np.testing.assert_array_equal(got, ref)
+    own = {f for f in os.listdir(native._build_dir())
+           if f.startswith("crt_torch_decode_")}
+    assert own and native._lib._name.rsplit("/", 1)[-1] in own
+
+
+@pytest.mark.parametrize("yml", ["", "256_resnet50.yml",
+                                 "320_resnet50_ibn_a.yml"])
+def test_config_copy_matches_jax(yml):
+    """The same defaults, the same YAML files and the same opts merge to
+    the same tree."""
+    from centroids_reid_tpu.config import get_default_cfg as jcfg
+    from centroids_reid_tpu_torch.config import get_default_cfg
+
+    opts = ["MODEL.NAME", "resnet18", "TPU.INT8_EVAL", "True",
+            "INPUT.SIZE_TEST", "[64,32]"]
+    got, ref = get_default_cfg(), jcfg()
+    for cfg in (got, ref):
+        if yml:
+            cfg.merge_from_file(os.path.join(_CONFIGS, yml))
+        cfg.merge_from_list(opts)
+    assert got == ref and got.dump() == ref.dump()
