@@ -577,13 +577,10 @@ class QuantizedEmbed:
         np.savez(path, __meta__=np.asarray(meta), **flat)
 
     @staticmethod
-    def load(path: str, device="cuda", use_pallas=None,
-             acc_dtype=None) -> "QuantizedEmbed":
+    def load(path: str, device="cuda") -> "QuantizedEmbed":
         """Read a ``.npz`` written by either package's ``save``, onto
-        ``device`` (the card unless the caller asks for the CPU). The
-        engine options default to the artifact's own; ``use_pallas`` /
-        ``acc_dtype`` override them (how the embed runs, not what it
-        computes from the stored weights and scales)."""
+        ``device`` (the card unless the caller asks for the CPU), with the
+        engine options the artifact names."""
         raw = np.load(QuantizedEmbed.npz_path(path), allow_pickle=False)
         meta = json.loads(str(raw["__meta__"]))
         tree: Dict[str, Any] = {}
@@ -604,10 +601,8 @@ class QuantizedEmbed:
         }
         out = QuantizedEmbed(
             qtree, meta["plan"], meta["stem_relu"],
-            use_pallas=(meta.get("use_pallas", False) if use_pallas is None
-                        else use_pallas),
-            acc_dtype=(getattr(torch, meta.get("acc_dtype", "bfloat16"))
-                       if acc_dtype is None else acc_dtype),
+            use_pallas=meta.get("use_pallas", False),
+            acc_dtype=getattr(torch, meta.get("acc_dtype", "bfloat16")),
         )
         out.extra_meta = meta.get("extra", {})
         return out
@@ -664,10 +659,9 @@ def quantize_for_serving(cfg, model, records, store=None) -> QuantizedEmbed:
       batches of ``records`` (a ``Record`` list), honouring
       ``TPU.INT8_CALIB_PCT``, and save to the cache path when one is set.
 
-    The embed runs the eligible convs on K5 / K6 and the others with an
-    exact int32 accumulator, whatever engine a loaded artifact names; the
-    reference's flow runs its convs unfused with a bf16 accumulator
-    (ROADMAP.md queue 3)."""
+    As in the reference, a fresh calibration takes ``quantize_reid_model``'s
+    engine defaults (unfused convs, bf16 accumulator) and a loaded artifact
+    runs on the engine it names."""
     import logging
 
     from ..data.loader import EvalLoader
@@ -678,8 +672,7 @@ def quantize_for_serving(cfg, model, records, store=None) -> QuantizedEmbed:
     cache = cfg.TPU.INT8_CACHE_PATH
     cache = QuantizedEmbed.npz_path(cache) if cache else ""
     if cache and os.path.exists(cache):
-        qfn = QuantizedEmbed.load(cache, device, use_pallas=True,
-                                  acc_dtype=torch.int32)
+        qfn = QuantizedEmbed.load(cache, device)
         if qfn.extra_meta == identity:
             log.info(f"int8 serving: loaded quantized model {cache}")
             return qfn
@@ -699,8 +692,7 @@ def quantize_for_serving(cfg, model, records, store=None) -> QuantizedEmbed:
         reps = -(-cfg.TEST.IMS_PER_BATCH // max(len(imgs), 1))
         calib = [np.tile(imgs, (reps, 1, 1, 1))[:cfg.TEST.IMS_PER_BATCH]]
     qfn = quantize_reid_model(model, calib, cfg.INPUT.PIXEL_MEAN,
-                              cfg.INPUT.PIXEL_STD, use_pallas=True,
-                              acc_dtype=torch.int32,
+                              cfg.INPUT.PIXEL_STD,
                               calib_percentile=cfg.TPU.INT8_CALIB_PCT)
     log.info(f"int8 serving active (calibrated on {len(calib)} batches)")
     if cache:

@@ -12,11 +12,13 @@ bf16 autocast) and seeded random weights:
   2048 bf16 gallery at k=10 and k=100 (K1, K2, K3), and the int8 PTQ embed
   (K5, K6) against the int8 index of the same gallery (K4, K3) at k=10,
   k=100 and in capacity mode at k=10;
-* K2u through its own entry point, ``stream_topk(packed=False)``;
+* K2u through its own entry point, ``stream_topk(packed=False)``, in its
+  comparison phase;
 * evaluation: ONLY_TEST through ``engine.runner.main`` on a synthetic
-  Market-1501-layout dataset, in bf16 and with ``TPU.INT8_EVAL`` (K5, K6),
-  both centroid modes, each metric held against the same metric computed
-  on the CPU from the same embeddings;
+  Market-1501-layout dataset, in bf16 and with ``TPU.INT8_EVAL`` (the
+  reference's serving engine: unfused int8 convs, bf16 accumulator), both
+  centroid modes, each metric held against the same metric computed on the
+  CPU from the same embeddings;
 * the offline CLIs: ``inference.create_embeddings`` (with and without
   centroids) and ``inference.get_similar`` at ``--topk`` 10 and 100 (K3),
   the gallery images as queries.
@@ -266,13 +268,21 @@ def phase_compare() -> dict:
     return errs
 
 
-def phase_compare_k2u() -> dict:
+def phase_compare_k2u():
     """K2u against its plain version at the serving shape: exact on integer
     inputs at k=10 and k=32; on unit rows near-ties may swap under another
-    summation order, so a share of equal indices and a value tolerance."""
+    summation order, so a share of equal indices and a value tolerance.
+    K2u has no caller in the system (the reference's dispatch sends every
+    k <= 32 request to the packed K2), so its path is its own entry point:
+    the first unit-row call, with the counts set to 0 just before it.
+    Returns the largest error and the launch counts of that call."""
     import torch
 
-    from centroids_reid_tpu_torch.ops import retrieval as R
+    from centroids_reid_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+        retrieval as R,
+    )
 
     log("== phase 3a: K2u (streaming top-k on exact fp32 scores)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -283,12 +293,23 @@ def phase_compare_k2u() -> dict:
     g = unit_rows(gp, gen, torch.bfloat16)
     gn = gn_row(g, GALLERY_ROWS)
     err = 0.0
+    launches = None
     for k in (10, 32):
         v, i = R.stream_topk(qi, gi, gni, k, packed=False)
         rv, ri = R.stream_topk_plain(qi, gi, gni, k, packed=False)
         require(torch.equal(i, ri) and torch.equal(v, rv),
                 f"K2u k={k} differs on integer inputs")
+        torch.cuda.synchronize()
+        if launches is None:
+            reset_launch_counts()
         v, i = R.stream_topk(q, g, gn, k, packed=False)
+        if launches is None:
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            log(f"kernel launches through stream_topk(packed=False): "
+                f"{launches}")
+            require(launches["stream_topk_unpacked"] > 0,
+                    "K2u was not launched through its entry point")
         rv, ri = R.stream_topk_plain(q, g, gn, k, packed=False)
         share = (i == ri).float().mean().item()
         e = (v - rv).abs().max().item()
@@ -298,7 +319,7 @@ def phase_compare_k2u() -> dict:
             f"{share:.4f} (need >= 0.99), max |err| {e:.3e} (tol 1e-4)")
         require(share >= 0.99 and e <= 1e-4, f"K2u k={k} disagrees")
     torch.cuda.synchronize()
-    return {"stream_topk_unpacked": err}
+    return {"stream_topk_unpacked": err}, launches
 
 
 def requant_inputs(gen, m: int, k: int, n: int, res_shape=None):
@@ -619,38 +640,6 @@ def phase_serve_int8(state: dict) -> dict:
     return {"launches": launches, "qfn": qfn, "services": services}
 
 
-def phase_k2u_entry() -> dict:
-    """K2u has no caller in the system (the reference's dispatch sends
-    every k <= 32 request to the packed K2); its path is its own entry
-    point, ``stream_topk(packed=False)``, driven once at the serving
-    shape with the counts set to 0 just before."""
-    import torch
-
-    from centroids_reid_tpu_torch.ops import (
-        launch_counts,
-        reset_launch_counts,
-        retrieval as R,
-    )
-
-    log("== phase 4c: K2u through its entry point")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE
-    q, g = unit_rows(128, gen, torch.bfloat16), unit_rows(gp, gen,
-                                                          torch.bfloat16)
-    gn = gn_row(g, GALLERY_ROWS)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    v, i = R.stream_topk(q, g, gn, 10, packed=False)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    require(launches["stream_topk_unpacked"] > 0
-            and bool(torch.isfinite(v).all())
-            and bool((v[:, 1:] >= v[:, :-1]).all()),
-            "K2u entry point: no launch, or values not finite and sorted")
-    log(f"kernel launches through stream_topk(packed=False): {launches}")
-    return launches
-
-
 EVAL_PIDS = 100          # synthetic Market-1501 cut: 100 identities,
 EVAL_QUERIES = 2         # 2 queries and 18 gallery images each, 6 cameras,
 EVAL_GALLERY = 18        # 128x64 JPEGs (the dataset's native crop size)
@@ -697,11 +686,12 @@ def _eval_opts(ckpt: str, root: str, logs: str, *extra) -> list:
 
 def phase_eval(tmp: str, ckpt: str) -> dict:
     """ONLY_TEST through ``engine.runner.main`` (the configs default:
-    ResNet-50, 256x128, bf16), then again with ``TPU.INT8_EVAL True``.
-    Every metric the runner computed on the card is held against the same
-    metric computed on the CPU from the same embeddings (captured at
-    ``compute_reid_metrics``). Returns the launch counts of the int8 run
-    and the timings."""
+    ResNet-50, 256x128, bf16), then again with ``TPU.INT8_EVAL True``
+    (the reference's serving engine: unfused int8 convs with a bf16
+    accumulator, no hand-written kernel). Every metric the runner computed
+    on the card is held against the same metric computed on the CPU from
+    the same embeddings (captured at ``compute_reid_metrics``). Returns the
+    launch counts and timings of both runs."""
     import os
 
     import torch
@@ -771,9 +761,6 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
                           "metrics": out}
     finally:
         evaluate.compute_reid_metrics = compute
-    for kname in ("matmul_requant", "conv3x3_requant"):
-        require(runs["int8"]["launches"][kname] > 0,
-                f"kernel {kname} was not launched by the int8 evaluation")
 
     # extraction rate of the eval loader + bf16 embed, warm image cache
     cfg = get_default_cfg()
@@ -1040,32 +1027,32 @@ def main() -> int:
     phase_env()
     phase_build()
     errs = phase_compare()
-    errs.update(phase_compare_k2u())
+    k2u_err, k2u_launches = phase_compare_k2u()
+    errs.update(k2u_err)
     errs.update(phase_compare_int8())
     with tempfile.TemporaryDirectory() as tmp:
         state = phase_serve(tmp)
         int8_state = phase_serve_int8(state)
-        k2u_launches = phase_k2u_entry()
         ckpt = state["cfg"].MODEL.PRETRAIN_PATH
         eval_state = phase_eval(tmp, ckpt)
         cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
         times = phase_timing(state, int8_state)
     # each kernel's launches from the path it was read on: K1 and K2 the
-    # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
-    # serving path, K5 and K6 the int8 evaluation
-    eval_launches = eval_state["runs"]["int8"]["launches"]
+    # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
+    # the int8 serving path
     launches = {
         "scores": state["launches"]["scores"],
         "stream_topk": state["launches"]["stream_topk"],
         "stream_topk_unpacked": k2u_launches["stream_topk_unpacked"],
         "kpass_topk": cli_launches["kpass_topk"],
         "scores_i8": int8_state["launches"]["scores_i8"],
-        "matmul_requant": eval_launches["matmul_requant"],
-        "conv3x3_requant": eval_launches["conv3x3_requant"],
+        "matmul_requant": int8_state["launches"]["matmul_requant"],
+        "conv3x3_requant": int8_state["launches"]["conv3x3_requant"],
     }
-    log(f"bf16 evaluation kernel launches (it runs no hand-written kernel: "
-        f"cuDNN embed, matmul distances, argsort): "
-        f"{eval_state['runs']['bf16']['launches']}")
+    for name, embed in (("bf16", "cuDNN"), ("int8", "unfused int8 convs")):
+        log(f"{name} evaluation kernel launches (no hand-written kernel: "
+            f"{embed} embed, matmul distances, argsort): "
+            f"{eval_state['runs'][name]['launches']}")
     log(f"all checks passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source,

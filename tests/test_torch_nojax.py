@@ -53,34 +53,34 @@ _SCRIPT = textwrap.dedent("""
     d, idx, _ = svc.query_bytes([buf.getvalue()])
     assert d.shape == (1, 3) and np.isfinite(d).all(), d
 
-    tmp = tempfile.mkdtemp()
-    pth = os.path.join(tmp, "reid.pth")
-    torch.save({"state_dict": model.state_dict()}, pth)
-    base = os.path.join(tmp, "data", "market1501")
-    for sub, cams in (("bounding_box_train", (1,)), ("query", (1,)),
-                      ("bounding_box_test", (2, 3))):
-        os.makedirs(os.path.join(base, sub))
-        for pid in range(3):
-            for cam in cams:
-                Image.fromarray(rng.randint(0, 256, (32, 16, 3)).astype(
-                    np.uint8)).save(os.path.join(
-                        base, sub, f"{pid + 1:04d}_c{cam}s1_000000_00.jpg"))
-    cfg.USE_MIXED_PRECISION = False
-    cfg.TEST.ONLY_TEST = True
-    cfg.MODEL.PRETRAIN_PATH = pth
-    cfg.DATASETS.ROOT_DIR = os.path.join(tmp, "data")
-    cfg.LOG_DIR = os.path.join(tmp, "logs")
-    out = runner.run_single(cfg, "ctl", "test", device="cpu")
-    assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
-    cfg.DATASETS.ROOT_DIR = os.path.join(base, "bounding_box_test")
-    cfg.OUTPUT_DIR = os.path.join(tmp, "index")
-    build_embeddings(cfg, False, device="cpu")
-    cfg.DATASETS.ROOT_DIR = os.path.join(base, "query")
-    cfg.OUTPUT_DIR = os.path.join(tmp, "results")
-    res = find_similar(cfg, os.path.join(tmp, "index"), False, False, 2,
-                       device="cpu")
-    assert len(res) == 3 and all(len(r["indices"]) == 2
-                                 for r in res.values()), res
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "reid.pth")
+        torch.save({"state_dict": model.state_dict()}, pth)
+        base = os.path.join(tmp, "data", "market1501")
+        for sub, cams in (("bounding_box_train", (1,)), ("query", (1,)),
+                          ("bounding_box_test", (2, 3))):
+            os.makedirs(os.path.join(base, sub))
+            for pid in range(3):
+                for cam in cams:
+                    Image.fromarray(rng.randint(0, 256, (32, 16, 3)).astype(
+                        np.uint8)).save(os.path.join(
+                            base, sub, f"{pid + 1:04d}_c{cam}s1_000000_00.jpg"))
+        cfg.USE_MIXED_PRECISION = False
+        cfg.TEST.ONLY_TEST = True
+        cfg.MODEL.PRETRAIN_PATH = pth
+        cfg.DATASETS.ROOT_DIR = os.path.join(tmp, "data")
+        cfg.LOG_DIR = os.path.join(tmp, "logs")
+        out = runner.run_single(cfg, "ctl", "test", device="cpu")
+        assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        cfg.DATASETS.ROOT_DIR = os.path.join(base, "bounding_box_test")
+        cfg.OUTPUT_DIR = os.path.join(tmp, "index")
+        build_embeddings(cfg, False, device="cpu")
+        cfg.DATASETS.ROOT_DIR = os.path.join(base, "query")
+        cfg.OUTPUT_DIR = os.path.join(tmp, "results")
+        res = find_similar(cfg, os.path.join(tmp, "index"), False, False, 2,
+                           device="cpu")
+        assert len(res) == 3 and all(len(r["indices"]) == 2
+                                     for r in res.values()), res
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax",
