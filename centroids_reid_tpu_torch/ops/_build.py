@@ -24,7 +24,7 @@ _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 3
+_ABI_VERSION = 4
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -49,6 +49,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crt_abi_version.restype = i
     lib.crt_abi_version.argtypes = []
+    lib.crt_sm_count.restype = i
+    lib.crt_sm_count.argtypes = []
     lib.crt_scores.restype = i
     lib.crt_scores.argtypes = [p, p, p, p, i, i, i, p]
     lib.crt_stream_topk.restype = i

@@ -33,9 +33,6 @@ _Q_TILE = 128
 _G_TILE = 1024
 # cap on the materialised fp32 score buffer; queries are chunked beyond it
 _SCORE_BUDGET_BYTES = 512 << 20
-# gallery columns per K2 block: at 100352 columns and one 128-row query
-# tile this gives 196 blocks, about 1.5 waves over the H100's 132 SMs
-_STREAM_SPLIT = 512
 _KPASS_MAX_W = 32768  # one fp32 row in shared memory (128 KB)
 _INF = float("inf")
 
@@ -141,6 +138,14 @@ def stream_topk_plain(qf, gf, gn_row, k: int, packed: bool = True):
     return v, torch.where(torch.isposinf(v), torch.zeros_like(i), i)
 
 
+def _stream_splits(q: int, g: int, sms: int) -> int:
+    """K2's persistent grid: gallery splits per 128-row query tile. The
+    splits of all query tiles fill at most one wave of ``sms`` blocks (one
+    block per SM), and every split holds at least one 128-row gallery
+    tile. The kernel leaves one partial list per query row and split."""
+    return max(1, min(g // 128, sms // (q // _Q_TILE)))
+
+
 def stream_topk(qf, gf, gn_row, k: int, packed: bool = True):
     """Streaming top-k (k <= 32) -> (fp32 [Qp, k], int64 [Qp, k]).
 
@@ -159,16 +164,19 @@ def stream_topk(qf, gf, gn_row, k: int, packed: bool = True):
     q, g, d = _check_score_inputs(qf, gf, gn_row)
     if k > g:
         raise ValueError(f"k={k} > gallery rows {g}")
-    n_splits = -(-g // _STREAM_SPLIT)
+    lib = _build.load()
+    sms = lib.crt_sm_count()
+    if sms < 1:
+        raise RuntimeError("stream_topk: cannot read the device's SM count")
+    n_splits = _stream_splits(q, g, sms)
     part = torch.empty((q, n_splits, k), dtype=torch.int64, device=qf.device)
     val = torch.empty((q, k), dtype=torch.float32, device=qf.device)
     idx = torch.empty((q, k), dtype=torch.int64, device=qf.device)
-    lib = _build.load()
     launch, name = ((lib.crt_stream_topk, "stream_topk") if packed
                     else (lib.crt_stream_topk_unpacked, "stream_topk_unpacked"))
     rc = launch(
         qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(), part.data_ptr(),
-        val.data_ptr(), idx.data_ptr(), q, g, d, k, _STREAM_SPLIT, _stream(),
+        val.data_ptr(), idx.data_ptr(), q, g, d, k, n_splits, _stream(),
     )
     _check(rc, name)
     LAUNCHES[name] += 1

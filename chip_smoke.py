@@ -25,7 +25,10 @@ bf16 autocast) and seeded random weights:
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
-CUDA events, and a request's device busy time with ``torch.profiler``.
+CUDA events, K2 beside the k=10 route through K1 + the hierarchical top-k,
+and with ``torch.profiler`` a request's device busy time, the device time
+of each kernel that K1, K2 and K2u launch, and K5's and K6's device time
+and launches in one int8 embed call (batch 8 and 256).
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
@@ -178,6 +181,20 @@ def phase_env() -> None:
     require(torch.cuda.device_count() >= 1, "no CUDA device")
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled symbol (each identifier
+    follows its length; integer template arguments read ``L<type><n>E``)."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if name.endswith("_kernel") and name[:1].isalpha():
+            tail = mangled[end + len(name):]
+            t = re.match(r"I((?:L[a-z]\d+E)+)E", tail)
+            args = re.findall(r"L[a-z](\d+)E", t.group(1)) if t else []
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
 def phase_build() -> None:
     from centroids_reid_tpu_torch.ops import _build
 
@@ -188,13 +205,13 @@ def phase_build() -> None:
         f"(nvcc {_build.build_seconds:.1f} s)")
     kernel = "?"
     for line in _build.build_log.splitlines():
-        named = re.search(r"entry function '\w*?\d+([a-z0-9_]+_kernel)"
-                          r"(ILi(\d+)E)?", line)
+        named = re.search(r"entry function '(\w+)'", line)
         if named:
-            kernel = named.group(1) + (f"<{named.group(3)}>"
-                                       if named.group(3) else "")
+            kernel = _kernel_name(named.group(1))
         elif "Used" in line and "registers" in line:
             log(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
+        elif "spill stores" in line and not line.strip().startswith("0 "):
+            log(f"  ptxas {kernel}: {line.strip()}")
 
 
 def phase_compare() -> dict:
@@ -889,6 +906,55 @@ def time_pair(name: str, kern, plain, shape: str, library=None):
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
+def host_us_per_launch(fn, n: int = 50) -> float:
+    """Host-clock microseconds to enqueue one call of ``fn`` (no
+    synchronize inside the window): the wrapper's own cost per launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+# kernel -> the name its launches carry in a torch.profiler trace
+PROFILED = {"matmul_requant": "requant_gemm_kernel<1>",
+            "conv3x3_requant": "requant_gemm_kernel<9>"}
+
+
+def kernel_device_us(fn) -> tuple:
+    """One call of ``fn``, after a warm-up call, under torch.profiler:
+    ({kernel name: (device us, launches)} over everything it ran on the
+    device, the launch counters of that call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    fn()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
+        name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
+        us, n = out.get(name, (0.0, 0))
+        out[name] = (us + e.self_device_time_total, n + e.count)
+    return out, launch_counts()
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -932,6 +998,20 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     log(f"embed ResNet-50 256x128 int8 (K5/K6 + fp64 stem and stride-2 3x3 "
         f"convs), batch 256: {ms8:.3f} ms/batch = {256 / ms8 * 1e3:.1f} "
         f"embeddings/s (bf16: {256 / ms * 1e3:.1f})")
+    for batch in (REQUEST, 256):
+        with torch.inference_mode():
+            per, counts = kernel_device_us(lambda: qfn(x[:batch]))
+        parts = []
+        for name, tag in PROFILED.items():
+            us, traced = per.get(tag, (0.0, 0))
+            require(traced == counts[name] > 0,
+                    f"{name}: {traced} launches traced, {counts[name]} "
+                    f"counted in one int8 embed call")
+            parts.append(f"{name} {us:.1f} us in {traced} launches "
+                         f"({us / traced:.2f} us each)")
+        log(f"int8 embed call, batch {batch}, device time (torch.profiler): "
+            f"{sum(us for us, _ in per.values()):.1f} us in all; "
+            + "; ".join(parts))
 
     imgs = state["imgs"][:REQUEST]
     for k, svc in state["services"].items():
@@ -960,11 +1040,29 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     topk_out = (torch.empty((128, 10), device="cuda"),
                 torch.empty((128, 10), dtype=torch.int64, device="cuda"))
     mm_ops = 2.0 * 128 * gp * DIM
+
+    # K1's function in one PyTorch call: bf16 operands, fp32 accumulation
+    # and output; where this torch refuses it, one fp32 addmm on fp32
+    # copies (TF32 off)
+    def addmm_bf16():
+        return torch.addmm(gn, q, g.T, alpha=-2.0, out_dtype=torch.float32)
+
+    try:
+        diff = (addmm_bf16() - R.scores_plain(q, g, gn))[:, :GALLERY_ROWS]
+        log(f"K1 library call torch.addmm(gn, q, g.T, alpha=-2.0, "
+            f"out_dtype=torch.float32) on bf16 operands: max |diff| to the "
+            f"plain version {diff.abs().max().item():.3e}")
+        k1_library = addmm_bf16
+    except (RuntimeError, TypeError) as e:
+        log(f"K1 library call: addmm(out_dtype=float32) refused ({e}); "
+            f"timing one fp32 addmm on fp32 copies instead")
+
+        def k1_library():
+            return torch.addmm(gn, q32, g32.T, alpha=-2.0)
+
     cases = {
         "scores": (lambda: R.scores(q, g, gn),
-                   lambda: R.scores_plain(q, g, gn), full,
-                   # TF32 is off: one fp32 addmm on fp32 copies
-                   lambda: torch.addmm(gn, q32, g32.T, alpha=-2.0),
+                   lambda: R.scores_plain(q, g, gn), full, k1_library,
                    nbytes(q, g, gn, score_out), mm_ops, "bf16"),
         "stream_topk": (lambda: R.stream_topk(q, g, gn, 10),
                         lambda: R.stream_topk_plain(q, g, gn, 10),
@@ -1008,7 +1106,32 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
         times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
         log(f"{name}: {moved / k_ms / 1e6:.1f} GB/s moved, "
-            f"{b_ms / k_ms:.3f} of its bound")
+            f"{b_ms / k_ms:.3f} of its bound"
+            + (f"; {k_ms / lib_ms:.3f} of its library call's time"
+               if lib_ms else ""))
+
+    # K2's yardstick: the k=10 selection through K1 + the hierarchical
+    # top-k (two K3 launches), in turns with K2 on the same inputs
+    def route():
+        return R._hier_topk_build(R.scores(q, g, gn), 10)
+
+    k2_a, r_a, r_b, k2_b = (cuda_ms(cases["stream_topk"][0]), cuda_ms(route),
+                            cuda_ms(route), cuda_ms(cases["stream_topk"][0]))
+    k2_ms, route_ms = (k2_a + k2_b) / 2, (r_a + r_b) / 2
+    log(f"k=10 over {full}: K2 {k2_a:.4f}/{k2_b:.4f} ms, K1 + hierarchical "
+        f"top-k {r_a:.4f}/{r_b:.4f} ms; K2 takes {k2_ms / route_ms:.3f} of "
+        f"the route's time")
+    for name in ("scores", "stream_topk", "stream_topk_unpacked"):
+        per, _ = kernel_device_us(cases[name][0])
+        log(f"{name}, one call under torch.profiler: "
+            + ", ".join(f"{kname} {us:.1f} us"
+                        for kname, (us, _) in per.items()))
+    # the wrappers' host cost per launch at the timed K5/K6 shapes
+    for name, fn in (("matmul_requant", cases["matmul_requant"][0]),
+                     ("conv3x3_requant", cases["conv3x3_requant"][0])):
+        log(f"{name}: host {host_us_per_launch(fn):.2f} us per launch "
+            f"(enqueue, host clock, 50 calls) against "
+            f"{times[name]['ms'] * 1e3:.2f} us of CUDA-event time")
     return times
 
 

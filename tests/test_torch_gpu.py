@@ -42,21 +42,58 @@ def _inputs(cuda, q=256, g=4096, d=64, real=4000, seed=4):
             torch.from_numpy(gn[None, :].astype(np.float32)).to(cuda))
 
 
-def test_scores_kernel_exact(cuda):
-    q, g, gn = _inputs(cuda)
+# (Q, G, D): the persistent grids' geometry. G = 128 is fewer tiles than
+# SMs; 4224 = 33 tiles; 25600 = 200 tiles do not divide evenly among 132
+# (or, at Q = 256, 66) splits; Q = 256 is two query tiles; D = 32 and 96
+# leave a ragged 64-deep stage that TMA fills with zeros.
+GEOMETRY = [(256, 4096, 64), (256, 4224, 64), (128, 128, 64),
+            (128, 25600, 32), (256, 25600, 96)]
+
+
+def _real(g):
+    return g - 96 if g > 256 else g - 28
+
+
+@pytest.mark.parametrize("q,g,d", GEOMETRY)
+def test_scores_kernel_exact(cuda, q, g, d):
+    qf, gf, gn = _inputs(cuda, q=q, g=g, d=d, real=_real(g))
     R.reset_launch_counts()
-    assert torch.equal(R.scores(q, g, gn), R.scores_plain(q, g, gn))
+    assert torch.equal(R.scores(qf, gf, gn), R.scores_plain(qf, gf, gn))
     torch.cuda.synchronize()
     assert R.LAUNCHES["scores"] == 1
 
 
 @pytest.mark.parametrize("k", [1, 10, 32])
-@pytest.mark.parametrize("g", [4096, 4224])   # 4224: a ragged last split
-def test_stream_topk_kernel_exact(cuda, k, g):
-    q, gal, gn = _inputs(cuda, g=g, real=g - 96)
-    v, i = R.stream_topk(q, gal, gn, k)
-    rv, ri = R.stream_topk_plain(q, gal, gn, k)
+@pytest.mark.parametrize("q,g,d", GEOMETRY)
+def test_stream_topk_kernel_exact(cuda, k, q, g, d):
+    qf, gf, gn = _inputs(cuda, q=q, g=g, d=d, real=_real(g))
+    v, i = R.stream_topk(qf, gf, gn, k)
+    rv, ri = R.stream_topk_plain(qf, gf, gn, k)
     assert torch.equal(i, ri) and torch.equal(v, rv)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_kernels_exact_at_serving_shape(cuda, packed):
+    """[128, 2048] x [100352, 2048], 100,000 real rows: K1 and K2 (or K2u)
+    at k = 10 and 32 equal their plain versions bit for bit."""
+    qf, gf, gn = _inputs(cuda, q=128, g=100352, d=2048, real=100000, seed=7)
+    if packed:
+        assert torch.equal(R.scores(qf, gf, gn), R.scores_plain(qf, gf, gn))
+    for k in (10, 32):
+        v, i = R.stream_topk(qf, gf, gn, k, packed=packed)
+        rv, ri = R.stream_topk_plain(qf, gf, gn, k, packed=packed)
+        assert torch.equal(i, ri) and torch.equal(v, rv)
+
+
+def test_stream_grid_fills_one_wave(cuda):
+    """K2's grid from the card's SM count: one block per SM at most, and
+    one partial list per query row and split."""
+    from centroids_reid_tpu_torch.ops import _build
+
+    sms = _build.load().crt_sm_count()
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert R._stream_splits(128, 100352, sms) == min(sms, 784)
+    assert R._stream_splits(256, 128, sms) == 1
 
 
 def test_stream_topk_kernel_sparse_rows(cuda):
@@ -71,13 +108,13 @@ def test_stream_topk_kernel_sparse_rows(cuda):
 
 
 @pytest.mark.parametrize("k", [1, 10, 32])
-@pytest.mark.parametrize("g", [4096, 4224])   # 4224: a ragged last split
-def test_stream_topk_unpacked_kernel_exact(cuda, k, g):
+@pytest.mark.parametrize("q,g,d", GEOMETRY)
+def test_stream_topk_unpacked_kernel_exact(cuda, k, q, g, d):
     """K2u: exact fp32 (score, column) order on integer inputs."""
-    q, gal, gn = _inputs(cuda, g=g, real=g - 96)
+    qf, gf, gn = _inputs(cuda, q=q, g=g, d=d, real=_real(g))
     R.reset_launch_counts()
-    v, i = R.stream_topk(q, gal, gn, k, packed=False)
-    rv, ri = R.stream_topk_plain(q, gal, gn, k, packed=False)
+    v, i = R.stream_topk(qf, gf, gn, k, packed=False)
+    rv, ri = R.stream_topk_plain(qf, gf, gn, k, packed=False)
     assert torch.equal(i, ri) and torch.equal(v, rv)
     torch.cuda.synchronize()
     assert R.LAUNCHES["stream_topk_unpacked"] == 1

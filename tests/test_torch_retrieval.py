@@ -246,3 +246,59 @@ def test_wrappers_take_plain_path_only_on_cpu():
     for packed in (True, False):
         with pytest.raises(ValueError, match="1 <= k <= 32"):
             R.stream_topk(q, g, gn, 33, packed=packed)
+
+
+def test_scores_plain_matches_pallas_interpret_d96():
+    """K1 at D = 96, a depth that leaves the card kernel a ragged 64-deep
+    stage: the plain version equals the TPU kernel in interpret mode on
+    integer inputs, +inf pad columns included."""
+    rng = np.random.RandomState(10)
+    qf, gf = _int_inputs(rng, 128, 2048, 96)
+    gn = _gn(gf, 2000)
+    ref = np.asarray(J._scores_pallas_maybe_interpret(
+        _jbf(qf), _jbf(gf), jnp.asarray(gn), interpret=True))
+    got = R.scores(_tbf(qf), _tbf(gf), torch.from_numpy(gn)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_stream_topk_plain_matches_pallas_interpret_d96(k, packed):
+    """K2 (packed) and K2u at D = 96 against the TPU kernel in interpret
+    mode: values and indices exact on integer inputs (heavy ties)."""
+    rng = np.random.RandomState(11)
+    qf, gf = _int_inputs(rng, 128, 2048, 96)
+    gn = _gn(gf, 1900)
+    val, idx = J._topk_pallas(_jbf(qf), _jbf(gf), jnp.asarray(gn), k,
+                              interpret=True, packed=packed)
+    v, i = R.stream_topk(_tbf(qf), _tbf(gf), torch.from_numpy(gn), k,
+                         packed=packed)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(idx))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(val))
+
+
+@pytest.mark.parametrize("q,g,sms,want", [
+    (128, 100352, 132, 132),     # the serving shape: one block per SM
+    (128, 128, 132, 1),          # fewer gallery tiles than SMs
+    (128, 4224, 132, 33),
+    (256, 25600, 132, 66),       # two query tiles share the SMs
+    (128 * 200, 1024, 132, 1),   # more query tiles than SMs
+])
+def test_stream_splits_fill_one_wave(q, g, sms, want):
+    """K2's persistent grid: splits x query tiles fill at most one wave of
+    blocks, and every split holds at least one 128-row gallery tile."""
+    n = R._stream_splits(q, g, sms)
+    assert n == want
+    assert 1 <= n <= g // 128
+    assert n * (q // 128) <= max(sms, q // 128)
+
+
+@pytest.mark.parametrize("q,g,d", [(100, 1024, 32), (128, 1000, 32),
+                                   (128, 1024, 48)])
+def test_score_input_checks_refuse_off_tile_shapes(q, g, d):
+    """The kernels' tile contract (Q % 128, G % 128, D % 32) is refused
+    before a launch, as it was before the kernels' redesign."""
+    with pytest.raises(ValueError, match="Q % 128 == 0, G % 128 == 0"):
+        R._check_score_inputs(torch.zeros((q, d), dtype=torch.bfloat16),
+                              torch.zeros((g, d), dtype=torch.bfloat16),
+                              torch.zeros((1, g)))
