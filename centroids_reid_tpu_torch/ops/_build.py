@@ -4,8 +4,9 @@
 parallel processes, and links the objects into one shared library with a
 plain C interface, which ``ctypes`` loads. The library is built at first use
 into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed on a
-hash of the sources and the compiler flags, so an edited source is rebuilt
-and an unchanged one is reused.
+hash of every file under ``csrc/`` (the sources and the headers they
+include) and the compiler flags, so an edited source or header is rebuilt
+and an unchanged tree is reused.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 4
+_ABI_VERSION = 5
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -45,6 +46,13 @@ def _nvcc() -> str:
     )
 
 
+def _csrc_files() -> list:
+    """Every file under ``csrc/`` that the build reads: the sources and the
+    headers they include, by name."""
+    return sorted(n for n in os.listdir(_CSRC)
+                  if n.endswith((".cu", ".cuh", ".h")))
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crt_abi_version.restype = i
@@ -59,9 +67,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_stream_topk_unpacked.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                              p]
     lib.crt_kpass_topk.restype = i
-    lib.crt_kpass_topk.argtypes = [p, p, p, i, i, i, p]
+    lib.crt_kpass_topk.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.crt_scores_i8.restype = i
-    lib.crt_scores_i8.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.crt_scores_i8.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.crt_matmul_requant.restype = i
     lib.crt_matmul_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
     lib.crt_conv3x3_requant.restype = i
@@ -108,7 +116,8 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         h = hashlib.sha256(" ".join(_FLAGS).encode())
-        for name in _SOURCES:
+        for name in _csrc_files():
+            h.update(name.encode())
             with open(os.path.join(_CSRC, name), "rb") as f:
                 h.update(f.read())
         so = os.path.join(_BUILD_DIR, f"crt_kernels_{h.hexdigest()[:16]}.so")

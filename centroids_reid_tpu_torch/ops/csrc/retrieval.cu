@@ -5,7 +5,8 @@
 //   K2 crt_stream_topk     streaming top-k at bf16 key resolution, k <= 32,
 //                          never materialises the Q x G score matrix
 //   K2u crt_stream_topk_unpacked  the same selection by exact fp32 score
-//   K3 crt_kpass_topk      exact fp32 k smallest of each row, row in smem
+//   K3 crt_kpass_topk      exact fp32 k smallest of each row: a radix
+//                          select on the row in shared memory
 //
 // Plain C interface, loaded with ctypes (ops/_build.py). Every entry point
 // launches on the stream it is given, allocates nothing, and returns
@@ -31,15 +32,12 @@
 // its share of the tiles (persistent), so no partial wave is left over.
 // The tensor maps are encoded on the host at each call; the encoder comes
 // from cudaGetDriverEntryPoint, so the library needs no link to libcuda.
+// The TMA, mbarrier, descriptor and wgmma helpers live in hopper.cuh,
+// shared with K4 (retrieval_int8.cu); the kernels are each source's own.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
-
-typedef unsigned long long u64;
 
 constexpr int TILE_G = 128;    // gallery rows per tile (wgmma M, 64 per warpgroup)
 constexpr int TILE_Q = 128;    // query rows per tile (wgmma N)
@@ -51,134 +49,6 @@ constexpr unsigned kStageBytes = (TILE_Q + TILE_G) * BK * 2;   // 32 KB
 constexpr unsigned kRingBytes = STAGES * kStageBytes;
 constexpr unsigned kBarBytes = 2 * STAGES * 8;
 constexpr u64 KEY_MAX = ~0ull;
-
-// ------------------------------------------------------------ primitives --
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Dynamic shared memory rounded up to the 1024-byte alignment that the
-// 128-byte swizzle pattern of TMA and wgmma needs.
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ unsigned char smem_raw[];
-  const unsigned pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  return smem_raw + pad;
-}
-
-__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(u64* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(u64* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
-  const unsigned addr = smem_u32(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         u64* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"((u64)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];" ::"l"((u64)map),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Barrier over one consumer warpgroup (ids 1, 2).
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows in 128-byte swizzle:
-// 8-row groups 1024 B apart (stride byte offset); the leading offset is
-// unused for this layout. One k16 step is +32 B on the start address.
-__device__ __forceinline__ u64 sw128_desc(const void* tile) {
-  return (u64)((smem_u32(tile) & 0x3FFFFu) >> 4) | ((u64)1 << 16) |
-         ((u64)(1024 >> 4) << 32) | ((u64)1 << 62);
-}
-
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, fp32 accumulate; thread
-// t of the warpgroup holds D[16 w + t/4 % 8 (+8)][8 j + 2 (t % 4) (+1)] in
-// d[4 j ..], w = warp of the warpgroup.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], u64 da,
-                                                 u64 db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // ------------------------------------------------------------- mainloop --
 
@@ -595,132 +465,257 @@ stream_topk_merge_kernel(const u64* __restrict__ part, float* __restrict__ val,
 
 // ---------------------------------------------------------------------------
 // K3. Replaces centroids_reid_tpu/ops/retrieval.py::_vmem_topk_kernel (via
-// _vmem_topk): the exact fp32 k smallest of each row, ties to the lowest
-// column (lax.top_k's order). The TPU kernel rescans the whole VMEM block
-// on each of its k passes. Here one block holds one row (W <= 32768, 128 KB)
-// in shared memory; each thread keeps the (min, column) of its own strided
-// elements in registers, so a pass is one block-wide reduction and a rescan
-// by the single thread that owned the winner. Bound: the k reductions'
-// barrier latency, not bandwidth (the row is read from device memory once).
-// A taken element becomes NaN, which every comparison skips, so a row with
-// fewer than k finite values still returns k distinct columns.
+// _vmem_topk): the exact fp32 k smallest of each row, ordered by (value,
+// column), ties to the lower column (lax.top_k's order, and that of a stable
+// sort). The TPU kernel rescans its VMEM block on each of k passes; a port
+// of that shape costs k block-wide reductions, whatever W. Here one block
+// holds one row (W <= 32768, 128 KB) in shared memory as order keys and
+// finds the k-th smallest key T by a radix select, most significant byte
+// first: each of at most four passes builds a 256-bucket histogram of the
+// keys that share the digits found so far (one sub-histogram per warp, so
+// the shared-memory atomics of different warps never meet) and one warp
+// scans it for the bucket that holds rank k. A pass stops the select early
+// when its bucket holds exactly the keys still needed. The block then
+// compacts, in column order, every key below T and the first k - c_lt
+// columns whose key equals T (each warp walks its own contiguous chunk, 32
+// columns per step, and ranks by ballot), and orders those k entries by
+// (key, column): where k is at most the block's threads (every path's k),
+// each thread counts the entries below its own, which is its output slot,
+// with no barrier; above that, a bitonic sort of the k columns in shared
+// memory, one barrier per step. Values are read back from the row itself,
+// so they are bit-identical to the input.
+//
+// Order key: mono32 as K2u's (-0.0 folded to +0.0), except that every NaN
+// maps to one key above +inf, so NaNs come last in column order, as the
+// plain version's torch.sort puts them.
+//
+// Bound: one read of the row from device memory and the launch; the work is
+// four passes over the row in shared memory plus a sort of k entries, so it
+// hardly grows with k.
+//
+// Shared memory (the wrapper's plan, ops/retrieval.py::_kpass_plan, sizes
+// it with the same formula as kpass_smem_bytes): keys [W] u32 | work: the
+// warps' histograms, then the k (key << 32 | column) entries to rank or
+// the n_sort u16 columns to sort | hist [256] | per-warp counts [64] |
+// broadcast [4].
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ bool before(float v1, int i1, float v2, int i2) {
-  return v1 < v2 || (v1 == v2 && i1 < i2);
+constexpr unsigned short SORT_PAD = 0xFFFF;   // sorts after every column
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ __forceinline__ int kpass_work_words(int nwarps,
+                                                         int n_sort) {
+  const int a = nwarps * 256, b = (n_sort + 1) / 2;
+  return round4(a > b ? a : b);
 }
 
-__device__ __forceinline__ void local_min(const float* row, int W, float& bv,
-                                          int& bi) {
-  bv = __int_as_float(0x7f800000);  // +inf
-  bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    const float v = row[i];
-    if (v == v && before(v, i, bv, bi)) {
-      bv = v;
-      bi = i;
-    }
-  }
+size_t kpass_smem_bytes(int W, int threads, int n_sort) {
+  return 4 * ((size_t)round4(W) + kpass_work_words(threads / 32, n_sort) +
+              256 + 64 + 4);
 }
 
-__global__ void kpass_topk_kernel(const float* __restrict__ x,
-                                  float* __restrict__ val,
-                                  int64_t* __restrict__ idx, int W, int k) {
-  extern __shared__ __align__(16) float row[];
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int sel_i;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  const float* xr = x + (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) row[i] = xr[i];
-  __syncthreads();
-  float bv;
-  int bi;
-  local_min(row, W, bv, bi);
+__device__ __forceinline__ unsigned order_key(float v) {
+  unsigned b = __float_as_uint(v);
+  if (v != v) return 0xFFFFFFFFu;        // every NaN: one key above +inf
+  if (b == 0x80000000u) b = 0u;          // -0.0 orders as +0.0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
 
-  for (int p = 0; p < k; ++p) {
-    float v = bv;
-    int i = bi;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (before(ov, oi, v, i)) {
-        v = ov;
-        i = oi;
+// (key, column) order of two columns; SORT_PAD after everything
+__device__ __forceinline__ bool sorts_before(const unsigned* keys, unsigned a,
+                                             unsigned b) {
+  if (a == SORT_PAD) return false;
+  if (b == SORT_PAD) return true;
+  const unsigned ka = keys[a], kb = keys[b];
+  return ka < kb || (ka == kb && a < b);
+}
+
+// Bitonic sort of n (a power of two) columns by sorts_before, by the
+// block, one barrier per step.
+__device__ __forceinline__ void bitonic_sort(unsigned short* sel,
+                                             const unsigned* keys, int n,
+                                             int t, int nt) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = t; i < n / 2; i += nt) {
+        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned a = sel[lo], b = sel[hi];
+        if (sorts_before(keys, b, a) == ((lo & size) == 0)) {
+          sel[lo] = (unsigned short)b;
+          sel[hi] = (unsigned short)a;
+        }
       }
+      __syncthreads();
     }
-    if (lane == 0) {
-      red_v[warp] = v;
-      red_i[warp] = i;
+}
+
+__global__ void __launch_bounds__(1024)
+kpass_topk_kernel(const float* __restrict__ x, float* __restrict__ val,
+                  int64_t* __restrict__ idx, int W, int k, int n_sort) {
+  extern __shared__ __align__(16) unsigned kp_smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nthreads = blockDim.x, nwarps = nthreads / 32;
+  unsigned* keys = kp_smem;
+  unsigned* work = keys + round4(W);
+  unsigned* hist = work + kpass_work_words(nwarps, n_sort);
+  unsigned* wcnt = hist + 256;   // [warp]: keys below, [32 + warp]: equal
+  unsigned* bcast = wcnt + 64;
+  const float* xr = x + (size_t)blockIdx.x * W;
+
+  // 1. the row, once, as order keys (16-byte loads where rows allow them)
+  if ((W & 3) == 0 && ((size_t)xr & 15) == 0) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    uint4* k4 = reinterpret_cast<uint4*>(keys);
+    for (int i = tid; i < W / 4; i += nthreads) {
+      const float4 v = x4[i];
+      k4[i] = make_uint4(order_key(v.x), order_key(v.y), order_key(v.z),
+                         order_key(v.w));
+    }
+  } else {
+    for (int i = tid; i < W; i += nthreads) keys[i] = order_key(xr[i]);
+  }
+
+  // 2. radix select of the k-th smallest key: after the loop the keys whose
+  // top 32 - shift bits are below prefix number c_lt < k, and those equal
+  // to it hold rank k
+  unsigned prefix = 0, c_lt = 0;
+  int shift = 32;
+  for (int s = 24; s >= 0; s -= 8) {
+    for (int i = tid; i < nwarps * 256; i += nthreads) work[i] = 0;
+    __syncthreads();   // (on the first pass also: the keys are in place)
+    unsigned* wh = work + warp * 256;
+    for (int i = tid; i < W; i += nthreads) {
+      const unsigned key = keys[i];
+      if (shift == 32 || (key >> shift) == prefix)
+        atomicAdd(&wh[(key >> s) & 255u], 1u);
+    }
+    __syncthreads();
+    for (int b = tid; b < 256; b += nthreads) {
+      unsigned sum = 0;
+      for (int w = 0; w < nwarps; ++w) sum += work[w * 256 + b];
+      hist[b] = sum;
     }
     __syncthreads();
     if (warp == 0) {
-      v = lane < nwarps ? red_v[lane] : __int_as_float(0x7f800000);
-      i = lane < nwarps ? red_i[lane] : 0x7fffffff;
+      // lane l scans buckets 8 l .. 8 l + 7; need is a 1-based rank among
+      // the keys that match the prefix
+      const unsigned need = (unsigned)k - c_lt;
+      unsigned c[8], local = 0;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, i, off);
-        if (before(ov, oi, v, i)) {
-          v = ov;
-          i = oi;
-        }
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[8 * lane + j];
+        local += c[j];
       }
-      if (lane == 0) {
-        sel_i = i;
-        val[(size_t)blockIdx.x * k + p] = v;
-        idx[(size_t)blockIdx.x * k + p] = i;
+      unsigned inc = local;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, inc, off);
+        if (lane >= off) inc += t;
+      }
+      unsigned below = inc - local;
+      if (below < need && need <= inc) {
+        int d = 0;
+        unsigned cnt = 0;
+        bool found = false;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (!found && below + c[j] >= need) {
+            d = 8 * lane + j;
+            cnt = c[j];
+            found = true;
+          }
+          if (!found) below += c[j];
+        }
+        bcast[0] = (unsigned)d;
+        bcast[1] = below;
+        bcast[2] = cnt;
       }
     }
     __syncthreads();
-    const int s = sel_i;
-    if (s < W && s % blockDim.x == threadIdx.x) {
-      row[s] = __int_as_float(0x7fc00000);  // NaN: taken
-      local_min(row, W, bv, bi);
+    prefix = (prefix << 8) | bcast[0];
+    c_lt += bcast[1];
+    shift = s;
+    if (bcast[2] == (unsigned)k - c_lt) break;   // the bucket is all taken
+  }
+
+  // 3. compaction in column order into work (the histograms are dead): keys
+  // below the prefix to slots [0, c_lt), the first need equal ones after
+  const unsigned need = (unsigned)k - c_lt;
+  const int chunk = ((W + nwarps - 1) / nwarps + 31) / 32 * 32;
+  const int c0 = warp * chunk, c1 = min(W, c0 + chunk);
+  unsigned n_lt = 0, n_eq = 0;
+  for (int base = c0; base < c1; base += 32) {
+    const int c = base + lane;
+    const unsigned hi = c < c1 ? keys[c] >> shift : 0u;
+    n_lt += __popc(__ballot_sync(0xffffffffu, c < c1 && hi < prefix));
+    n_eq += __popc(__ballot_sync(0xffffffffu, c < c1 && hi == prefix));
+  }
+  if (lane == 0) {
+    wcnt[warp] = n_lt;
+    wcnt[32 + warp] = n_eq;
+  }
+  __syncthreads();
+  unsigned off_lt = 0, off_eq = 0;
+  for (int w = 0; w < warp; ++w) {
+    off_lt += wcnt[w];
+    off_eq += wcnt[32 + w];
+  }
+  // where k <= the block's threads, the selected entries are written as
+  // (key << 32 | column) and ranked by one thread each (no barrier
+  // steps); else as u16 columns for the bitonic sort
+  const bool rank_sort = k <= nthreads;
+  u64* comp = reinterpret_cast<u64*>(work);
+  unsigned short* sel = reinterpret_cast<unsigned short*>(work);
+  const unsigned below_me = (1u << lane) - 1u;
+  for (int base = c0; base < c1; base += 32) {
+    const int c = base + lane;
+    const unsigned key = c < c1 ? keys[c] : 0u;
+    const unsigned hi = key >> shift;
+    const unsigned m_lt = __ballot_sync(0xffffffffu, c < c1 && hi < prefix);
+    const unsigned m_eq = __ballot_sync(0xffffffffu, c < c1 && hi == prefix);
+    unsigned slot = ~0u;
+    if ((m_lt >> lane) & 1u) slot = off_lt + __popc(m_lt & below_me);
+    if ((m_eq >> lane) & 1u) {
+      const unsigned r = off_eq + __popc(m_eq & below_me);
+      if (r < need) slot = c_lt + r;
     }
+    if (slot != ~0u) {
+      if (rank_sort)
+        comp[slot] = ((u64)key << 32) | (unsigned)c;
+      else
+        sel[slot] = (unsigned short)c;
+    }
+    off_lt += __popc(m_lt);
+    off_eq += __popc(m_eq);
+  }
+  if (rank_sort) {
+    __syncthreads();
+    if (tid < k) {
+      // 4. its rank among the k (key, column) entries is its output slot
+      const u64 v = comp[tid];
+      unsigned r = 0;
+#pragma unroll 8
+      for (int j = 0; j < k; ++j) r += comp[j] < v ? 1u : 0u;
+      const unsigned c = (unsigned)(v & 0xFFFFFFFFull);
+      idx[(size_t)blockIdx.x * k + r] = (int64_t)c;
+      val[(size_t)blockIdx.x * k + r] = xr[c];
+    }
+    return;
+  }
+  for (int i = k + tid; i < n_sort; i += nthreads) sel[i] = SORT_PAD;
+  __syncthreads();
+
+  // 4. sort the k columns by (key, column); values from the row itself
+  bitonic_sort(sel, keys, n_sort, tid, nthreads);
+  for (int r = tid; r < k; r += nthreads) {
+    const unsigned c = sel[r];
+    idx[(size_t)blockIdx.x * k + r] = (int64_t)c;
+    val[(size_t)blockIdx.x * k + r] = xr[c];
   }
 }
 
 // ------------------------------------------------------------------ host --
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major [rows, inner] tensor read or written in boxes of [box_rows,
-// box_inner] with 128-byte swizzle; elements past the edge read as zero.
-int make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-             const void* base, int inner, int rows, int box_inner,
-             int box_rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 int operand_maps(CUtensorMap* qm, CUtensorMap* gm, const void* q,
                  const void* g, int Q, int G, int D) {
@@ -732,14 +727,6 @@ int operand_maps(CUtensorMap* qm, CUtensorMap* gm, const void* q,
   return rc;
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return -1;
-  return n;
-}
 
 template <bool kPacked, int K>
 int launch_partial(const CUtensorMap& qm, const CUtensorMap& gm,
@@ -783,7 +770,7 @@ int launch_stream_topk(const void* q, const void* g, const float* gn,
 
 extern "C" {
 
-int crt_abi_version() { return 4; }
+int crt_abi_version() { return 5; }
 
 // The SM count of the current device (cudaDevAttrMultiProcessorCount), from
 // which the wrapper plans K2's persistent grid; -1 on error.
@@ -827,16 +814,29 @@ int crt_stream_topk_unpacked(const void* q, const void* g, const float* gn,
                                    n_splits, (cudaStream_t)stream);
 }
 
+// K3: one block of `threads` per row; n_sort, the power of two >= k that
+// the bitonic sort runs on, and smem come from the wrapper's plan.
 int crt_kpass_topk(const float* x, float* val, int64_t* idx, int Q, int W,
-                   int k, void* stream) {
-  const size_t smem = (size_t)W * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kpass_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int threads = W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
-  kpass_topk_kernel<<<Q, threads, smem, (cudaStream_t)stream>>>(x, val, idx,
-                                                                 W, k);
+                   int k, int threads, int n_sort, int smem, void* stream) {
+  if (k < 1 || k > W || W > 32768 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || n_sort < k || (n_sort & (n_sort - 1)) != 0 ||
+      (size_t)smem < kpass_smem_bytes(W, threads, n_sort))
+    return (int)cudaErrorInvalidValue;
+  // raise the kernel's shared-memory limit only when a launch needs more
+  // than an earlier one did (per device): one attribute call, not one per
+  // launch
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)cudaErrorInvalidDevice;
+  static int smem_set[64] = {};
+  if (smem > smem_set[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kpass_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[dev] = smem;
+  }
+  kpass_topk_kernel<<<Q, threads, smem, (cudaStream_t)stream>>>(
+      x, val, idx, W, k, n_sort);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,10 @@ beside its plain PyTorch version:
   the same streaming selection on exact fp32 scores (the TPU kernel's
   unpacked merge);
 * K3 ``kpass_topk`` / ``kpass_topk_plain``: the exact fp32 k smallest of
-  each row, ties to the lower column; the base case and final pass of the
-  hierarchical top-k. Rows wider than one K3 row (32768 columns) take a
-  stable sort instead, as the reference sends them to ``lax.top_k``.
+  each row, ties to the lower column (a radix select in shared memory);
+  the base case and final pass of the hierarchical top-k. Rows wider than
+  one K3 row (32768 columns) take a stable sort instead, as the reference
+  sends them to ``lax.top_k``.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches its kernel or raises. Each launch adds one to
@@ -24,6 +25,7 @@ tensor it launches its kernel or raises. Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -187,17 +189,42 @@ def stream_topk(qf, gf, gn_row, k: int, packed: bool = True):
 
 def kpass_topk_plain(x, k: int):
     """Exact k smallest per row, ties to the lowest column (lax.top_k's
-    order)."""
+    order); NaNs after every number, in column order (torch.sort's)."""
     v, i = torch.sort(x, dim=1, stable=True)
     return v[:, :k], i[:, :k]
 
 
+@functools.lru_cache(maxsize=256)
+def _kpass_plan(w: int, k: int) -> Tuple[int, int, int]:
+    """K3's launch: (threads per row's block, n_sort, shared-memory bytes).
+    1024 threads from W = 4096 up, else 256; where k exceeds the threads,
+    a bitonic sort runs on n_sort, the power of two >= k. The shared memory
+    holds the row's keys (W u32), then the larger of the warps' 256-bucket
+    histograms and the n_sort u16 columns of the sort (the histograms'
+    room also holds the k 8-byte entries ranked where k <= threads), then
+    324 words of counts (the layout that ``retrieval.cu::kpass_smem_bytes``
+    sizes)."""
+    threads = 1024 if w >= 4096 else 256
+    n_sort = 1 << (k - 1).bit_length()
+
+    def round4(n):
+        return -(-n // 4) * 4
+
+    work = round4(max(threads // 32 * 256, (n_sort + 1) // 2))
+    return threads, n_sort, 4 * (round4(w) + work + 256 + 64 + 4)
+
+
 def kpass_topk(x, k: int):
-    """K3: fp32 [Q, W] (W <= 32768) -> exact (values [Q, k], int64 [Q, k]).
+    """K3: fp32 [Q, W] (W <= 32768) -> exact (values [Q, k], int64 [Q, k]),
+    as ``kpass_topk_plain``: a radix select of the k-th smallest value on
+    the row in shared memory, then an ordering of the k selected columns.
 
     Diverges from the TPU kernel only where a row holds fewer than k
     non-taken values below +inf: the TPU kernel then repeats its first
-    +inf column, this one returns k distinct columns as lax.top_k does."""
+    +inf column, this one returns k distinct columns as lax.top_k does.
+    NaN: the TPU kernel's ``jnp.min`` propagates a NaN into every later
+    pass; this one follows its plain version (torch.sort), which puts NaNs
+    after +inf, each with its own column."""
     if _on_cpu(x):
         return kpass_topk_plain(x, k)
     from . import _build
@@ -215,8 +242,10 @@ def kpass_topk(x, k: int):
     val = torch.empty((q, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((q, k), dtype=torch.int64, device=x.device)
     if q:
+        threads, n_sort, smem = _kpass_plan(w, k)
         rc = _build.load().crt_kpass_topk(
-            x.data_ptr(), val.data_ptr(), idx.data_ptr(), q, w, k, _stream()
+            x.data_ptr(), val.data_ptr(), idx.data_ptr(), q, w, k, threads,
+            n_sort, smem, _stream()
         )
         _check(rc, "kpass_topk")
         LAUNCHES["kpass_topk"] += 1

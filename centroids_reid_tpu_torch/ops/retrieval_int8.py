@@ -38,6 +38,8 @@ from .retrieval import (
 )
 
 LAUNCHES: Dict[str, int] = {"scores_i8": 0}
+# K4's output tile: 256 gallery rows x 128 query rows
+_I8_TILE_G = 256
 
 
 def reset_launch_counts() -> None:
@@ -79,6 +81,14 @@ def default_margin(k: int) -> int:
 
 # --------------------------------------------------------------- K4 ------
 
+def _scores_i8_blocks(q: int, g: int, sms: int) -> int:
+    """K4's persistent grid over its 256 x 128 output tiles (the last
+    gallery tile half empty when G % 256 == 128): one block per SM at
+    most, never more blocks than tiles, so each block strides over the
+    floor or the ceiling of an even share."""
+    return max(1, min((q // _Q_TILE) * -(-g // _I8_TILE_G), sms))
+
+
 def scores_i8_plain(qf, codes, s_row, gn_row):
     """``gn_row - 2 s_row (q . codes^T)`` in fp32; the scale is applied
     after the product, as the TPU kernel does."""
@@ -115,14 +125,19 @@ def scores_i8(qf, codes, s_row, gn_row):
     args = (qf, codes, s_row, gn_row)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("q, codes, s_row and gn_row must be contiguous")
-    # 16-byte loads of q and codes, float4 loads of s_row and gn_row
+    # TMA reads q and codes from 16-byte aligned bases; s_row and gn_row
+    # keep the same contract
     if any(t.data_ptr() % 16 for t in args):
         raise ValueError(
             "q, codes, s_row and gn_row must start on a 16-byte boundary")
     out = torch.empty((q, g), dtype=torch.float32, device=qf.device)
-    rc = _build.load().crt_scores_i8(
+    lib = _build.load()
+    sms = lib.crt_sm_count()
+    if sms < 1:
+        raise RuntimeError("scores_i8: cannot read the device's SM count")
+    rc = lib.crt_scores_i8(
         qf.data_ptr(), codes.data_ptr(), s_row.data_ptr(), gn_row.data_ptr(),
-        out.data_ptr(), q, g, d, _stream(),
+        out.data_ptr(), q, g, d, _scores_i8_blocks(q, g, sms), _stream(),
     )
     _check(rc, "scores_i8")
     LAUNCHES["scores_i8"] += 1

@@ -25,10 +25,13 @@ bf16 autocast) and seeded random weights:
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
-CUDA events, K2 beside the k=10 route through K1 + the hierarchical top-k,
-and with ``torch.profiler`` a request's device busy time, the device time
-of each kernel that K1, K2 and K2u launch, and K5's and K6's device time
-and launches in one int8 embed call (batch 8 and 256).
+CUDA events, K3 from CUDA graph replays at every shape the paths launch it
+beside ``torch.topk``, K2 beside the k=10 route through K1 + the
+hierarchical top-k, and with ``torch.profiler`` a request's device busy
+time, the device time of each kernel that K1, K2 and K2u launch, K3's and
+K4's per launch in one serve-k100 and one int8-k100 request, and K5's and
+K6's device time and launches in one int8 embed call (batch 8 and 256), per
+shape with its bound at batch 8.
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
@@ -71,6 +74,12 @@ KERNELS = {
                         "centroids_reid_tpu/ops/int8_conv.py:182"),
 }
 BF16_KERNELS = ("scores", "stream_topk", "kpass_topk")
+# (W, k) of each K3 launch on the paths against the 100,352-row gallery:
+# the group minima (100352 / 8 columns) and the gathered 8k columns, at
+# k=100 (serve-k100), k=26 (int8 k=10: the margin k + 16) and k=125 (int8
+# k=100: k + k / 4)
+K3_SHAPES = ((12544, 100), (800, 100), (12544, 26), (208, 26), (12544, 125),
+             (1000, 125))
 INT8_KERNELS = ("kpass_topk", "scores_i8", "matmul_requant",
                 "conv3x3_requant")
 
@@ -102,6 +111,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device time of ``fn()`` in ms with no host in the loop: ``iters``
+    calls captured once in a CUDA graph, CUDA events around ``reps`` replays
+    (for kernels whose back-to-back calls run at the host's enqueue rate)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def request_ms(svc, imgs, n: int) -> list:
@@ -212,6 +244,8 @@ def phase_build() -> None:
             log(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
         elif "spill stores" in line and not line.strip().startswith("0 "):
             log(f"  ptxas {kernel}: {line.strip()}")
+        elif "Performance Loss" in line or "serialized" in line:
+            log(f"  ptxas {kernel}: {line.strip()}")
 
 
 def phase_compare() -> dict:
@@ -281,8 +315,37 @@ def phase_compare() -> dict:
             "K3 differs with ties and +inf")
     log("K3 with ties, +inf columns and a row of fewer than k finite "
         "values: values and indices exact")
+    t = x.clone()
+    t[0, :] = float("nan")                     # all NaN
+    t[1, 60:] = float("nan")                   # fewer than k numbers
+    t[2, ::3] = float("nan")
+    t[3, :] = float("inf")
+    t[3, 1::2] = float("nan")
+    require(kpass_equal(t, 100), "K3 differs on NaN rows")
+    for w, k in K3_SHAPES:
+        require(kpass_equal(torch.randn((128, w), generator=gen,
+                                        device="cuda"), k),
+                f"K3 differs at [128,{w}] k={k}")
+    log("K3 with NaN rows (NaNs after +inf, own columns, as torch.sort) "
+        "and at every path shape "
+        + ", ".join(f"[128,{w}] k={k}" for w, k in K3_SHAPES)
+        + ": values and indices exact")
     torch.cuda.synchronize()
     return errs
+
+
+def kpass_equal(x, k: int) -> bool:
+    """K3 against its plain version: indices equal, values bit-equal, NaN
+    equal to NaN."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import retrieval as R
+
+    v, i = R.kpass_topk(x, k)
+    rv, ri = R.kpass_topk_plain(x, k)
+    nan = torch.isnan(rv)
+    return (torch.equal(i, ri) and torch.equal(torch.isnan(v), nan)
+            and torch.equal(v[~nan], rv[~nan]))
 
 
 def phase_compare_k2u():
@@ -891,16 +954,17 @@ def time_requests(name: str, svc, imgs) -> None:
            else "not measured (the profiler saw no device time)"))
 
 
-def time_pair(name: str, kern, plain, shape: str, library=None):
+def time_pair(name: str, kern, plain, shape: str, library=None,
+              timer=cuda_ms):
     """(kernel ms, plain ms, library ms or None), kernel and plain each the
-    mean of two CUDA-event runs taken plain, kernel, kernel, plain (one
+    mean of two runs of ``timer`` taken plain, kernel, kernel, plain (one
     card, one call, in turns); the library call timed twice after them."""
-    p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                      cuda_ms(plain))
+    p1, k1, k2, p2 = timer(plain), timer(kern), timer(kern), timer(plain)
     lib = None
     if library is not None:
-        lib = (cuda_ms(library) + cuda_ms(library)) / 2
-    log(f"{name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+        lib = (timer(library) + timer(library)) / 2
+    how = "CUDA graph replay, " if timer is graph_ms else ""
+    log(f"{name} {shape}: {how}kernel {k1:.4f}/{k2:.4f} ms, plain "
         f"{p1:.4f}/{p2:.4f} ms"
         + (f", library call {lib:.4f} ms" if lib is not None else ""))
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
@@ -926,10 +990,10 @@ PROFILED = {"matmul_requant": "requant_gemm_kernel<1>",
             "conv3x3_requant": "requant_gemm_kernel<9>"}
 
 
-def kernel_device_us(fn) -> tuple:
-    """One call of ``fn``, after a warm-up call, under torch.profiler:
-    ({kernel name: (device us, launches)} over everything it ran on the
-    device, the launch counters of that call)."""
+def kernel_device_us(fn, calls: int = 1) -> tuple:
+    """``calls`` calls of ``fn``, after a warm-up call, under
+    torch.profiler: ({kernel name: (device us, launches)} over everything
+    they ran on the device, the launch counters of those calls)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -941,7 +1005,8 @@ def kernel_device_us(fn) -> tuple:
     reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
@@ -1101,7 +1166,11 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     }
     times = {}
     for name, (kern, plain, shape, lib, moved, ops, kind) in cases.items():
-        k_ms, p_ms, lib_ms = time_pair(name, kern, plain, shape, lib)
+        # K3's back-to-back calls run at the wrapper's enqueue rate: time it
+        # (and its plain version and library call) from CUDA graph replays
+        k_ms, p_ms, lib_ms = time_pair(
+            name, kern, plain, shape, lib,
+            graph_ms if name == "kpass_topk" else cuda_ms)
         b_ms, b_by = bound(name, moved, ops, kind)
         times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
@@ -1126,6 +1195,9 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
         log(f"{name}, one call under torch.profiler: "
             + ", ".join(f"{kname} {us:.1f} us"
                         for kname, (us, _) in per.items()))
+    phase_timing_k3(gen)
+    phase_timing_requests(state, int8_state)
+    phase_timing_requant(int8_state["qfn"], x[:REQUEST])
     # the wrappers' host cost per launch at the timed K5/K6 shapes
     for name, fn in (("matmul_requant", cases["matmul_requant"][0]),
                      ("conv3x3_requant", cases["conv3x3_requant"][0])):
@@ -1133,6 +1205,154 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
             f"(enqueue, host clock, 50 calls) against "
             f"{times[name]['ms'] * 1e3:.2f} us of CUDA-event time")
     return times
+
+
+def device_us_per_call(fn, calls: int = 20) -> float:
+    """torch.profiler's device time of ``fn`` per call, in us: the kernels
+    alone, without the host's enqueue gaps between calls. A trace that
+    holds no device time is taken again, up to three times in all."""
+    for _ in range(3):
+        per, _ = kernel_device_us(fn, calls)
+        us = sum(us for us, _ in per.values())
+        if us > 0:
+            return us / calls
+    raise AssertionError("the profiler saw no device time in three traces")
+
+
+def phase_timing_k3(gen) -> None:
+    """K3 at every (W, k) the paths launch, beside torch.topk(largest=
+    False) on the same rows: CUDA graph replays (device time with launch
+    gaps, no host), torch.profiler's device time per call, CUDA events over
+    20 back-to-back calls (at these shapes the host's enqueue rate) and the
+    host's enqueue time per call, with the bound at each shape."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import retrieval as R
+
+    for w, k in K3_SHAPES:
+        xs = torch.randn((128, w), generator=gen, device="cuda")
+
+        def kern(xs=xs, k=k):
+            return R.kpass_topk(xs, k)
+
+        def plain(xs=xs, k=k):
+            return R.kpass_topk_plain(xs, k)
+
+        def lib(xs=xs, k=k):
+            return torch.topk(xs, k, dim=1, largest=False)
+
+        shape = f"[128,{w}] k={k}"
+        k_ms, _, l_ms = time_pair("kpass_topk", kern, plain, shape, lib,
+                                  graph_ms)
+        k_paced, l_paced = cuda_ms(kern), cuda_ms(lib)
+        kd, ld = device_us_per_call(kern), device_us_per_call(lib)
+        b_ms, _ = bound(f"kpass_topk {shape}", nbytes(xs) + 128 * k * 12,
+                        128.0 * w, "fp32")
+        log(f"kpass_topk {shape}: K3 takes {k_ms / l_ms:.3f} of torch.topk's "
+            f"time (graph replay), {b_ms / k_ms:.3f} of its bound; device "
+            f"time per call (torch.profiler, 20 calls) {kd:.2f} us, "
+            f"torch.topk {ld:.2f} us ({kd / ld:.3f}); back-to-back calls "
+            f"(CUDA events, host-paced) {k_paced:.4f} ms, torch.topk "
+            f"{l_paced:.4f} ms; host {host_us_per_launch(kern):.2f} us per "
+            f"K3 launch, {host_us_per_launch(lib):.2f} per torch.topk")
+
+
+def phase_timing_requests(state: dict, int8_state: dict) -> None:
+    """The device time of each hand-written kernel of one serve-k100 and
+    one int8-k100 request (torch.profiler), per launch."""
+    imgs = state["imgs"][:REQUEST]
+    for name, svc in (("serve-k100", state["services"][100]),
+                      ("int8-k100", int8_state["services"]["int8-k100"])):
+        per, counts = kernel_device_us(lambda svc=svc: svc.query_arrays(imgs))
+        total = sum(us for us, _ in per.values())
+        parts = []
+        for kname, counter in (("scores_kernel", "scores"),
+                               ("scores_i8_kernel", "scores_i8"),
+                               ("kpass_topk_kernel", "kpass_topk")):
+            us, n = per.get(kname, (0.0, 0))
+            require(n == counts[counter],
+                    f"{name}: {n} {kname} launches traced, "
+                    f"{counts[counter]} counted")
+            if n:
+                parts.append(f"{kname} {us:.1f} us in {n} launches "
+                             f"({us / n:.2f} us each)")
+        log(f"{name}, one request under torch.profiler: {total:.1f} us of "
+            f"device time; " + "; ".join(parts))
+
+
+def phase_timing_requant(qfn, x) -> None:
+    """K5's and K6's device time and bound per shape over one int8 embed
+    call of ``len(x)`` images: the wrappers are wrapped to record each
+    launch's shapes, and the profiler's kernel events, in launch order,
+    give each launch its device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from centroids_reid_tpu_torch.ops import int8_conv as C
+
+    mm, conv = C.matmul_requant, C.conv3x3_requant
+    shapes = []
+
+    def rec_mm(x, w, scale, bias, res=None, res_scale=None, relu=True):
+        m, k = x.shape
+        n = w.shape[1]
+        shapes.append(("matmul_requant",
+                       f"[{m},{k}]x[{k},{n}]" + (" +res" if res is not None
+                                                  else ""),
+                       nbytes(x, w, scale, bias)
+                       + m * n * (2 if res is not None else 1),
+                       2.0 * m * k * n))
+        return mm(x, w, scale, bias, res=res, res_scale=res_scale, relu=relu)
+
+    def rec_conv(x, w, scale, bias, res_nhwc=None, res_scale=None,
+                 relu=True):
+        b, h, wd, k = x.shape
+        n = w.shape[3]
+        shapes.append(("conv3x3_requant",
+                       f"[{b},{h},{wd},{k}]->{n}"
+                       + (" +res" if res_nhwc is not None else ""),
+                       nbytes(x, w, scale, bias)
+                       + b * h * wd * n * (2 if res_nhwc is not None else 1),
+                       2.0 * b * h * wd * 9 * k * n))
+        return conv(x, w, scale, bias, res_nhwc=res_nhwc,
+                    res_scale=res_scale, relu=relu)
+
+    with torch.inference_mode():
+        qfn(x)
+        torch.cuda.synchronize()
+        C.matmul_requant, C.conv3x3_requant = rec_mm, rec_conv
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                qfn(x)
+                torch.cuda.synchronize()
+        finally:
+            C.matmul_requant, C.conv3x3_requant = mm, conv
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "requant_gemm_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+    require(len(events) == len(shapes),
+            f"{len(events)} K5/K6 kernels traced, {len(shapes)} launches "
+            f"recorded in one int8 embed call")
+    rows = {}
+    for (name, shape, moved, ops), e in zip(shapes, events):
+        b_us = max(moved / (HBM_PEAK_GBS * 1e9), ops / PEAK_OPS["int8"]) * 1e6
+        r = rows.setdefault((name, shape), [0, 0.0, b_us])
+        r[0] += 1
+        r[1] += e.self_device_time_total
+    for name in ("matmul_requant", "conv3x3_requant"):
+        mine = [(s, r) for (n, s), r in rows.items() if n == name]
+        dev = sum(r[1] for _, r in mine)
+        bnd = sum(r[0] * r[2] for _, r in mine)
+        log(f"{name}, one int8 embed call of {len(x)} images "
+            f"(torch.profiler): {sum(r[0] for _, r in mine)} launches, "
+            f"{dev:.1f} us of device time against a summed bound of "
+            f"{bnd:.2f} us ({bnd / dev:.3f} of it); per shape:")
+        for shape, (n, us, b_us) in mine:
+            log(f"  {name} {shape}: {n} launches, {us / n:.2f} us each, "
+                f"bound {b_us:.3f} us")
 
 
 def main() -> int:

@@ -432,3 +432,105 @@ def test_int8_service_on_gpu_matches_cpu(cuda):
     (dc, ic, _), (dg, ig, _) = out["cpu"], out[str(cuda)]
     np.testing.assert_array_equal(ig, ic)
     np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------- K3 radix select ----
+
+def _assert_kpass_exact(xt, k):
+    """Indices equal, values bit-equal, NaN equal to NaN."""
+    v, i = R.kpass_topk(xt, k)
+    rv, ri = R.kpass_topk_plain(xt, k)
+    assert torch.equal(i, ri)
+    nan = torch.isnan(rv)
+    assert torch.equal(torch.isnan(v), nan)
+    assert torch.equal(v[~nan], rv[~nan])
+
+
+# k = W; k = 1 and k > 4096 at W = 32768; W off a multiple of 4 or 32;
+# every (W, k) the serving, int8 and CLI paths launch
+KPASS_CASES = [(1000, 1000), (33, 33), (32768, 1), (32768, 4097),
+               (32768, 32768), (1001, 100), (12547, 100), (77, 5),
+               (12544, 100), (800, 100), (12544, 26), (208, 26),
+               (12544, 125), (1000, 125)]
+
+
+@pytest.mark.parametrize("w,k", KPASS_CASES)
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_kpass_topk_radix_exact(cuda, w, k, kind):
+    rng = np.random.RandomState(w + k)
+    x = rng.randn(128 if w <= 12547 else 9, w).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2)
+        x[:, -min(300, w // 2):] = np.inf
+    x[0, :] = 1.5                      # a row of one repeated value
+    x[1, :] = np.inf                   # a row of +inf but for a few
+    x[1, ::max(1, w // 7)] = -1.0
+    R.reset_launch_counts()
+    _assert_kpass_exact(torch.from_numpy(x).to(cuda), k)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES["kpass_topk"] == 1
+
+
+@pytest.mark.parametrize("w,k", [(800, 100), (12544, 100), (1001, 26),
+                                 (32768, 4097)])
+def test_kpass_topk_radix_nan_rows(cuda, w, k):
+    """NaNs order after +inf in column order, as torch.sort does: rows of
+    fewer than k non-NaN values return the NaNs with their own columns."""
+    rng = np.random.RandomState(3 * w + k)
+    x = rng.randn(6, w).astype(np.float32)
+    x[0, :] = np.nan                   # all NaN
+    x[1, k // 2:] = np.nan             # fewer than k numbers
+    x[2, ::3] = np.nan                 # NaNs among the numbers
+    x[3, :] = np.inf
+    x[3, 1::2] = np.nan                # +inf and NaN interleaved
+    x[4, : k // 3] = -np.inf
+    _assert_kpass_exact(torch.from_numpy(x).to(cuda), k)
+
+
+# ------------------------------------------------- K4 on the TMA ring ----
+
+# (Q, G, D) over K4's 256 x 128 output tiles: D = 32 and 96 leave a ragged
+# 64-deep stage; G = 128 is one half-empty tile; 133 and 266 tiles leave
+# the 132-block grid a ragged last wave; Q = 256 is two query tiles; G %
+# 256 == 128 leaves the last gallery tile half empty
+K4_GEOMETRY = [(128, 128, 32), (128, 34048, 96), (256, 33920, 64),
+               (128, 4096, 2048), (256, 128, 96)]
+
+
+@pytest.mark.parametrize("q,g,d", K4_GEOMETRY)
+def test_scores_i8_tma_kernel_matches_plain(cuda, q, g, d):
+    """Integer queries exact (any scale); unit rows within fp32 summation
+    order (rtol 1e-5); +inf pad columns equal."""
+    codes, s_row, gn = _int8_gallery(cuda, g=g, d=d, real=g - 28, seed=g + d)
+    rng = np.random.RandomState(q + d)
+    unit = rng.randn(q, d)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    R8.reset_launch_counts()
+    for qv in (rng.randint(-3, 4, (q, d)), unit):
+        qf = torch.from_numpy(qv.astype(np.float32)).to(cuda, torch.bfloat16)
+        got = R8.scores_i8(qf, codes, s_row, gn)
+        ref = R8.scores_i8_plain(qf, codes, s_row, gn)
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        fin = torch.isfinite(ref)
+        if qv.dtype.kind == "i":
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5,
+                                       atol=1e-5)
+    torch.cuda.synchronize()
+    assert R8.LAUNCHES["scores_i8"] == 2
+
+
+def test_scores_i8_tma_kernel_full_code_range(cuda):
+    """Every code in [-127, 127] widens exactly: codes drawn over the whole
+    range, integer queries, unit scales, exact."""
+    rng = np.random.RandomState(21)
+    codes = torch.from_numpy(
+        rng.randint(-127, 128, (1024, 256)).astype(np.int8)).to(cuda)
+    codes[0, :255] = torch.arange(-127, 128, dtype=torch.int8)
+    s_row = torch.ones((1, 1024), device=cuda)
+    gn = torch.zeros((1, 1024), device=cuda)
+    qf = torch.from_numpy(rng.randint(-2, 3, (128, 256)).astype(np.float32)
+                          ).to(cuda, torch.bfloat16)
+    assert torch.equal(R8.scores_i8(qf, codes, s_row, gn),
+                       R8.scores_i8_plain(qf, codes, s_row, gn))

@@ -13,6 +13,7 @@ import torch
 
 from centroids_reid_tpu.ops import retrieval as J
 from centroids_reid_tpu_torch.ops import retrieval as R
+from centroids_reid_tpu_torch.ops import retrieval_int8 as R8
 
 
 def _int_inputs(rng, q, g, d, lo=-2, hi=3):
@@ -302,3 +303,44 @@ def test_score_input_checks_refuse_off_tile_shapes(q, g, d):
         R._check_score_inputs(torch.zeros((q, d), dtype=torch.bfloat16),
                               torch.zeros((g, d), dtype=torch.bfloat16),
                               torch.zeros((1, g)))
+
+
+@pytest.mark.parametrize("w,k", [(1, 1), (208, 26), (800, 100), (1000, 125),
+                                 (4095, 4095), (12544, 100), (32768, 1),
+                                 (32768, 4097), (32768, 32768)])
+def test_kpass_plan_fits_one_block(w, k):
+    """K3's launch plan at the paths' shapes and the contract's corners:
+    whole warps, a power-of-two sort of at least k entries, and shared
+    memory for the row, the histograms or the sort (where k <= threads,
+    the histograms' room holds the k 8-byte entries that are ranked),
+    within one block's limit on sm_90."""
+    threads, n_sort, smem = R._kpass_plan(w, k)
+    assert threads % 32 == 0 and 256 <= threads <= 1024
+    assert n_sort >= k and n_sort & (n_sort - 1) == 0 and n_sort < 2 * k
+    assert smem >= 4 * w + max(threads // 32 * 1024, 2 * n_sort)
+    assert k > threads or threads // 32 * 1024 >= 8 * k
+    assert smem <= 232448   # a block's dynamic shared memory on sm_90
+
+
+def test_kpass_topk_plain_orders_nan_last():
+    """K3's plain version, which the card kernel equals: NaNs sort after
+    +inf, each with its own column, ties to the lower column. (The TPU
+    kernel's ``jnp.min`` propagates NaN instead: a stated divergence.)"""
+    x = torch.tensor([[3.0, float("nan"), float("inf"), 1.0, float("nan"),
+                       1.0, -0.0, 0.0]])
+    v, i = R.kpass_topk(x, 8)
+    assert i.tolist() == [[6, 7, 3, 5, 0, 2, 1, 4]]
+    assert torch.isnan(v[0, 6:]).all() and v[0, 5] == float("inf")
+
+
+@pytest.mark.parametrize("q,g,sms,want", [
+    (128, 100352, 132, 132),   # the serving shape: 392 tiles, 2.97 a block
+    (128, 128, 132, 1),        # G = 128: one half-empty tile
+    (128, 34048, 132, 132),    # 133 tiles: a ragged last wave
+    (256, 33920, 132, 132),    # two query tiles, a half-empty column
+    (128, 12800, 132, 50),     # 50 tiles
+])
+def test_scores_i8_grid_fills_one_wave(q, g, sms, want):
+    """K4's persistent grid over its 256 x 128 output tiles: one block per
+    SM at most and never more blocks than tiles."""
+    assert R8._scores_i8_blocks(q, g, sms) == want
