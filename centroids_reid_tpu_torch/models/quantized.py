@@ -16,7 +16,8 @@ port's ``ReidModel`` and run in PyTorch:
   padding; the tail (GAP, BNNeck) in fp32.
 * **Execution** (``_Int8Engine``). With ``use_pallas`` truthy, every 1x1
   conv (stride-2 ones after a row slice) runs on K5 and every stride-1 3x3
-  conv on K6 (``ops/int8_conv.py``; their plain versions on the CPU). The
+  conv on K6 (``ops/int8_conv.py``; their plain versions on the CPU),
+  each with its weight packed K-major once, at first use, and kept. The
   7x7 stem and the stride-2 3x3 convs, and every conv with
   ``use_pallas=False``, run as an int8 conv with the accumulator
   ``acc_dtype`` (int32 exact, or rounded to bf16), then a separate
@@ -289,12 +290,16 @@ class _Int8Engine:
     """int8 engine: tensors are (int8 NHWC values, fp32 scalar scale)
     pairs. Eligible convs run on the fused kernels K5 / K6 (conv, scale and
     bias, residual, ReLU and the int8 rounding in one launch); the others
-    run an int8 conv and a separate requantization."""
+    run an int8 conv and a separate requantization. ``packed`` maps
+    ``id(w)`` of a fused conv's weight to ``(w, pack_weight(w))``; the
+    caller keeps it across calls, so each weight is packed once."""
 
-    def __init__(self, qtree, use_pallas, acc_dtype=torch.int32):
+    def __init__(self, qtree, use_pallas, acc_dtype=torch.int32,
+                 packed: Optional[Dict] = None):
         self.q = qtree
         self.use_pallas = use_pallas
         self.acc_dtype = acc_dtype
+        self.packed = {} if packed is None else packed
 
     def input(self, imgs_u8):
         # exact: int8 pixel values with scale 1 (alpha folded into weights)
@@ -331,6 +336,17 @@ class _Int8Engine:
             return "conv3x3"
         return None
 
+    def _packed(self, w, kind):
+        """The kernels' K-major copy of ``w``, packed at its first use."""
+        from ..ops.int8_conv import pack_weight
+
+        hit = self.packed.get(id(w))
+        if hit is None or hit[0] is not w:
+            hit = (w, pack_weight(w if kind == "conv3x3"
+                                  else w.reshape(w.shape[2], w.shape[3])))
+            self.packed[id(w)] = hit
+        return hit[1]
+
     def _fused(self, kind, z, entry, scale, bias, relu, res=None,
                res_scale=None):
         from ..ops.int8_conv import conv3x3_requant, matmul_requant
@@ -339,15 +355,17 @@ class _Int8Engine:
         # strided view
         z = z.contiguous()
         res = None if res is None else res.contiguous()
+        w_packed = self._packed(entry["w"], kind)
         if kind == "conv3x3":
             return conv3x3_requant(z, entry["w"], scale, bias, res_nhwc=res,
-                                   res_scale=res_scale, relu=relu)
+                                   res_scale=res_scale, relu=relu,
+                                   w_packed=w_packed)
         b, h, w, c = z.shape
         n = entry["w"].shape[3]
         y = matmul_requant(
             z.reshape(b * h * w, c), entry["w"].reshape(c, n), scale, bias,
             res=None if res is None else res.reshape(b * h * w, n),
-            res_scale=res_scale, relu=relu)
+            res_scale=res_scale, relu=relu, w_packed=w_packed)
         return y.reshape(b, h, w, n)
 
     def conv_act(self, rep, entry, stride, pad, qname, relu=True):
@@ -497,7 +515,9 @@ class QuantizedEmbed:
     are 0-d fp32 tensors. ``use_pallas`` routes the eligible convs to K5 /
     K6 (``True``, or ``"large"`` for feature maps of >= 2048 pixels);
     ``acc_dtype`` is the accumulator of the other convs (``torch.int32``
-    exact, ``torch.bfloat16`` rounded)."""
+    exact, ``torch.bfloat16`` rounded). The fused convs' K-major weights
+    are packed at their first call and kept (``_packed``), beside the HWIO
+    tree that ``save`` writes."""
 
     def __init__(self, qtree, plan, stem_relu, use_pallas=False,
                  acc_dtype=torch.bfloat16):
@@ -506,6 +526,7 @@ class QuantizedEmbed:
                         "stem_relu": bool(stem_relu)}
         self._use_pallas = use_pallas
         self._acc_dtype = acc_dtype
+        self._packed: Dict = {}
         self.extra_meta: Dict = {}
 
     @property
@@ -527,7 +548,7 @@ class QuantizedEmbed:
         the parameters' device."""
         f = dict(qtree)
         f.update(self._static)
-        eng = _Int8Engine(f, self._use_pallas, self._acc_dtype)
+        eng = _Int8Engine(f, self._use_pallas, self._acc_dtype, self._packed)
         return _embed_tail(f["bnneck"], _backbone_forward(eng, f, imgs_u8))
 
     @torch.inference_mode()

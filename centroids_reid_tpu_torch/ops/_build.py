@@ -25,7 +25,7 @@ _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 5
+_ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -70,11 +70,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_kpass_topk.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.crt_scores_i8.restype = i
     lib.crt_scores_i8.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.crt_requant_smem_bytes.restype = i
+    lib.crt_requant_smem_bytes.argtypes = [i, i]
     lib.crt_matmul_requant.restype = i
-    lib.crt_matmul_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
+    lib.crt_matmul_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
+                                       p]
     lib.crt_conv3x3_requant.restype = i
     lib.crt_conv3x3_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
-                                        p]
+                                        i, i, p]
 
 
 def _compile(so: str) -> str:

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernel sources:
 // shared-memory addressing, mbarriers, TMA loads and stores, wgmma
-// descriptors and the m64n128k16 bf16 products (A from shared memory or
-// from registers), and the host-side tensor-map encoder. Each source that
+// descriptors, the m64n128k16 bf16 products (A from shared memory or from
+// registers) and the m64n{64,128}k32 s8 products, and the host-side
+// tensor-map encoder. Each source that
 // includes this header gets its own copies (anonymous namespace); the
 // kernels themselves stay in their sources.
 
@@ -70,6 +71,40 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"((u64)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            u64* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((u64)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The cluster-wide barrier (every thread of every block of the cluster).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, u64* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"((u64)map) : "memory");
 }
 
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
@@ -165,6 +200,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+// wgmma descriptor of a K-major tile of 64-byte rows in 64-byte swizzle
+// (64 int8 per row): 8-row groups 512 B apart; the leading offset is
+// unused for this layout. One k32 step of int8 is +32 B on the start
+// address. The tile starts on a 512-byte boundary.
+__device__ __forceinline__ u64 sw64_desc(const void* tile) {
+  return (u64)((smem_u32(tile) & 0x3FFFFu) >> 4) | ((u64)1 << 16) |
+         ((u64)(512 >> 4) << 32) | ((u64)2 << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define CRT_R8(i)                                                           \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),               \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// s8 x s8 products with exact s32 accumulation, both operands K-major in
+// shared memory (8-bit wgmma has no transpose): D[64 x N] += A[64 x 32]
+// B[32 x N]. Thread t of warp w holds D[16 w + t/4 % 8 (+8)][8 j + 2 (t %
+// 4) (+1)] in d[4 j ..], as for the fp32 products above.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], u64 da,
+                                                    u64 db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      CRT_WGMMA_D64_LIST ", %64, %65, 1;\n"
+      : CRT_R8(0), CRT_R8(8), CRT_R8(16), CRT_R8(24), CRT_R8(32),
+        CRT_R8(40), CRT_R8(48), CRT_R8(56)
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], u64 da,
+                                                   u64 db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, 1;\n"
+      : CRT_R8(0), CRT_R8(8), CRT_R8(16), CRT_R8(24)
+      : "l"(da), "l"(db));
+}
+
+#undef CRT_R8
 #undef CRT_WGMMA_D64
 #undef CRT_WGMMA_D64_LIST
 
@@ -210,6 +291,28 @@ int make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// An NHWC int8 tensor [B, H, W, C] read in boxes of [1, rows, W, box_c]
+// (whole image rows); pixels outside the image, and channels past C, read
+// as zero.
+int make_map_rows(CUtensorMap* map, const void* base, int B, int H, int W,
+                  int C, int rows, int box_c, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)W * C,
+                                 (cuuint64_t)H * W * C};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)W,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The current device's SM count (-1 if it cannot be read).
 int sm_count() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||

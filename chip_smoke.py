@@ -31,7 +31,10 @@ hierarchical top-k, and with ``torch.profiler`` a request's device busy
 time, the device time of each kernel that K1, K2 and K2u launch, K3's and
 K4's per launch in one serve-k100 and one int8-k100 request, and K5's and
 K6's device time and launches in one int8 embed call (batch 8 and 256), per
-shape with its bound at batch 8.
+shape with its bound, its tile plan and, beside each K5 shape, the device
+time of ``torch._int_mm`` (a GEMM without the epilogue; a yardstick only).
+Phase 3b holds K5 and K6 against their plain versions at every shape of an
+8-image int8 embed call.
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
@@ -246,6 +249,11 @@ def phase_build() -> None:
             log(f"  ptxas {kernel}: {line.strip()}")
         elif "Performance Loss" in line or "serialized" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
+    lib = _build.load()
+    log("  requant_gemm_kernel<TAPS, BN, BK, STAGES, MINB> (K5 TAPS 1, K6 "
+        "TAPS 9): 256 threads, dynamic shared memory at two blocks per SM "
+        + ", ".join(f"{lib.crt_requant_smem_bytes(bn, bk)} B at BN = {bn}, "
+                    f"BK = {bk}" for bn in (64, 128) for bk in (64, 128)))
 
 
 def phase_compare() -> dict:
@@ -421,6 +429,32 @@ def requant_inputs(gen, m: int, k: int, n: int, res_shape=None):
     return x, w, scale, bias, res, torch.tensor(0.4, device="cuda")
 
 
+def embed_requant_shapes(batch: int) -> dict:
+    """The K5 / K6 launches of one ResNet-50 (last stride 1) int8 embed
+    call of ``batch`` 256x128 images, from the trunk's block plan, in
+    launch order: {(kernel, dims, residual, ReLU): launches}; dims (M, K,
+    N) for K5 and (B, H, W, K, N) for K6."""
+    from centroids_reid_tpu_torch.models.quantized import _block_plan
+
+    out: dict = {}
+
+    def add(*key):
+        out[key] = out.get(key, 0) + 1
+
+    h, w, c = 64, 32, 64   # after the stem and the max pool
+    for _, _, planes, stride, has_ds, _ in _block_plan("resnet50", 1):
+        add("matmul_requant", (batch * h * w, c, planes), False, True)
+        if stride == 1:   # stride-2 3x3 convs run unfused
+            add("conv3x3_requant", (batch, h, w, planes, planes), False, True)
+        h, w = -(-h // stride), -(-w // stride)
+        if has_ds:        # a stride-2 downsample after a row slice
+            add("matmul_requant", (batch * h * w, c, 4 * planes), False,
+                False)
+        add("matmul_requant", (batch * h * w, planes, 4 * planes), True, True)
+        c = 4 * planes
+    return out
+
+
 def phase_compare_int8() -> dict:
     """K4, K5 and K6 against their plain versions at the int8 path's
     shapes (ResNet-50, 256x128, 8 images per request). Returns the largest
@@ -459,30 +493,48 @@ def phase_compare_int8() -> dict:
         f"+inf pad columns equal")
     require(errs["scores_i8"] <= 1e-4, "K4 error above tolerance")
 
-    # K5: the 1x1 convs of the embed at 8 images per request
-    cases = [
-        ("[16384,64]x[64,256] residual+ReLU (layer1 conv3)", 16384, 64, 256,
-         True, True),
-        ("[16384,256]x[256,64] ReLU (layer1 conv1)", 16384, 256, 64, False,
-         True),
-        ("[1024,1024]x[1024,2048] no ReLU (layer4 downsample)", 1024, 1024,
-         2048, False, False),
-    ]
+    # K5 and K6 at every shape of one 8-image embed call
+    from centroids_reid_tpu_torch.ops import _build
+
+    sms = _build.load().crt_sm_count()
+    shapes = embed_requant_shapes(REQUEST)
+    counts = {n: sum(c for (name, *_), c in shapes.items() if name == n)
+              for n in ("matmul_requant", "conv3x3_requant")}
+    require(counts == {"matmul_requant": 36, "conv3x3_requant": 14},
+            f"unexpected K5/K6 launches per embed call: {counts}")
 
     def int_err(got, ref):
         return (got.int() - ref.int()).abs().max().item()
 
     errs["matmul_requant"] = errs["conv3x3_requant"] = 0
-    for label, m, k, n, with_res, relu in cases:
-        x, w, scale, bias, res, rs = requant_inputs(
-            gen, m, k, n, (m, n) if with_res else None)
-        got = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs,
-                               relu=relu)
-        ref = C.matmul_requant_plain(x, w, scale, bias, res=res,
-                                     res_scale=rs, relu=relu)
-        errs["matmul_requant"] = max(errs["matmul_requant"], int_err(got, ref))
-        require(torch.equal(got, ref), f"K5 {label} differs")
-        log(f"K5 matmul_requant {label}: equal "
+    for (name, dims, with_res, relu), launches in shapes.items():
+        if name == "matmul_requant":
+            m, k, n = dims
+            x, w, scale, bias, res, rs = requant_inputs(
+                gen, m, k, n, (m, n) if with_res else None)
+            got = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs,
+                                   relu=relu)
+            ref = C.matmul_requant_plain(x, w, scale, bias, res=res,
+                                         res_scale=rs, relu=relu)
+            label, taps = f"K5 matmul_requant [{m},{k}]x[{k},{n}]", 1
+        else:
+            b, h, wd, k, n = dims
+            m = b * h * wd
+            x, w, scale, bias, res, rs = requant_inputs(
+                gen, m, 9 * k, n, (b, h, wd, n) if with_res else None)
+            x = x[:, :k].reshape(b, h, wd, k).contiguous()
+            w = w.reshape(3, 3, k, n)
+            got = C.conv3x3_requant(x, w, scale, bias, res_nhwc=res,
+                                    res_scale=rs, relu=relu)
+            ref = C.conv3x3_requant_plain(x, w, scale, bias, res_nhwc=res,
+                                          res_scale=rs, relu=relu)
+            label, taps = f"K6 conv3x3_requant [{b},{h},{wd},{k}]->{n}", 9
+        errs[name] = max(errs[name], int_err(got, ref))
+        require(torch.equal(got, ref), f"{label} differs")
+        bn, splits = C._requant_plan(m, n, C._stages(k, taps), sms)
+        log(f"{label} {'residual' if with_res else 'no residual'}, "
+            f"{'ReLU' if relu else 'no ReLU'} ({launches} per embed call; "
+            f"{bn}-wide tiles, {splits} K splits): equal "
             f"({(ref != 0).float().mean().item():.3f} nonzero)")
     # stride 2: the layer2 downsample reads every other row and column
     z = torch.randint(-127, 128, (8, 64, 32, 256), generator=gen,
@@ -495,24 +547,6 @@ def phase_compare_int8() -> dict:
     require(torch.equal(got, ref), "K5 stride-2 slice differs")
     log("K5 matmul_requant stride-2 slice [8,64,32,256][:, ::2, ::2] -> "
         "[4096,256]x[256,512] no ReLU (layer2 downsample): equal")
-
-    # K6: the stride-1 3x3 convs of layer1 and layer4
-    for b, h, wd, k in ((8, 64, 32, 64), (8, 16, 8, 512)):
-        for with_res in (False, True):
-            x, w, scale, bias, res, rs = requant_inputs(
-                gen, b * h * wd, 9 * k, k, (b, h, wd, k) if with_res else None)
-            x = x[:, :k].reshape(b, h, wd, k).contiguous()
-            w = w.reshape(3, 3, k, k)
-            got = C.conv3x3_requant(x, w, scale, bias, res_nhwc=res,
-                                    res_scale=rs)
-            ref = C.conv3x3_requant_plain(x, w, scale, bias, res_nhwc=res,
-                                          res_scale=rs)
-            errs["conv3x3_requant"] = max(errs["conv3x3_requant"],
-                                          int_err(got, ref))
-            require(torch.equal(got, ref),
-                    f"K6 [{b},{h},{wd},{k}] res={with_res} differs")
-            log(f"K6 conv3x3_requant [{b},{h},{wd},{k}] -> {k} channels, "
-                f"{'residual' if with_res else 'no residual'}, ReLU: equal")
     torch.cuda.synchronize()
     return errs
 
@@ -985,9 +1019,11 @@ def host_us_per_launch(fn, n: int = 50) -> float:
     return us
 
 
-# kernel -> the name its launches carry in a torch.profiler trace
-PROFILED = {"matmul_requant": "requant_gemm_kernel<1>",
-            "conv3x3_requant": "requant_gemm_kernel<9>"}
+# kernel -> the prefix of the names its launches carry in a torch.profiler
+# trace (one instantiation per tile width: requant_gemm_kernel<TAPS, BN>);
+# each wrapper call launches one kernel
+PROFILED = {"matmul_requant": "requant_gemm_kernel<1,",
+            "conv3x3_requant": "requant_gemm_kernel<9,"}
 
 
 def kernel_device_us(fn, calls: int = 1) -> tuple:
@@ -1068,7 +1104,8 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
             per, counts = kernel_device_us(lambda: qfn(x[:batch]))
         parts = []
         for name, tag in PROFILED.items():
-            us, traced = per.get(tag, (0.0, 0))
+            mine = [v for k, v in per.items() if k.startswith(tag)]
+            us, traced = sum(u for u, _ in mine), sum(n for _, n in mine)
             require(traced == counts[name] > 0,
                     f"{name}: {traced} launches traced, {counts[name]} "
                     f"counted in one int8 embed call")
@@ -1098,6 +1135,8 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
     x6, w6, sc6, b6, _, _ = requant_inputs(gen, 8 * 64 * 32, 9 * 64, 64)
     x6 = x6[:, :64].reshape(8, 64, 32, 64).contiguous()
     w6 = w6.reshape(3, 3, 64, 64)
+    # packed once, as the embed packs each weight once
+    p5, p6 = C.pack_weight(w5), C.pack_weight(w6)
     full = "[128,2048]x[100352,2048]"
     # name -> (kernel, plain, shape, library call or None, bytes moved,
     #          operations, operation type)
@@ -1150,7 +1189,8 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
                       nbytes(q, gal.codes, s8, gn8, score_out), mm_ops,
                       "bf16"),
         "matmul_requant": (
-            lambda: C.matmul_requant(x5, w5, sc5, b5, res=r5, res_scale=rs5),
+            lambda: C.matmul_requant(x5, w5, sc5, b5, res=r5, res_scale=rs5,
+                                     w_packed=p5),
             lambda: C.matmul_requant_plain(x5, w5, sc5, b5, res=r5,
                                            res_scale=rs5),
             "[16384,64]x[64,256] residual+ReLU", None,
@@ -1158,7 +1198,7 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
             nbytes(x5, w5, sc5, b5, r5, rs5, r5), 2.0 * 16384 * 64 * 256,
             "int8"),
         "conv3x3_requant": (
-            lambda: C.conv3x3_requant(x6, w6, sc6, b6),
+            lambda: C.conv3x3_requant(x6, w6, sc6, b6, w_packed=p6),
             lambda: C.conv3x3_requant_plain(x6, w6, sc6, b6),
             "[8,64,32,64] -> 64 channels, ReLU", None,
             # x6 twice: the input read and the same-shape output written
@@ -1197,7 +1237,8 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
                         for kname, (us, _) in per.items()))
     phase_timing_k3(gen)
     phase_timing_requests(state, int8_state)
-    phase_timing_requant(int8_state["qfn"], x[:REQUEST])
+    for batch in (REQUEST, 256):
+        phase_timing_requant(int8_state["qfn"], x[:batch])
     # the wrappers' host cost per launch at the timed K5/K6 shapes
     for name, fn in (("matmul_requant", cases["matmul_requant"][0]),
                      ("conv3x3_requant", cases["conv3x3_requant"][0])):
@@ -1284,39 +1325,48 @@ def phase_timing_requant(qfn, x) -> None:
     """K5's and K6's device time and bound per shape over one int8 embed
     call of ``len(x)`` images: the wrappers are wrapped to record each
     launch's shapes, and the profiler's kernel events, in launch order,
-    give each launch its device time."""
+    give each launch its device time. Beside each K5 shape, the device
+    time of ``torch._int_mm`` on int8 operands of that shape: a GEMM with
+    an int32 output and no epilogue, so not the same function, and called
+    nowhere in the port; a yardstick for K5's product only."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from centroids_reid_tpu_torch.ops import _build
     from centroids_reid_tpu_torch.ops import int8_conv as C
 
     mm, conv = C.matmul_requant, C.conv3x3_requant
+    sms = _build.load().crt_sm_count()
     shapes = []
 
-    def rec_mm(x, w, scale, bias, res=None, res_scale=None, relu=True):
+    def rec_mm(x, w, scale, bias, res=None, res_scale=None, relu=True,
+               w_packed=None):
         m, k = x.shape
         n = w.shape[1]
+        bn, splits = C._requant_plan(m, n, C._stages(k, 1), sms)
         shapes.append(("matmul_requant",
                        f"[{m},{k}]x[{k},{n}]" + (" +res" if res is not None
                                                   else ""),
                        nbytes(x, w, scale, bias)
                        + m * n * (2 if res is not None else 1),
-                       2.0 * m * k * n))
-        return mm(x, w, scale, bias, res=res, res_scale=res_scale, relu=relu)
+                       2.0 * m * k * n, (bn, splits), (m, k, n)))
+        return mm(x, w, scale, bias, res=res, res_scale=res_scale, relu=relu,
+                  w_packed=w_packed)
 
     def rec_conv(x, w, scale, bias, res_nhwc=None, res_scale=None,
-                 relu=True):
+                 relu=True, w_packed=None):
         b, h, wd, k = x.shape
         n = w.shape[3]
+        bn, splits = C._requant_plan(b * h * wd, n, C._stages(k, 9), sms)
         shapes.append(("conv3x3_requant",
                        f"[{b},{h},{wd},{k}]->{n}"
                        + (" +res" if res_nhwc is not None else ""),
                        nbytes(x, w, scale, bias)
                        + b * h * wd * n * (2 if res_nhwc is not None else 1),
-                       2.0 * b * h * wd * 9 * k * n))
+                       2.0 * b * h * wd * 9 * k * n, (bn, splits), None))
         return conv(x, w, scale, bias, res_nhwc=res_nhwc,
-                    res_scale=res_scale, relu=relu)
+                    res_scale=res_scale, relu=relu, w_packed=w_packed)
 
     with torch.inference_mode():
         qfn(x)
@@ -1337,9 +1387,12 @@ def phase_timing_requant(qfn, x) -> None:
             f"{len(events)} K5/K6 kernels traced, {len(shapes)} launches "
             f"recorded in one int8 embed call")
     rows = {}
-    for (name, shape, moved, ops), e in zip(shapes, events):
-        b_us = max(moved / (HBM_PEAK_GBS * 1e9), ops / PEAK_OPS["int8"]) * 1e6
-        r = rows.setdefault((name, shape), [0, 0.0, b_us])
+    for (name, shape, moved, ops, plan, mkn), e in zip(shapes, events):
+        by_bytes = moved / (HBM_PEAK_GBS * 1e9) * 1e6
+        by_ops = ops / PEAK_OPS["int8"] * 1e6
+        r = rows.setdefault((name, shape), [0, 0.0, max(by_bytes, by_ops),
+                                            "bytes" if by_bytes >= by_ops
+                                            else "operations", plan, mkn])
         r[0] += 1
         r[1] += e.self_device_time_total
     for name in ("matmul_requant", "conv3x3_requant"):
@@ -1350,9 +1403,21 @@ def phase_timing_requant(qfn, x) -> None:
             f"(torch.profiler): {sum(r[0] for _, r in mine)} launches, "
             f"{dev:.1f} us of device time against a summed bound of "
             f"{bnd:.2f} us ({bnd / dev:.3f} of it); per shape:")
-        for shape, (n, us, b_us) in mine:
-            log(f"  {name} {shape}: {n} launches, {us / n:.2f} us each, "
-                f"bound {b_us:.3f} us")
+        for shape, (n, us, b_us, b_by, (bn, splits), mkn) in mine:
+            line = (f"  {name} {shape}: {n} launches, {us / n:.2f} us each, "
+                    f"bound {b_us:.3f} us by {b_by} ({b_us * n / us:.3f} of "
+                    f"it); {bn}-wide tiles, {splits} K splits")
+            if mkn is not None:
+                m, k, nn = mkn
+                gen = torch.Generator(device="cuda").manual_seed(m + k + nn)
+                a = torch.randint(-127, 128, (m, k), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                b = torch.randint(-127, 128, (k, nn), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                mm_us = device_us_per_call(lambda: torch._int_mm(a, b), 10)
+                line += (f"; torch._int_mm (GEMM only, int32 out, no "
+                         f"epilogue) {mm_us:.2f} us")
+            log(line)
 
 
 def main() -> int:

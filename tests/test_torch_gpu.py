@@ -369,6 +369,140 @@ def test_conv3x3_requant_kernel_exact(cuda, b, h, w, k, n, with_res):
     assert torch.equal(got, ref)
 
 
+# (M, K, N, residual, ReLU): the 16 K5 shapes of one ResNet-50 embed call
+# at 8 images of 256x128 (36 launches)
+K5_EMBED = [
+    (16384, 64, 64, False, True), (16384, 64, 256, False, False),
+    (16384, 64, 256, True, True), (16384, 256, 64, False, True),
+    (16384, 256, 128, False, True), (4096, 128, 512, True, True),
+    (4096, 256, 512, False, False), (4096, 512, 128, False, True),
+    (4096, 512, 256, False, True), (1024, 256, 1024, True, True),
+    (1024, 512, 1024, False, False), (1024, 1024, 256, False, True),
+    (1024, 1024, 512, False, True), (1024, 512, 2048, True, True),
+    (1024, 1024, 2048, False, False), (1024, 2048, 512, False, True),
+]
+# (B, H, W, K -> N = K): the 4 K6 shapes of the same call (14 launches)
+K6_EMBED = [(8, 64, 32, 64), (8, 32, 16, 128), (8, 16, 8, 256),
+            (8, 16, 8, 512)]
+
+
+def _k5(cuda, m, k, n, with_res, relu, seed, **kw):
+    """K5 and its plain version on one seeded input."""
+    x, w, scale, bias, res, rs = _requant_inputs(cuda, m, k, n, with_res,
+                                                 seed)
+    got = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs,
+                           relu=relu, **kw)
+    ref = C.matmul_requant_plain(x, w, scale, bias, res=res, res_scale=rs,
+                                 relu=relu)
+    return got, ref
+
+
+def _k6(cuda, b, h, w, k, n, with_res, relu, seed, **kw):
+    x, wt, scale, bias, res, rs = _requant_inputs(
+        cuda, b * h * w, 9 * k, n, with_res, seed, res_shape=(b, h, w, n))
+    x = x[:, :k].reshape(b, h, w, k).contiguous()
+    wt = wt.reshape(3, 3, k, n)
+    got = C.conv3x3_requant(x, wt, scale, bias, res_nhwc=res, res_scale=rs,
+                            relu=relu, **kw)
+    ref = C.conv3x3_requant_plain(x, wt, scale, bias, res_nhwc=res,
+                                  res_scale=rs, relu=relu)
+    return got, ref
+
+
+@pytest.mark.parametrize("m,k,n,with_res,relu", K5_EMBED + [
+    (524288, 64, 256, True, True),     # batch 256: layer 1's conv3
+])
+def test_matmul_requant_embed_shapes_exact(cuda, m, k, n, with_res, relu):
+    """K5 at every shape of a batch-8 embed call and one of batch 256, with
+    the plan's tile width and splits: bit for bit."""
+    C.reset_launch_counts()
+    got, ref = _k5(cuda, m, k, n, with_res, relu, k + n)
+    assert torch.equal(got, ref)
+    assert C.LAUNCHES["matmul_requant"] == 1
+
+
+@pytest.mark.parametrize("b,h,w,k", K6_EMBED + [(256, 16, 8, 512)])
+def test_conv3x3_requant_embed_shapes_exact(cuda, b, h, w, k):
+    """K6 at every shape of a batch-8 embed call (ReLU, no residual, as
+    the trunk runs it) and one of batch 256: bit for bit."""
+    C.reset_launch_counts()
+    got, ref = _k6(cuda, b, h, w, k, k, False, True, b + k)
+    assert torch.equal(got, ref)
+    assert C.LAUNCHES["conv3x3_requant"] == 1
+
+
+def _forced_splits(monkeypatch, splits):
+    """Run the wrappers at a given split count, or the most the launch
+    takes ("max"; at most that count otherwise), with the plan's tile
+    width."""
+    plan = C._requant_plan
+
+    def forced(m, n, stages, sms):
+        bn, _ = plan(m, n, stages, sms)
+        cap = C._max_splits(bn, stages)
+        return bn, cap if splits == "max" else min(splits, cap)
+    monkeypatch.setattr(C, "_requant_plan", forced)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, "max"])
+@pytest.mark.parametrize("m,k,n", [(1000, 192, 128), (300, 320, 64),
+                                   (1024, 1024, 256), (16384, 256, 256),
+                                   (2000, 64, 128)])
+def test_matmul_requant_split_k_exact(cuda, monkeypatch, splits, m, k, n):
+    """K5 at 1, 2, 4 and the most splits a cluster takes: K = 64 x 3 and
+    64 x 5 leave a ragged last 128-deep stage; ragged M; 64- and 128-wide
+    tiles (16- to 128-column epilogue slices); each pipeline (64-deep
+    stages at K = 64, 128-deep ones at one and at two blocks per SM)."""
+    _forced_splits(monkeypatch, splits)
+    for with_res, relu in ((True, True), (False, False)):
+        got, ref = _k5(cuda, m, k, n, with_res, relu, m + k + n)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("splits", [1, 2, "max"])
+@pytest.mark.parametrize("b,h,w,k,n", [(3, 7, 5, 64, 128), (2, 5, 9, 128, 64),
+                                       (3, 7, 5, 192, 128),
+                                       (8, 16, 8, 256, 256),
+                                       (2, 16, 8, 64, 128)])
+def test_conv3x3_requant_split_k_exact(cuda, monkeypatch, splits, b, h, w, k,
+                                       n):
+    """K6 at 1, 2 and the most splits (9 taps x 1 stage leave a ragged
+    chunk at 2): tiles that span images and W that does not divide the
+    tile (the 2D map and the padding in shared memory), and whole image
+    rows (the 4D map: [8,16,8] and [2,16,8])."""
+    _forced_splits(monkeypatch, splits)
+    for with_res, relu in ((True, True), (False, False), (True, False)):
+        got, ref = _k6(cuda, b, h, w, k, n, with_res, relu, b * h * w + k)
+        assert torch.equal(got, ref)
+
+
+def test_requant_split_k_leaves_no_state(cuda):
+    """The same split launches twice, with other launches on other tile
+    grids between: identical outputs, each equal to the plain version."""
+    x, w, scale, bias, res, rs = _requant_inputs(cuda, 1024, 1024, 256, True,
+                                                 5)
+    ref = C.matmul_requant_plain(x, w, scale, bias, res=res, res_scale=rs)
+    first = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs)
+    got6, ref6 = _k6(cuda, 8, 16, 8, 512, 512, False, True, 6)
+    got5, ref5 = _k5(cuda, 300, 320, 64, False, True, 7)
+    again = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, ref) and torch.equal(again, first)
+    assert torch.equal(got6, ref6) and torch.equal(got5, ref5)
+
+
+def test_requant_kernels_take_packed_weights(cuda):
+    """A packed weight passed in gives the result of the HWIO one."""
+    x, w, scale, bias, res, rs = _requant_inputs(cuda, 1000, 9 * 128, 64,
+                                                 True, 8, (2, 5, 100, 64))
+    x = x[:, :128].reshape(2, 5, 100, 128).contiguous()
+    w = w.reshape(3, 3, 128, 64)
+    got = C.conv3x3_requant(x, w, scale, bias, res_nhwc=res, res_scale=rs,
+                            w_packed=C.pack_weight(w))
+    assert torch.equal(got, C.conv3x3_requant_plain(
+        x, w, scale, bias, res_nhwc=res, res_scale=rs))
+
+
 def test_int8_wrappers_refuse_bad_inputs_on_cuda(cuda):
     x, w, scale, bias, res, rs = _requant_inputs(cuda, 256, 128, 128, True, 1)
     with pytest.raises(TypeError):
@@ -390,6 +524,19 @@ def test_int8_wrappers_refuse_bad_inputs_on_cuda(cuda):
     x_off = torch.zeros(x.numel() + 1, dtype=torch.int8, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         C.matmul_requant(x_off.view(x.shape), w, scale, bias)
+    wide = torch.zeros((128, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="w_packed must be int8"):
+        C.matmul_requant(x, w, scale, bias, w_packed=wide)
+    with pytest.raises(ValueError, match="w_packed must be int8"):
+        C.matmul_requant(x, w, scale, bias, w_packed=wide.view(torch.uint8))
+    with pytest.raises(ValueError, match="w_packed must be contiguous"):
+        C.matmul_requant(x, w, scale, bias, w_packed=wide[:, :128])
+    with pytest.raises(ValueError, match="w_packed must be int8"):
+        C.conv3x3_requant(x.reshape(2, 8, 16, 128),
+                          w.repeat(9, 1).reshape(3, 3, 128, 128), scale,
+                          bias, w_packed=C.pack_weight(w))
+    with pytest.raises(ValueError, match="different devices"):
+        C.matmul_requant(x, w, scale, bias, w_packed=C.pack_weight(w).cpu())
     codes, s_row, gn = _int8_gallery(cuda)
     q = torch.zeros((128, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(TypeError):

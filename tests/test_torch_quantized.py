@@ -228,6 +228,34 @@ def test_int8_engine_routes_convs(models, monkeypatch, use_pallas, fused):
     assert calls == fused
 
 
+def test_int8_engine_packs_each_fused_weight_once(models, monkeypatch):
+    """The fused engine hands K5 / K6 K-major weights, packed at the first
+    call and kept: the embedding equals the engine's on the HWIO weights
+    (no packing) bit for bit, and a second call packs nothing."""
+    from centroids_reid_tpu_torch.ops import int8_conv
+
+    tq = TQ.QuantizedEmbed.load(models["jax_path"], device="cpu")
+    packs = []
+    real = int8_conv.pack_weight
+
+    def counted(w):
+        packs.append(tuple(w.shape))
+        return real(w)
+
+    monkeypatch.setattr(int8_conv, "pack_weight", counted)
+    got = tq(models["queries"]).numpy()
+    # resnet18: 3 1x1 downsample convs (K5) and 14 stride-1 3x3 convs (K6)
+    assert len(packs) == len(tq._packed) == 17
+    assert sum(len(s) == 4 for s in packs) == 14
+    np.testing.assert_array_equal(tq(models["queries"]).numpy(), got)
+    assert len(packs) == 17
+    with monkeypatch.context() as m:
+        m.setattr(TQ._Int8Engine, "_packed", lambda self, w, kind: None)
+        ref = tq(models["queries"]).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert _cos(got, models["jax_emb"]).min() > 0.99999
+
+
 def test_int8_domain_instance_norm_matches_jax():
     """The int8-domain InstanceNorm identity, near-constant inputs included
     (where the eps / s^2 term dominates)."""
