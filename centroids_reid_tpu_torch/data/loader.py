@@ -1,10 +1,11 @@
-"""Host-side eval batches with background prefetch (counterpart of
-``ImageStore`` and ``EvalLoader`` in ``centroids_reid_tpu/data/loader.py``).
+"""Host-side batches with background prefetch (counterpart of
+``ImageStore``, ``TrainLoader`` and ``EvalLoader`` in
+``centroids_reid_tpu/data/loader.py``).
 
 The host decodes and resizes (optionally from an in-RAM uint8 cache); a
-background thread assembles the next uint8 batch while the card embeds
-the current one. RGB only: the packed-YUV420 fast ingest is not ported
-yet.
+background thread assembles the next uint8 batch while the card runs the
+current one. Augmentation runs on the card (``transforms.apply_augment``).
+RGB only: the packed-YUV420 fast ingest is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .datasets import Record
+from .datasets import Record, ReidDataset
+from .sampler import EpochPlan, build_epoch_plan
 from .transforms import load_and_resize
 
 
@@ -90,6 +92,85 @@ class ImageStore:
                 self._cache[paths[i]] = out[i].copy()
 
 
+def _prefetched(make_batches, depth: int) -> Iterator[dict]:
+    """Iterate ``make_batches()`` with a background thread running up to
+    ``depth`` batches ahead; the producer's exception is raised here."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    failure: list = []
+
+    def producer():
+        try:
+            for batch in make_batches():
+                if stop.is_set():
+                    return
+                q.put(batch)
+        except BaseException as e:  # re-raised in the consumer
+            failure.append(e)
+        q.put(None)
+
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+    try:
+        while True:
+            batch = q.get()
+            if batch is None:
+                if failure:
+                    raise failure[0]
+                return
+            yield batch
+    finally:
+        stop.set()
+
+
+class TrainLoader:
+    """Per-step host batches of the P x K identity trainer, one group.
+
+    Batch dict (numpy):
+      images  [P*K, H, W, 3] uint8 (mock slots zero)
+      labels  [P*K] int64
+      camids  [P*K] int64
+      is_real [P*K] bool
+    """
+
+    def __init__(self, dataset: ReidDataset, cfg, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_pids = cfg.SOLVER.IMS_PER_BATCH
+        self.num_instances = cfg.DATALOADER.NUM_INSTANCE
+        self.use_resampling = cfg.DATALOADER.USE_RESAMPLING
+        self.store = ImageStore(cfg.INPUT.SIZE_TRAIN, cfg.TPU.CACHE_IMAGES)
+        self.prefetch = prefetch
+        self._records: List[Record] = dataset.train
+
+    def plan_for_epoch(self, epoch: int) -> EpochPlan:
+        return build_epoch_plan(self.dataset.train_dict, self.batch_pids,
+                                self.num_instances, 1, epoch,
+                                self.use_resampling)
+
+    def _assemble(self, plan: EpochPlan, t: int) -> dict:
+        _, p, k = plan.sample_idx.shape[1:]
+        h, w = self.store.size_hw
+        images = np.zeros((p * k, h, w, 3), np.uint8)
+        labels = np.zeros((p * k,), np.int64)
+        camids = np.zeros((p * k,), np.int64)
+        is_real = plan.is_real[t, 0].reshape(p * k).copy()
+        for i, idx in enumerate(plan.sample_idx[t, 0].reshape(p * k)):
+            rec = self._records[idx]
+            labels[i] = rec.pid
+            camids[i] = rec.camid
+            if is_real[i]:
+                images[i] = self.store.get(rec.path)
+        return {"images": images, "labels": labels, "camids": camids,
+                "is_real": is_real}
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        """Iterate one epoch with background prefetch."""
+        plan = self.plan_for_epoch(epoch)
+        return _prefetched(
+            lambda: (self._assemble(plan, t) for t in range(plan.num_steps)),
+            self.prefetch)
+
+
 class EvalLoader:
     """Sequential batches over query + gallery records.
 
@@ -127,29 +208,8 @@ class EvalLoader:
                 "valid": valid}
 
     def __iter__(self) -> Iterator[dict]:
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-        failure: list = []
-
-        def producer():
-            try:
-                for start in range(0, len(self.records), self.batch_size):
-                    if stop.is_set():
-                        return
-                    q.put(self._assemble(start))
-            except BaseException as e:  # re-raised in the consumer
-                failure.append(e)
-            q.put(None)
-
-        th = threading.Thread(target=producer, daemon=True)
-        th.start()
-        try:
-            while True:
-                batch = q.get()
-                if batch is None:
-                    if failure:
-                        raise failure[0]
-                    return
-                yield batch
-        finally:
-            stop.set()
+        return _prefetched(
+            lambda: (self._assemble(start)
+                     for start in range(0, len(self.records),
+                                        self.batch_size)),
+            self.prefetch)

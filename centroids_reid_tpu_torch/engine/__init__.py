@@ -1,3 +1,4 @@
-"""Evaluation and run orchestration. Import the submodules
-(``engine.evaluate``, ``engine.runner``, ``engine.logging``) directly;
-importing the package loads nothing."""
+"""Training, evaluation and run orchestration. Import the submodules
+(``engine.fit``, ``engine.steps``, ``engine.checkpoint``,
+``engine.evaluate``, ``engine.runner``, ...) directly; importing the
+package loads nothing."""

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..engine.checkpoint import STATE_FILE, load_state_file
 from ..models import create_model
 from ..models.convert import full_state_dict, load_torch_file
 
@@ -23,24 +24,32 @@ log = logging.getLogger(__name__)
 
 
 def load_inference_model(cfg, device="cuda") -> torch.nn.Module:
-    """The inference model (no classifier) with the weights of the
-    reference ``.pth`` / ``.ckpt`` file at ``MODEL.PRETRAIN_PATH``, in eval
-    mode on ``device`` (the card unless the caller asks for the CPU). Keys the file lacks keep their seed-0 init, as the
-    reference ``load_param`` copies key by key. Channels-last memory format,
-    which cuDNN's convolutions prefer."""
+    """The inference model (no classifier) with the weights at
+    ``MODEL.PRETRAIN_PATH``, in eval mode on ``device`` (the card unless the
+    caller asks for the CPU): a reference ``.pth`` / ``.ckpt`` file, or a
+    checkpoint directory that the port's ``fit`` wrote (``state.pt``).
+    Keys a reference file lacks keep their seed-0 init, as the reference
+    ``load_param`` copies key by key. Channels-last memory format, which
+    cuDNN's convolutions prefer."""
     path = cfg.MODEL.PRETRAIN_PATH
     if not path:
         raise ValueError("MODEL.PRETRAIN_PATH must point to a checkpoint")
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint of the JAX "
-            "package); loading it is not ported yet, see ROADMAP.md queue 1 "
-            "(checkpointing). Use a reference .pth/.ckpt file."
-        )
     model = create_model(cfg, num_classes=0)
-    sd = full_state_dict(load_torch_file(path))
-    sd.pop("fc_query.weight", None)
-    model.load_state_dict(sd, strict=False)  # still raises on a shape mismatch
+    if os.path.isdir(path):
+        if not os.path.isfile(os.path.join(path, STATE_FILE)):
+            raise NotImplementedError(
+                f"{path} holds no {STATE_FILE}: if it is an orbax checkpoint "
+                "of the JAX package, loading one is not ported yet, see "
+                "ROADMAP.md queue 1 item 7 (orbax checkpoints). Use a "
+                "checkpoint directory of the port's fit or a reference "
+                ".pth/.ckpt file.")
+        sd = dict(load_state_file(path)["model"])
+        sd.pop("fc_query.weight", None)
+        model.load_state_dict(sd)
+    else:
+        sd = full_state_dict(load_torch_file(path))
+        sd.pop("fc_query.weight", None)
+        model.load_state_dict(sd, strict=False)  # raises on a shape mismatch
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
 

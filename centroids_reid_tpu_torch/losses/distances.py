@@ -1,13 +1,15 @@
-"""Pairwise distances, eval flavours (counterpart of the eval half of
+"""Pairwise distances (counterpart of
 ``centroids_reid_tpu/losses/distances.py``).
 
-* squared euclidean, no sqrt: ``||x||^2 + ||y||^2 - 2 x.y``, the ranking
+* training euclidean: ``sqrt(clamp(||x||^2 + ||y||^2 - 2 x.y, 1e-12))``;
+* eval euclidean: the squared distance without the sqrt, the ranking
   distance of the reference's eval metric (argsort order equals that of the
   euclidean distance);
-* cosine distance: ``|1 - cos|`` clamped to ``>= eps``.
+* cosine distance (both): ``|1 - cos|`` clamped to ``>= eps``.
 
-Always fp32 with TF32 off for the product: the reference's eval is exact
-fp32 (``Precision.HIGHEST``), and bf16 is too coarse to rank.
+Every function takes ``[..., m, d]`` and ``[..., n, d]`` and returns
+``[..., m, n]``. Always fp32 with TF32 off for the product: the reference's
+eval is exact fp32 (``Precision.HIGHEST``), and bf16 is too coarse to rank.
 """
 
 from __future__ import annotations
@@ -16,27 +18,39 @@ import torch
 
 
 def _mm(x, y):
-    """fp32 ``x @ y.T`` with TF32 off whatever the global switch says."""
+    """fp32 ``x @ y^T`` with TF32 off whatever the global switch says."""
     allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return x @ y.T
+        return x @ y.transpose(-1, -2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
 
 
+def as_float(x):
+    """fp32 for lower-precision inputs; fp32 and fp64 pass unchanged, so a
+    float64 step stays float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def squared_euclidean_dist(x, y):
-    """[m, d], [n, d] -> [m, n] squared euclidean distances."""
-    x, y = x.float(), y.float()
-    xx = (x * x).sum(dim=1, keepdim=True)
-    yy = (y * y).sum(dim=1, keepdim=True)
-    return xx + yy.T - 2.0 * _mm(x, y)
+    """[..., m, d], [..., n, d] -> [..., m, n] squared euclidean distances."""
+    x, y = as_float(x), as_float(y)
+    xx = (x * x).sum(dim=-1, keepdim=True)
+    yy = (y * y).sum(dim=-1, keepdim=True)
+    return xx + yy.transpose(-1, -2) - 2.0 * _mm(x, y)
+
+
+def euclidean_dist(x, y):
+    """[..., m, d], [..., n, d] -> [..., m, n] euclidean distances (the
+    training flavour: the root of the clamped squared distance)."""
+    return squared_euclidean_dist(x, y).clamp_min(1e-12).sqrt()
 
 
 def cosine_sim(x, y, eps: float = 1e-12):
-    x, y = x.float(), y.float()
-    xn = x.norm(dim=1, keepdim=True).clamp_min(eps)
-    yn = y.norm(dim=1, keepdim=True).clamp_min(eps)
+    x, y = as_float(x), as_float(y)
+    xn = x.norm(dim=-1, keepdim=True).clamp_min(eps)
+    yn = y.norm(dim=-1, keepdim=True).clamp_min(eps)
     return _mm(x / xn, y / yn)
 
 
@@ -44,19 +58,25 @@ def cosine_dist(x, y, eps: float = 1e-12):
     return (1.0 - cosine_sim(x, y, eps)).abs().clamp_min(eps)
 
 
+def l2_normalize(x, eps: float = 1e-12):
+    """Unit-norm rows; eps is added to the norm, as the reference does."""
+    return x / (x.norm(dim=-1, keepdim=True) + eps)
+
+
+_DIST_FUNCS = {
+    "euclidean": euclidean_dist,
+    "cosine": cosine_dist,
+}
+
 _EVAL_DIST_FUNCS = {
     "euclidean": squared_euclidean_dist,
     "cosine": cosine_dist,
 }
 
 
-def get_dist_func(name: str = "euclidean", eval_mode: bool = True):
-    """The eval distance ``name``. Only the eval flavours are ported: the
-    training flavours (euclidean with sqrt) come with CTL training."""
-    if not eval_mode:
-        raise NotImplementedError(
-            "the training distances are not ported yet; see ROADMAP.md "
-            "queue 1 (training)")
-    if name not in _EVAL_DIST_FUNCS:
+def get_dist_func(name: str = "euclidean", eval_mode: bool = False):
+    """The training distance ``name``, or its eval flavour."""
+    table = _EVAL_DIST_FUNCS if eval_mode else _DIST_FUNCS
+    if name not in table:
         raise ValueError(f"Unknown distance function {name!r}")
-    return _EVAL_DIST_FUNCS[name]
+    return table[name]

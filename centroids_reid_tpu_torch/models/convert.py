@@ -7,7 +7,8 @@
   ``centroids_reid_tpu/models/convert.py``.
 * ``from_jax_params`` is the inverse of that file's key map: it turns the
   JAX package's (params, batch_stats) trees into a state dict of
-  ``ReidModel``, so both packages can run on one set of weights.
+  ``ReidModel``, so both packages can run on one set of weights;
+  ``from_jax_train_state`` adds the center-loss centers of a train state.
 """
 
 from __future__ import annotations
@@ -116,3 +117,13 @@ def from_jax_params(params, batch_stats) -> Dict[str, torch.Tensor]:
     walk(params, ())
     walk(batch_stats, ())
     return sd
+
+
+def from_jax_train_state(params, batch_stats):
+    """A JAX ``TrainState``'s ``params`` ({'model': ..., 'centers': ...})
+    and ``batch_stats`` -> (``ReidModel`` state dict, centers [C, D]).
+    Gradient trees of the same layout convert the same way (pass ``{}`` as
+    ``batch_stats``)."""
+    sd = from_jax_params(params["model"], batch_stats)
+    centers = torch.from_numpy(np.array(params["centers"], np.float32))
+    return sd, centers

@@ -21,7 +21,15 @@ bf16 autocast) and seeded random weights:
   CPU from the same embeddings;
 * the offline CLIs: ``inference.create_embeddings`` (with and without
   centroids) and ``inference.get_similar`` at ``--topk`` 10 and 100 (K3),
-  the gallery images as queries.
+  the gallery images as queries;
+* training (phase 8): CTL training through ``engine.runner.main --mode
+  ctl`` on a synthetic train split of Market-1501's size (751 pids, 12,936
+  JPEGs), 64 x 4 images a step from the image bank on the card, 2 epochs
+  with validation and checkpoints from a torchvision-layout backbone file,
+  a resume from ``checkpoint_epoch1``, ONLY_TEST of the best checkpoint;
+  the step's time, rate, memory, idle share, profiler split and share of
+  the bf16 peak; one full-width step on the card against the CPU. No
+  hand-written kernel runs there.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -1420,6 +1428,583 @@ def phase_timing_requant(qfn, x) -> None:
             log(line)
 
 
+TRAIN_PIDS = 751         # Market-1501's train split: 751 identities,
+TRAIN_IMAGES = 12_936    # 12,936 images; here 2 to 30 per identity
+TRAIN_COUNT_RANGE = (2, 30)
+TRAIN_P, TRAIN_K = 64, 4  # SOLVER.IMS_PER_BATCH x DATALOADER.NUM_INSTANCE
+PARITY_P = 8             # the card-vs-CPU step: 8 pids x 4 at 256x128, fp32
+PROFILED_STEPS = 5
+TRAIN_PHASES = ("gather", "augment", "forward", "backward", "optimizer")
+
+
+def _train_counts() -> np.ndarray:
+    """Uneven images per identity within TRAIN_COUNT_RANGE, summing to
+    TRAIN_IMAGES."""
+    rng = np.random.RandomState(SEED + 11)
+    lo, hi = TRAIN_COUNT_RANGE
+    counts = rng.randint(lo, hi + 1, TRAIN_PIDS)
+    while counts.sum() != TRAIN_IMAGES:
+        i = rng.randint(TRAIN_PIDS)
+        if counts.sum() < TRAIN_IMAGES and counts[i] < hi:
+            counts[i] += 1
+        elif counts.sum() > TRAIN_IMAGES and counts[i] > lo:
+            counts[i] -= 1
+    return counts
+
+
+def _write_market_train(root: str, eval_root: str) -> np.ndarray:
+    """A Market-1501 train split of the dataset's size, in the style of
+    ``_write_market`` (a seeded block pattern per identity, a brightness
+    shift and pixel noise per image, 128x64 JPEGs on six cameras), beside
+    the evaluation phase's query and gallery folders. Returns the counts."""
+    import concurrent.futures
+    import os
+
+    from PIL import Image
+
+    counts = _train_counts()
+    rng = np.random.RandomState(SEED + 12)
+    patterns = rng.randint(0, 256, (TRAIN_PIDS, 8, 4, 3)).astype(np.float32)
+    base = os.path.join(root, "market1501")
+    train = os.path.join(base, "bounding_box_train")
+    os.makedirs(train)
+    for sub in ("query", "bounding_box_test"):
+        os.symlink(os.path.join(eval_root, "market1501", sub),
+                   os.path.join(base, sub))
+
+    def save(img, path):
+        Image.fromarray(img).save(path)
+
+    # the pixels are drawn in order here; the encoding runs in threads
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        jobs = []
+        for pid, n in enumerate(counts):
+            block = np.kron(patterns[pid], np.ones((16, 16, 1), np.float32))
+            imgs = (block + rng.randint(-30, 31, (n, 1, 1, 3))
+                    + rng.normal(0, 10, (n,) + block.shape))
+            imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+            jobs += [pool.submit(save, imgs[i], os.path.join(
+                train, f"{pid + 1:04d}_c{i % EVAL_CAMS + 1}s1_{i:06d}_00.jpg"))
+                for i in range(n)]
+        for job in jobs:
+            job.result()
+    return counts
+
+
+def _train_opts(root: str, logs: str, *extra) -> list:
+    import os
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "256_resnet50.yml")
+    return ["--config_file", config, "DATASETS.NAMES", "market1501",
+            "DATASETS.ROOT_DIR", root, "MODEL.USE_CENTROIDS", "True",
+            "DATALOADER.USE_RESAMPLING", "False",
+            "SOLVER.IMS_PER_BATCH", str(TRAIN_P),
+            "DATALOADER.NUM_INSTANCE", str(TRAIN_K),
+            "USE_MIXED_PRECISION", "True", "REPRODUCIBLE_NUM_RUNS", "1",
+            "OUTPUT_DIR", logs, *extra]
+
+
+def _flat_state(tree, prefix="") -> dict:
+    """A state.pt-style dict -> {dotted key: tensor or value}, on the CPU."""
+    import torch
+
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_state(v, f"{prefix}{i}."))
+    else:
+        out[prefix] = tree.detach().cpu().clone() if torch.is_tensor(
+            tree) else tree
+    return out
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k]
+        for k in a)
+
+
+def _epoch_records(log_dir: str) -> list:
+    import json
+    import os
+
+    with open(os.path.join(log_dir, "train", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if "epoch_train_loss" in r]
+
+
+def step_flops(model, x) -> tuple:
+    """(FLOPs of one train step, FLOPs of its forward), from the shapes of
+    one forward of ``x``: 2 x MACs of every conv and of the classifier;
+    backward = 2 x forward, less the stem conv's input gradient (the images
+    need none). BN, ReLU, pooling and the losses are not counted."""
+    import torch
+
+    macs, hooks = [], []
+
+    def conv_hook(m, inp, out):
+        macs.append((m, out.numel() * (m.in_channels // m.groups)
+                     * m.kernel_size[0] * m.kernel_size[1]))
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(conv_hook))
+    model.eval()   # the same shapes; no running statistic moves
+    try:
+        with torch.no_grad(), torch.autocast(x.device.type, dtype=torch.bfloat16):
+            model.features(x)
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    n = x.shape[0]
+    fc = n * model.fc_query.in_features * model.fc_query.out_features
+    fwd = 2.0 * (sum(v for _, v in macs) + fc)
+    stem = 2.0 * dict(macs)[model.backbone.conv1]
+    return 3.0 * fwd - stem, fwd
+
+
+def _phase_device_us(trace_path: str) -> dict:
+    """Device time (kernels, copies, sets) per annotated phase of a
+    torch.profiler Chrome trace: each device event goes to the phase whose
+    host range holds the call that launched it (by correlation id; the
+    backward's launches come from autograd's thread while the main thread
+    waits inside its "backward" range)."""
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") in TRAIN_PHASES]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat", "").startswith("cuda_")
+                 and "correlation" in e.get("args", {})}
+    out = {name: 0.0 for name in TRAIN_PHASES + ("other",)}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        name = next((r[2] for r in ranges if ts is not None
+                     and r[0] <= ts <= r[1]), "other")
+        out[name] += e["dur"]
+    return out
+
+
+def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
+    """Phase 8, training: a Market-1501-sized synthetic train split, CTL
+    training of ResNet-50 (256x128, 64 x 4 images a step, bf16) through
+    ``engine.runner.main --mode ctl`` from a torchvision-layout backbone
+    file, 2 epochs with validation and checkpoints, a resume from
+    ``checkpoint_epoch1`` to epoch 3, ONLY_TEST of the best checkpoint; then
+    the step's time, rate, memory, idle share, profiler split and share of
+    the bf16 peak, and one full-width step on the card against the CPU."""
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.engine import checkpoint as CK
+    from centroids_reid_tpu_torch.engine import fit as FIT
+    from centroids_reid_tpu_torch.engine import runner
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 8: training (CTL, ResNet-50, through the runner)")
+    root = os.path.join(tmp, "train_data")
+    t0 = time.perf_counter()
+    counts = _write_market_train(root, eval_root)
+    log(f"synthetic Market-1501 train split: {TRAIN_PIDS} pids, "
+        f"{counts.sum()} 128x64 JPEGs ({counts.min()} to {counts.max()} per "
+        f"pid), written in {time.perf_counter() - t0:.1f} s; validation on "
+        f"phase 5's {EVAL_PIDS * EVAL_QUERIES} queries and "
+        f"{EVAL_PIDS * EVAL_GALLERY} gallery images")
+
+    # the pretrained backbone: the seeded random model's trunk, in the
+    # torchvision ResNet-50 file layout (with its ImageNet fc head)
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+    backbone = {k[len("backbone."):]: v for k, v in sd.items()
+                if k.startswith("backbone.")}
+    gen = torch.Generator().manual_seed(SEED + 13)
+    backbone["fc.weight"] = torch.randn((1000, DIM), generator=gen) * 0.01
+    backbone["fc.bias"] = torch.zeros(1000)
+    pth = os.path.join(tmp, "resnet50_torchvision_layout.pth")
+    torch.save(backbone, pth)
+
+    logs = os.path.join(tmp, "logs_train")
+    version0 = os.path.join(logs, "train_ctl_model", "version_0")
+    snapshots, banks = {}, []
+    save_periodic, build_bank = CK.CheckpointManager.save_periodic, \
+        FIT.build_image_bank
+
+    def snapshot(self, epoch, state, cfg=None):
+        path = save_periodic(self, epoch, state, cfg)
+        snapshots[path] = _flat_state(CK.state_dict(state, epoch))
+        return path
+
+    def keep_bank(*args, **kw):
+        banks[:] = [build_bank(*args, **kw)]    # the latest run's bank
+        return banks[0]
+
+    CK.CheckpointManager.save_periodic = snapshot
+    FIT.build_image_bank = keep_bank
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.main(["--mode", "ctl", *_train_opts(
+            root, logs, "MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH",
+            pth, "SOLVER.MAX_EPOCHS", "2", "SOLVER.EVAL_PERIOD", "2")])
+        train_s = time.perf_counter() - t0
+        ring = os.path.join(version0, "auto_checkpoints", "checkpoint_epoch1")
+        t0 = time.perf_counter()
+        resumed = runner.main(["--mode", "ctl", *_train_opts(
+            root, logs, "MODEL.RESUME_TRAINING", "True",
+            "MODEL.PRETRAIN_PATH", ring, "SOLVER.MAX_EPOCHS", "3",
+            "SOLVER.EVAL_PERIOD", "2")])
+        resume_s = time.perf_counter() - t0
+        best_dir = os.path.join(version0, "checkpoints")
+        best = sorted(os.listdir(best_dir))
+        require(best == ["epoch=1"], f"best checkpoints: {best}")
+        best = os.path.join(best_dir, best[0])
+        t0 = time.perf_counter()
+        tested = runner.main(_train_opts(
+            root, logs, "TEST.ONLY_TEST", "True", "MODEL.PRETRAIN_PATH",
+            best))
+        test_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        base_out = runner.main(["--mode", "base", *_train_opts(
+            root, logs, "MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH",
+            pth, "DATALOADER.USE_RESAMPLING", "True", "SOLVER.MAX_EPOCHS",
+            "1", "SOLVER.EVAL_PERIOD", "100")])
+        base_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        CK.CheckpointManager.save_periodic = save_periodic
+        FIT.build_image_bank = build_bank
+
+    records = (_epoch_records(version0)
+               + _epoch_records(os.path.join(logs, "train_ctl_model",
+                                             "version_1")))
+    base_records = _epoch_records(os.path.join(logs, "train_base_model",
+                                               "version_0"))
+    loss_keys = ("epoch_train_loss", "query_triplet", "query_xent",
+                 "query_center", "epoch_dist_ap", "epoch_dist_an")
+    ctl_keys = ("centroid_triplet", "l2_mean_centroid")
+    for mode, recs, keys in (("ctl", records, loss_keys + ctl_keys),
+                             ("base", base_records, loss_keys)):
+        for r in recs:
+            require(all(np.isfinite(r[k]) for k in keys),
+                    f"{mode} epoch {r['step']}: a loss is not finite: {r}")
+            log(f"{mode} epoch {r['step']}: " + ", ".join(
+                f"{k} {r[k]:.5f}" for k in keys)
+                + f", {r['steps']} steps, {r['epoch_time_s']:.2f} s")
+    require([r["step"] for r in records] == [0, 1, 2],
+            f"epochs trained: {[r['step'] for r in records]} (the resumed "
+            f"run must start at epoch 2)")
+    require([r["step"] for r in base_records] == [0],
+            f"base epochs trained: {[r['step'] for r in base_records]}")
+    require(os.path.isdir(ring) and sorted(os.listdir(ring)) == [
+        "config.yml", "state.pt"], f"ring checkpoint {ring} missing")
+    require(ring in snapshots, "checkpoint_epoch1 was not saved")
+    require(_same_state(_flat_state(CK.load_state_file(ring)),
+                        snapshots[ring]),
+            "state.pt differs from the state it saved")
+    names = [f"test_{tag}_{m}" for tag in ("centroids", "plain")
+             for m in ("mAP", "Top-1", "Top-5", "Top-10", "Top-20",
+                       "Top-50")]
+    for what, res in (("train", out), ("resume", resumed),
+                      ("ONLY_TEST", tested), ("base", base_out)):
+        require(all(n in res and np.isfinite(res[n]) for n in names),
+                f"{what}: metrics missing from {sorted(res)}")
+        log(f"{what} double test: " + ", ".join(
+            f"{n[5:]} {res[n]:.4f}" for n in names))
+    require(not any(launches.values()),
+            f"hand-written kernels launched while training: {launches}")
+    log(f"runner: ctl 2 epochs + validation + double test {train_s:.1f} s, "
+        f"resume at epoch 2 {resume_s:.1f} s, ONLY_TEST of {best} "
+        f"{test_s:.1f} s, base 1 epoch + double test {base_s:.1f} s (host "
+        f"clock, image bank decode included); state.pt of checkpoint_epoch1 "
+        f"equals the saved state tensor for tensor; kernel launches while "
+        f"training: {launches} (none: the slice has no hand-written kernel)")
+
+    opts = _train_opts(root, logs, "MODEL.PRETRAINED", "True",
+                       "MODEL.PRETRAIN_PATH", pth)
+    cfg = get_default_cfg()
+    cfg.merge_from_file(opts[1])
+    cfg.merge_from_list(opts[2:])
+    dataset = init_dataset("market1501", cfg)
+    restored = FIT.build_model_and_state(cfg, dataset, seed=1,
+                                         device="cuda")
+    CK.restore_state(ring, restored)
+    require(_same_state(_flat_state(CK.state_dict(restored, 1)),
+                        snapshots[ring]),
+            "a state restored from checkpoint_epoch1 differs from the saved")
+    log("restore_state(checkpoint_epoch1) into a fresh state: equal to the "
+        "saved state tensor for tensor")
+    timing = time_train_step(cfg, dataset, restored, banks[0])
+    timing.update(train_parity(cfg, dataset, banks[0]))
+    return timing
+
+
+def time_train_step(cfg, dataset, state, bank_np) -> dict:
+    """The bf16 train step at 64 x 4 images over one epoch of the resident
+    path: per-step CUDA-event times, the epoch's wall time and its device
+    busy time, peak memory, the profiler's split of 5 steps, and the step's
+    share of the bf16 dense peak."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from centroids_reid_tpu_torch.data import TrainLoader
+    from centroids_reid_tpu_torch.data.device_data import plan_to_arrays
+    from centroids_reid_tpu_torch.engine.epoch_runner import make_augment
+    from centroids_reid_tpu_torch.engine.steps import make_train_step
+
+    model = state.model
+    step = make_train_step(state, cfg, dataset.num_classes, "ctl")
+    augment = make_augment(cfg)
+    bank = torch.from_numpy(bank_np).to("cuda")
+    plan = TrainLoader(dataset, cfg).plan_for_epoch(5)
+    idx, labels, is_real = (torch.from_numpy(a[:, 0]).to(
+        "cuda", torch.int64 if a.dtype != bool else torch.bool)
+        for a in plan_to_arrays(plan, dataset.train))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_steps, pk = idx.shape
+
+    def one(t):
+        imgs = bank.index_select(0, idx[t])
+        with torch.profiler.record_function("augment"):
+            x = augment(imgs, is_real[t], gen)
+        return step(x, labels[t], is_real[t])
+
+    for t in range(2):   # warm-up: cuDNN's algorithm choice, allocator
+        one(t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n_steps)]
+    t0 = time.perf_counter()
+    for t in range(n_steps):
+        events[t][0].record()
+        m = one(t)
+        events[t][1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    med = float(np.median(step_ms[1:]))
+    require(np.isfinite(m["loss"].item()), "timed epoch: loss not finite")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for t in range(n_steps):
+            one(t)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t1
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    busy = busy_us / 1e6
+
+    with tempfile.TemporaryDirectory() as d:
+        trace = f"{d}/trace.json"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof5:
+            for t in range(PROFILED_STEPS):
+                with torch.profiler.record_function("gather"):
+                    imgs = bank.index_select(0, idx[t])
+                with torch.profiler.record_function("augment"):
+                    x = augment(imgs, is_real[t], gen)
+                step(x, labels[t], is_real[t])
+            torch.cuda.synchronize()
+        prof5.export_chrome_trace(trace)
+        split = _phase_device_us(trace)
+
+    flops, fwd = step_flops(model, torch.zeros(
+        (pk, 3) + tuple(cfg.INPUT.SIZE_TRAIN), device="cuda").to(
+        memory_format=torch.channels_last))
+    share = flops / (med / 1e3) / PEAK_OPS["bf16"]
+    gpu = gpu_line()
+    log(f"train step, ResNet-50 256x128 bf16, {pk} images ({TRAIN_P} x "
+        f"{TRAIN_K}), resident epoch of {n_steps} steps, {gpu}: median "
+        f"{med:.2f} ms a step (CUDA events, first step excluded; min "
+        f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) = "
+        f"{pk / med * 1e3:.1f} images/s; epoch wall {wall:.3f} s = "
+        f"{n_steps * pk / wall:.1f} images/s (host clock)")
+    log(f"train epoch under torch.profiler, {gpu}: wall {wall_prof:.3f} s, "
+        f"device busy {busy:.3f} s (kernels, copies and sets), idle share "
+        f"{1 - busy / wall_prof:.4f}; against the unprofiled epoch's wall "
+        f"{wall:.3f} s: {1 - busy / wall:.4f}; peak memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated, the "
+        f"{bank.numel() / 2**30:.2f} GiB image bank included)")
+    total = sum(split.values()) or 1.0
+    log(f"device time of {PROFILED_STEPS} steps by phase (torch.profiler, "
+        f"{gpu}, {total / 1e3:.1f} ms in all): " + ", ".join(
+            f"{k} {v / 1e3:.1f} ms ({v / total:.3f})"
+            for k, v in split.items()))
+    log(f"step FLOPs from the layer shapes: forward {fwd / 1e12:.3f} TFLOP "
+        f"(convs and classifier), step {flops / 1e12:.3f} TFLOP; at "
+        f"{med:.2f} ms: {flops / (med / 1e3) / 1e12:.1f} TFLOP/s, {share:.4f}"
+        f" of the bf16 dense peak (989 TFLOP/s; {gpu})")
+    return {"step_ms": med, "images_per_s": pk / med * 1e3,
+            "epoch_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "peak_bytes": peak,
+            "split_us": split, "step_flops": flops, "peak_share": share}
+
+
+def train_parity(cfg, dataset, bank_np) -> dict:
+    """One ctl step of ResNet-50 at full width (P=8 x K=4 at 256x128, one
+    mock, already augmented) from one state, on the card and on the CPU,
+    in fp32 with TF32 off and in float64.
+
+    * fp32: every loss term, card against CPU, to rtol 1e-4.
+    * float64: every parameter's gradient, card against CPU, to a relative
+      L2 error of 1e-3. The CPU's fp32 gradients of this random trunk are a
+      few 1e-3 from float64 per tensor (printed), so card and CPU cannot
+      meet 1e-3 per tensor in fp32; in float64 the same comparison tests
+      the implementations, not the rounding. A gradient that is zero in
+      exact arithmetic (norm under 1e-9 of the largest in float64 on the
+      CPU: the stem BN's bias) must be so on the card too.
+    * fp32 gradients, whole (every tensor in one vector): the card's
+      relative L2 error against the float64 gradient at most 1e-3.
+    Then the same batch in bf16 on the card: its total loss within 2e-2 of
+    fp32's."""
+    import copy
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.data.transforms import (
+        apply_augment,
+        draw_augment_params,
+    )
+    from centroids_reid_tpu_torch.engine import fit as FIT
+    from centroids_reid_tpu_torch.engine.state import create_train_state
+    from centroids_reid_tpu_torch.engine.steps import make_train_step
+
+    cfg = cfg.clone()
+    cfg.USE_MIXED_PRECISION = False
+    cfg.SOLVER.IMS_PER_BATCH = PARITY_P
+    pids = [pid for pid, recs in sorted(dataset.train_dict.items())
+            if len(recs) >= TRAIN_K][:PARITY_P]
+    rows = [r.idx for pid in pids for r in dataset.train_dict[pid][:TRAIN_K]]
+    labels = torch.tensor([dataset.train[i].pid for i in rows])
+    is_real = torch.ones(len(rows), dtype=torch.bool)
+    is_real[2 * TRAIN_K - 1] = False
+    params = draw_augment_params(len(rows), torch.Generator().manual_seed(4),
+                                 tuple(cfg.INPUT.SIZE_TRAIN),
+                                 cfg.INPUT.PADDING, cfg.INPUT.PROB,
+                                 cfg.INPUT.RE_PROB)
+    x = apply_augment(torch.from_numpy(bank_np[rows]), is_real, params,
+                      cfg.INPUT.PADDING, cfg.INPUT.PIXEL_MEAN,
+                      cfg.INPUT.PIXEL_STD)
+    base = FIT.build_model_and_state(cfg, dataset, seed=2, device="cpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    results = {}
+    for name, dev, dtype, bf16 in (
+            ("card", "cuda", torch.float32, False),
+            ("cpu", "cpu", torch.float32, False),
+            ("card-fp64", "cuda", torch.float64, False),
+            ("cpu-fp64", "cpu", torch.float64, False),
+            ("card-bf16", "cuda", torch.float32, True)):
+        model = copy.deepcopy(base.model).to(
+            dev, dtype, memory_format=torch.channels_last)
+        model.mixed_precision = bf16
+        state = create_train_state(cfg, model, dataset.num_classes,
+                                   torch.Generator())
+        with torch.no_grad():
+            state.centers.copy_(base.centers)
+        step = make_train_step(state, cfg, dataset.num_classes, "ctl")
+        t0 = time.perf_counter()
+        metrics = step(x.to(dev, dtype), labels.to(dev), is_real.to(dev))
+        metrics = {k: v.item() for k, v in metrics.items()}
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        grads["centers"] = state.centers.grad.double().cpu()
+        require(all(p.grad.dtype == dtype for p in model.parameters()
+                    if p.grad is not None), f"{name}: a gradient left {dtype}")
+        results[name] = (metrics, grads, time.perf_counter() - t0)
+    (mc, gc, tc), (mp, gp, tp), (_, gc64, tc64), (_, g64, t64), (mb, _, _) = (
+        results[k] for k in ("card", "cpu", "card-fp64", "cpu-fp64",
+                             "card-bf16"))
+    worst_loss = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp)
+    require(all(abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]) + 1e-7 for k in mp),
+            f"card vs CPU losses: {mc} vs {mp}")
+    require(gc.keys() == gp.keys() == gc64.keys() == g64.keys(),
+            "card and CPU train different tensors")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    top = max(float(g.norm()) for g in g64.values())
+    zero = [n for n in g64 if float(g64[n].norm()) <= 1e-9 * top]
+    names = [n for n in g64 if n not in zero]
+    err64 = {n: rel(gc64[n], g64[n]) for n in names}     # card vs CPU, fp64
+    worst64 = max(names, key=err64.get)
+    require(err64[worst64] <= 1e-3, "float64 gradients, card vs CPU: "
+            + ", ".join(f"{n} {err64[n]:.3e}" for n in names
+                        if err64[n] > 1e-3))
+    require(all(float(gc64[n].norm()) <= 1e-9 * top for n in zero),
+            "zero in exact arithmetic on the CPU, not on the card: "
+            + ", ".join(f"{n} {float(gc64[n].norm()) / top:.2e}"
+                        for n in zero))
+
+    def whole(g):
+        return torch.cat([g[n].flatten() for n in sorted(g)])
+
+    card_whole, cpu_whole = (rel(whole(g), whole(g64)) for g in (gc, gp))
+    require(card_whole <= 1e-3,
+            f"fp32 gradient against float64: card {card_whole:.3e}, CPU "
+            f"{cpu_whole:.3e}")
+    errs = {n: rel(gc[n], gp[n]) for n in names}         # card vs CPU, fp32
+    card = {n: rel(gc[n], g64[n]) for n in names}        # card fp32 vs fp64
+    cpu = {n: rel(gp[n], g64[n]) for n in names}         # CPU fp32 vs fp64
+
+    def count(err):
+        return sum(v <= 1e-3 for v in err.values())
+
+    def spread(err):
+        worst = max(err, key=err.get)
+        return (f"median {float(np.median(list(err.values()))):.2e}, worst "
+                f"{err[worst]:.2e} ({worst})")
+
+    bf16_rel = abs(mb["loss"] - mc["loss"]) / abs(mc["loss"])
+    require(bf16_rel <= 2e-2, f"bf16 loss {mb['loss']} vs fp32 {mc['loss']}")
+    log(f"full-width step parity ({PARITY_P} x {TRAIN_K} at 256x128, one "
+        f"mock, TF32 off, {gpu_line()}): fp32 loss terms within "
+        f"{worst_loss:.2e} relative of the CPU's (loss {mc['loss']:.6f} vs "
+        f"{mp['loss']:.6f}; tol 1e-4); float64 gradients, card vs CPU, "
+        f"relative L2: worst {err64[worst64]:.2e} ({worst64}), median "
+        f"{float(np.median(list(err64.values()))):.2e} over {len(names)} "
+        f"tensors (tol 1e-3); zero in exact arithmetic: " + ", ".join(
+            f"{n} (norm / largest: {float(g64[n].norm()) / top:.1e} CPU "
+            f"fp64, {float(gc64[n].norm()) / top:.1e} card fp64, "
+            f"{float(gp[n].norm()) / top:.1e} CPU fp32, "
+            f"{float(gc[n].norm()) / top:.1e} card fp32)" for n in zero)
+        + ("none" if not zero else "")
+        + f"; fp32 gradients: the whole gradient {card_whole:.2e} from "
+        f"float64 on the card (tol 1e-3), {cpu_whole:.2e} on the CPU; per "
+        f"tensor against float64: the card {count(card)} of {len(names)} "
+        f"within 1e-3, {spread(card)}; the CPU {count(cpu)}, {spread(cpu)}; "
+        f"card vs CPU {count(errs)}, {spread(errs)}; bf16 on the "
+        f"card: loss {mb['loss']:.6f}, {bf16_rel:.2e} from fp32 (tol 2e-2); "
+        f"step {tc:.2f} s on the card (first call), {tp:.2f} s on the CPU, "
+        f"float64 {tc64:.2f} s on the card, {t64:.2f} s on the CPU")
+    return {"parity_loss_rel": worst_loss, "parity_grad64_rel": err64[worst64],
+            "parity_grad32_whole": card_whole, "bf16_loss_rel": bf16_rel}
+
+
 def main() -> int:
     import torch
 
@@ -1445,6 +2030,7 @@ def main() -> int:
         eval_state = phase_eval(tmp, ckpt)
         cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
         times = phase_timing(state, int8_state)
+        phase_train(tmp, ckpt, eval_state["root"])
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path

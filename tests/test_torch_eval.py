@@ -234,6 +234,9 @@ def test_runner_refuses_unported_routes(eval_setup, opt, value, match):
     cfg = small_cfg(get_default_cfg, pth, data, str(tmp / "refused"))
     section, key = opt.split(".")
     setattr(getattr(cfg, section), key, value)
+    if opt == "TEST.ONLY_TEST":
+        # training is ported; its multi-group form is not
+        cfg.TPU.NUM_GROUPS = 2
     with pytest.raises(NotImplementedError, match=match):
         runner.run_single(cfg, "ctl", "test", device="cpu")
 

@@ -681,3 +681,107 @@ def test_scores_i8_tma_kernel_full_code_range(cuda):
                           ).to(cuda, torch.bfloat16)
     assert torch.equal(R8.scores_i8(qf, codes, s_row, gn),
                        R8.scores_i8_plain(qf, codes, s_row, gn))
+
+
+# ------------------------------------------------------------ training
+# The training slice launches no hand-written kernel: these hold its
+# PyTorch code on the card against the same code on the CPU.
+
+def test_apply_augment_on_gpu_equals_cpu(cuda):
+    """The same draws (made on the CPU) applied on the card and on the CPU:
+    equal, mocks zero; the card's own draws stay within their ranges."""
+    from centroids_reid_tpu_torch.data import transforms as T
+
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.randint(0, 256, (64, 256, 128, 3)).astype(
+        np.uint8))
+    is_real = torch.from_numpy(rng.rand(64) > 0.2)
+    params = T.draw_augment_params(64, torch.Generator().manual_seed(1),
+                                   (256, 128), 10, 0.5, 0.5)
+    ref = T.apply_augment(imgs, is_real, params, 10, mean, std)
+    got = T.apply_augment(imgs.to(cuda), is_real.to(cuda),
+                          T.AugmentParams(*(p.to(cuda) for p in params)), 10,
+                          mean, std)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-6)
+    assert not got[~is_real.to(cuda)].any()
+    own = T.draw_augment_params(
+        64, torch.Generator(device=cuda).manual_seed(1), (256, 128), 10, 0.5,
+        0.5)
+    assert all(p.device.type == "cuda" for p in own)
+    y0, x0, eh, ew = own.rect.unbind(1)
+    assert ((y0 + eh <= 256) & (x0 + ew <= 128)).all()
+    assert own.offset.min() >= 0 and own.offset.max() <= 20
+
+
+def test_masked_bnneck_on_gpu_equals_cpu(cuda):
+    from centroids_reid_tpu_torch.engine.steps import masked_bnneck
+
+    rng = np.random.RandomState(2)
+    arrays = [rng.randn(256, 2048).astype(np.float32) * 2 + 1,
+              rng.rand(256) > 0.1, rng.uniform(0.5, 1.5, 2048),
+              rng.normal(0, 0.1, 2048), rng.normal(0, 1, 2048),
+              rng.uniform(0.5, 2, 2048)]
+    outs = []
+    for dev in ("cpu", cuda):
+        t = [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+        t = [x.float() if x.dtype == torch.float64 else x for x in t]
+        feat = t[0].requires_grad_(True)
+        out, (mean, var) = masked_bnneck(feat, *t[1:])
+        (out * out).sum().backward()
+        outs.append([x.detach().cpu() for x in (out, feat.grad, mean, var)])
+    for got, ref in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_on_gpu_equals_cpu(cuda):
+    """One resnet18 ctl step (32 images at 64x32, one mock) from one state
+    on the card and on the CPU, fp32 with TF32 off: every metric to rtol
+    1e-4, every gradient to a relative L2 error of 1e-4, the BNNeck
+    running statistics to 1e-5."""
+    import copy
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine.state import create_train_state
+    from centroids_reid_tpu_torch.engine.steps import make_train_step
+    from centroids_reid_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE = 8, 4
+    model = create_model(cfg, num_classes=10,
+                         generator=torch.Generator().manual_seed(0))
+    base = create_train_state(cfg, model, 10, torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(3)
+    imgs = rng.randn(32, 64, 32, 3).astype(np.float32)
+    labels = np.repeat(rng.choice(10, 8, replace=False), 4)
+    is_real = np.ones(32, bool)
+    is_real[7] = False
+    imgs[7] = 0
+    results = []
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+        state = create_train_state(cfg, m, 10, torch.Generator())
+        with torch.no_grad():
+            state.centers.copy_(base.centers)
+        step = make_train_step(state, cfg, 10, "ctl")
+        metrics = step(torch.from_numpy(imgs).to(dev),
+                       torch.from_numpy(labels).to(dev),
+                       torch.from_numpy(is_real).to(dev))
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        grads["centers"] = state.centers.grad.cpu()
+        results.append((metrics, grads, m.bn.running_mean.cpu(),
+                        m.bn.running_var.cpu()))
+    (m_cpu, g_cpu, rm_cpu, rv_cpu), (m_gpu, g_gpu, rm_gpu, rv_gpu) = results
+    for name in m_cpu:
+        torch.testing.assert_close(m_gpu[name].cpu(), m_cpu[name], rtol=1e-4,
+                                   atol=1e-7)
+    assert g_cpu.keys() == g_gpu.keys()
+    for name in g_cpu:
+        err = (g_gpu[name] - g_cpu[name]).norm() / g_cpu[name].norm()
+        assert err <= 1e-4, (name, float(err))
+    torch.testing.assert_close(rm_gpu, rm_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rv_gpu, rv_cpu, rtol=1e-5, atol=1e-5)

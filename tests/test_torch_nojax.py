@@ -1,9 +1,10 @@
 """The port stands without JAX and without the JAX package: importing it,
 serving a query on the CPU through the bf16 path and the int8 path (PTQ
-embed + int8 gallery), an ONLY_TEST evaluation through its runner, the
-offline CLIs' flows, and importing ``chip_smoke`` load neither jax nor
-flax nor any module of ``centroids_reid_tpu``; no source file of the port
-imports it; and the service refuses what is not ported."""
+embed + int8 gallery), an ONLY_TEST evaluation through its runner, a
+one-epoch training run and its resume, the offline CLIs' flows, and
+importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
+any module of ``centroids_reid_tpu``; no source file of the port imports
+it; and the service refuses what is not ported."""
 
 import os
 import re
@@ -57,7 +58,7 @@ _SCRIPT = textwrap.dedent("""
         pth = os.path.join(tmp, "reid.pth")
         torch.save({"state_dict": model.state_dict()}, pth)
         base = os.path.join(tmp, "data", "market1501")
-        for sub, cams in (("bounding_box_train", (1,)), ("query", (1,)),
+        for sub, cams in (("bounding_box_train", (1, 2)), ("query", (1,)),
                           ("bounding_box_test", (2, 3))):
             os.makedirs(os.path.join(base, sub))
             for pid in range(3):
@@ -72,6 +73,22 @@ _SCRIPT = textwrap.dedent("""
         cfg.LOG_DIR = os.path.join(tmp, "logs")
         out = runner.run_single(cfg, "ctl", "test", device="cpu")
         assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        cfg.TEST.ONLY_TEST = False
+        cfg.MODEL.PRETRAINED = False
+        cfg.INPUT.SIZE_TRAIN = [32, 16]
+        cfg.SOLVER.IMS_PER_BATCH = 2
+        cfg.SOLVER.MAX_EPOCHS = 1
+        cfg.DATALOADER.USE_RESAMPLING = False
+        out = runner.run_single(cfg, "ctl", "train", device="cpu")
+        assert "test_centroids_mAP" in out, out
+        cfg.MODEL.RESUME_TRAINING = True
+        cfg.MODEL.PRETRAIN_PATH = os.path.join(
+            cfg.LOG_DIR, "train", "version_0", "auto_checkpoints",
+            "checkpoint_epoch0")
+        cfg.SOLVER.MAX_EPOCHS = 2
+        out = runner.run_single(cfg, "base", "train", device="cpu")
+        assert "test_plain_mAP" in out, out
+        cfg.MODEL.RESUME_TRAINING = False
         cfg.DATASETS.ROOT_DIR = os.path.join(base, "bounding_box_test")
         cfg.OUTPUT_DIR = os.path.join(tmp, "index")
         build_embeddings(cfg, False, device="cpu")
@@ -83,8 +100,8 @@ _SCRIPT = textwrap.dedent("""
                                      for r in res.values()), res
 
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                        "centroids_reid_tpu"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "orbax", "centroids_reid_tpu"))
     assert not bad, bad
     print("OK")
 """)
@@ -114,6 +131,15 @@ def test_no_source_of_the_port_imports_the_jax_package():
             if _JAX_PACKAGE_IMPORT.search(f.read()):
                 offenders.append(os.path.relpath(path, _REPO))
     assert len(files) > 20 and not offenders, offenders
+    scanned = {os.path.relpath(p, _REPO) for p in files}
+    for module in ("losses/triplet.py", "losses/centroid.py",
+                   "losses/classification.py", "solver/build.py",
+                   "data/sampler.py", "data/device_data.py",
+                   "engine/steps.py", "engine/state.py",
+                   "engine/epoch_runner.py", "engine/checkpoint.py",
+                   "engine/fit.py", "utils/preemption.py",
+                   "utils/profiling.py", "utils/seeding.py"):
+        assert f"centroids_reid_tpu_torch/{module}" in scanned, module
 
 
 class _Int8EmbedStub:
