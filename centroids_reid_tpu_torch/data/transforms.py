@@ -2,9 +2,10 @@
 normalise and the training augmentation.
 
 Counterpart of ``centroids_reid_tpu/data/transforms.py``
-(``decode_and_resize_bytes``, ``load_and_resize``, the RGB branch of
-``ingest_blobs``, ``normalize_batch`` and ``augment_batch``). The native
-JPEG decoder is the port's own copy (``centroids_reid_tpu_torch/native``).
+(``decode_and_resize_bytes``, ``load_and_resize``, ``ingest_item_shape``,
+the RGB branch of ``ingest_blobs``, ``normalize_batch`` and
+``augment_batch``). The native JPEG decoder is the port's own copy
+(``centroids_reid_tpu_torch/native``).
 
 The training augmentation is the reference's torchvision chain on uint8
 [H, W, 3] batches: horizontal flip, zero pad + random crop, normalise,
@@ -77,6 +78,16 @@ def load_and_resize(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     return decode_and_resize_bytes(data, size_hw)
+
+
+def ingest_item_shape(fmt: str, size_hw: Tuple[int, int]) -> Tuple[int, ...]:
+    """Per-image uint8 shape of a serving wire format: packed planar YUV420
+    ``[1.5 * H * W]`` or RGB ``[H, W, 3]`` (the shape the HTTP server's
+    warm-up batches take)."""
+    h, w = (int(v) for v in size_hw)
+    if fmt == "yuv420":
+        return (h * w * 3 // 2,)
+    return (h, w, 3)
 
 
 def ingest_blobs(fmt: str, size_hw: Tuple[int, int],

@@ -8,7 +8,11 @@ mAP on the same device. The reference's ``make_embed_many_fn`` scans
 several batches in one dispatch to amortise its TPU's per-dispatch
 latency; here each loader batch is one embed call (``make_embed_fn``).
 Single process only: multi-process extraction and ``TEST.VISUALIZE`` are
-not ported yet and raise ``NotImplementedError``.
+not ported yet and raise ``NotImplementedError``. ``TPU.RERANK`` evaluates
+on the fully re-ranked distance matrix; windowed re-ranked evaluation
+(``TPU.RERANK_WINDOW > 0``) runs on the streaming evaluator in the
+reference, is not ported yet, and ``validate_rerank_config`` refuses it at
+startup.
 """
 
 from __future__ import annotations
@@ -92,10 +96,65 @@ def extract_embeddings(model, cfg, loader: EvalLoader, embed_fn=None
             np.concatenate(pids), np.concatenate(camids))
 
 
+def _centroid_gallery_rows(g_pids, g_camids, q_pids, q_camids,
+                           respect_camids: bool) -> int:
+    """The number of gallery rows the centroid eval set will hold: the
+    construction itself run on 1-wide zero embeddings (its row count
+    depends only on the pids and camids)."""
+    nq = len(np.asarray(q_pids))
+    pids = np.concatenate([np.asarray(q_pids), np.asarray(g_pids)])
+    camids = np.concatenate([np.asarray(q_camids), np.asarray(g_camids)])
+    cent = build_centroid_eval_set(np.zeros((len(pids), 1), np.float32),
+                                   pids, camids, num_query=nq,
+                                   respect_camids=respect_camids)
+    return int(len(cent.labels) - nq)
+
+
+def validate_rerank_config(cfg, dataset) -> None:
+    """Refuse at startup a ``TPU.RERANK`` run whose evaluation would fail
+    later (at the first validation of a training run, hours in): full
+    re-ranking of an eval set, with or without centroids, past
+    ``ops.rerank.DEFAULT_MAX_N`` rows raises ``ValueError`` as in the
+    reference; windowed re-ranked evaluation (``TPU.RERANK_WINDOW > 0``)
+    needs the streaming evaluator, which is not ported yet
+    (``NotImplementedError``)."""
+    if not cfg.TPU.RERANK:
+        return
+    if int(cfg.TPU.RERANK_WINDOW) > 0:
+        raise NotImplementedError(
+            "TPU.RERANK with TPU.RERANK_WINDOW > 0 (windowed re-ranked "
+            "evaluation) runs on the streaming evaluator, which is not "
+            "ported yet; see ROADMAP.md queue 1 item 6 (the streaming "
+            "evaluator, metrics/streaming_eval.py). Set TPU.RERANK_WINDOW 0 "
+            "for full re-ranking.")
+    from ..ops.rerank import DEFAULT_MAX_N
+
+    nq = dataset.num_query
+    val = dataset.val
+    q_pids = np.asarray([r.pid for r in val[:nq]])
+    q_camids = np.asarray([r.camid for r in val[:nq]])
+    g_pids = np.asarray([r.pid for r in val[nq:]])
+    g_camids = np.asarray([r.camid for r in val[nq:]])
+    sizes = {"plain": nq + len(g_pids),
+             "centroids": nq + _centroid_gallery_rows(
+                 g_pids, g_camids, q_pids, q_camids,
+                 bool(cfg.MODEL.KEEP_CAMID_CENTROIDS))}
+    over = {m: n for m, n in sizes.items() if n > DEFAULT_MAX_N}
+    if over:
+        detail = ", ".join(f"{m} eval N={n}" for m, n in over.items())
+        raise ValueError(
+            f"TPU.RERANK (full k-reciprocal re-ranking) holds two [N, N] "
+            f"fp32 matrices in HBM and refuses N > {DEFAULT_MAX_N}; this "
+            f"run would evaluate {detail}. Set TPU.RERANK_WINDOW (e.g. "
+            f"500) for windowed re-ranking at any gallery scale, or "
+            f"disable TPU.RERANK.")
+
+
 def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
                          use_centroids: bool, return_evaluator: bool = False,
                          device="cuda"):
-    """Centroids (when ``use_centroids``) + R1 / mAP on ``device``."""
+    """Centroids (when ``use_centroids``) + R1 / mAP on ``device``; with
+    ``TPU.RERANK``, on the k-reciprocal re-ranked distances."""
     respect = bool(cfg.MODEL.KEEP_CAMID_CENTROIDS and use_centroids)
     if use_centroids:
         print("Evaluation is done using centroids")
@@ -103,9 +162,16 @@ def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
             torch.from_numpy(np.asarray(embeddings, np.float32)).to(device),
             pids, camids, num_query, respect)
         embeddings, pids, camids = es.embeddings, es.labels, es.camids
+    if cfg.TPU.RERANK:
+        print("Re-ranking with k-reciprocal encoding (k1={}, k2={}, "
+              "lambda={})".format(cfg.TPU.RERANK_K1, cfg.TPU.RERANK_K2,
+                                  cfg.TPU.RERANK_LAMBDA))
     evaluator = R1mAP(num_query=num_query, feat_norm=cfg.TEST.FEAT_NORM,
                       dist_name=cfg.SOLVER.DISTANCE_FUNC,
                       rerank=bool(cfg.TPU.RERANK),
+                      rerank_k1=int(cfg.TPU.RERANK_K1),
+                      rerank_k2=int(cfg.TPU.RERANK_K2),
+                      rerank_lambda=float(cfg.TPU.RERANK_LAMBDA),
                       rerank_window=int(cfg.TPU.RERANK_WINDOW), device=device)
     metrics = evaluator.compute(embeddings, pids, camids,
                                 respect_camids=respect)

@@ -31,7 +31,7 @@ from ..config import get_default_cfg
 from ..data import init_dataset
 from ..inference.api import load_inference_model
 from ..utils import seed_everything
-from .evaluate import run_validation
+from .evaluate import run_validation, validate_rerank_config
 from .fit import fit
 from .logging import MetricsLogger, next_version_dir
 
@@ -52,9 +52,6 @@ def run_single(cfg, mode: str, logger_save_dir: str,
     """One run under ``LOG_DIR/<logger_save_dir>/version_N``: ``fit`` in
     ``mode`` ('ctl' or 'base'), or with ``TEST.ONLY_TEST`` the metrics with
     and without centroids, logged under ``test``."""
-    if cfg.TPU.RERANK:
-        raise NotImplementedError(
-            "TPU.RERANK is not ported yet; see ROADMAP.md queue 1 item 6")
     log_dir = next_version_dir(cfg.LOG_DIR, logger_save_dir)
     print(f"Logging to {log_dir}")
     with open(os.path.join(log_dir, "config.yml"), "w") as f:
@@ -62,6 +59,8 @@ def run_single(cfg, mode: str, logger_save_dir: str,
 
     dataset = init_dataset(cfg.DATASETS.NAMES, cfg)
     dataset.print_statistics()
+    # refuse a re-ranking config whose evaluation would fail mid-run
+    validate_rerank_config(cfg, dataset)
     if not cfg.TEST.ONLY_TEST:
         return fit(cfg, mode, log_dir, seed=cfg.REPRODUCIBLE_SEED,
                    dataset=dataset, device=device)

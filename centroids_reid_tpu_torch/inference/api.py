@@ -125,21 +125,31 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
     -> {indices, paths, distances}), ``query_embeddings.npy`` and
     ``query_paths.npy`` under ``OUTPUT_DIR``.
 
-    Routing as in the reference: ``ops.retrieval.topk_retrieval`` (exact
-    fp32, hierarchical top-k on K3) when ``TPU.USE_PALLAS_RETRIEVAL`` and
-    ``topk`` > 0, else the full distance matrix and a stable argsort (the
-    reference's host ``np.argsort`` is not stable: equal distances may
-    order differently there). ``TPU.RERANK`` and ``TPU.SHARDED_RETRIEVAL``
-    are not ported yet and raise ``NotImplementedError``."""
+    Routing as in the reference:
+
+    * ``TPU.RERANK`` with ``topk`` > 0 and ``TPU.RERANK_WINDOW`` > 0:
+      windowed re-ranking (``ops.rerank.rerank_topk``) of each query's
+      top-``max(TPU.RERANK_WINDOW, topk)`` window, the first ``topk`` kept;
+    * ``TPU.RERANK`` otherwise: the fully re-ranked distance matrix
+      (``ops.rerank.rerank_distmat``, at most ``DEFAULT_MAX_N`` rows in
+      all) and a stable argsort;
+    * ``ops.retrieval.topk_retrieval`` (exact fp32, hierarchical top-k on
+      K3) when ``TPU.USE_PALLAS_RETRIEVAL`` and ``topk`` > 0;
+    * else the full distance matrix and a stable argsort (the reference's
+      host ``np.argsort`` is not stable: equal distances may order
+      differently there).
+
+    The re-rankers' local distance is ``SOLVER.DISTANCE_FUNC``.
+    ``TPU.SHARDED_RETRIEVAL`` (without ``TPU.RERANK``, which the reference
+    routes first) is not ported yet and raises ``NotImplementedError``."""
     from ..metrics.r1_map import compute_distmat_device, l2_normalize_rows
+    from ..ops.rerank import rerank_distmat, rerank_topk
     from ..ops.retrieval import topk_retrieval
 
-    for flag, item in (("RERANK", "re-ranking"),
-                       ("SHARDED_RETRIEVAL", "multi-GPU")):
-        if getattr(cfg.TPU, flag):
-            raise NotImplementedError(
-                f"TPU.{flag} is not ported yet; see ROADMAP.md queue 1 "
-                f"item 6 ({item})")
+    if cfg.TPU.SHARDED_RETRIEVAL and not cfg.TPU.RERANK:
+        raise NotImplementedError(
+            "TPU.SHARDED_RETRIEVAL is not ported yet; see ROADMAP.md queue 1 "
+            "item 6 (multi-GPU)")
     embeddings, paths = _embed_folder(cfg, images_in_subfolders, print_freq,
                                       device)
     load_path = Path(gallery_data)
@@ -154,14 +164,34 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
     if use_pallas is None:
         use_pallas = cfg.TPU.USE_PALLAS_RETRIEVAL
     dist = cfg.SOLVER.DISTANCE_FUNC
-    if use_pallas and topk:
+    tpu = cfg.TPU
+    rerank_kw = dict(k1=int(tpu.RERANK_K1), k2=int(tpu.RERANK_K2),
+                     lambda_value=float(tpu.RERANK_LAMBDA), dist=dist,
+                     device=device)
+    if tpu.RERANK and topk and tpu.RERANK_WINDOW > 0:
+        r = max(int(tpu.RERANK_WINDOW), topk)
+        log.info("Windowed re-ranking with k-reciprocal encoding (r=%d, "
+                 "k1=%d, k2=%d, lambda=%.2f)", r, tpu.RERANK_K1,
+                 tpu.RERANK_K2, tpu.RERANK_LAMBDA)
+        dists, indices = rerank_topk(embeddings, embeddings_gallery, r=r,
+                                     **rerank_kw)
+        dists = dists[:, :topk].cpu().numpy()
+        indices = indices[:, :topk].cpu().numpy()
+    elif use_pallas and topk and not tpu.RERANK:
         dists, indices = topk_retrieval(
             torch.from_numpy(np.asarray(embeddings, np.float32)).to(device),
             torch.from_numpy(np.asarray(embeddings_gallery, np.float32)
                              ).to(device), topk, dist=dist)
     else:
-        distmat = compute_distmat_device(embeddings, embeddings_gallery, dist,
-                                         device)
+        if tpu.RERANK:
+            log.info("Re-ranking with k-reciprocal encoding (k1=%d, k2=%d, "
+                     "lambda=%.2f)", tpu.RERANK_K1, tpu.RERANK_K2,
+                     tpu.RERANK_LAMBDA)
+            distmat = rerank_distmat(embeddings, embeddings_gallery,
+                                     **rerank_kw)
+        else:
+            distmat = compute_distmat_device(embeddings, embeddings_gallery,
+                                             dist, device)
         order = torch.argsort(distmat, dim=1, stable=True)
         if topk:
             order = order[:, :topk]

@@ -6,7 +6,9 @@ The flags of ``inference/get_similar.py`` plus ``--device``; writes
 ``query_embeddings.npy`` and ``query_paths.npy`` under ``OUTPUT_DIR``. The
 ranking is the exact fp32 top-k (hierarchical, on the K3 kernel) when
 ``TPU.USE_PALLAS_RETRIEVAL`` and ``--topk`` > 0, else the full distance
-matrix and a stable argsort.
+matrix and a stable argsort. ``TPU.RERANK True`` re-ranks with k-reciprocal
+encoding: each query's top-``TPU.RERANK_WINDOW`` window when that is > 0
+(and ``--topk`` > 0), else the full distance matrix.
 
     python -m centroids_reid_tpu_torch.inference.get_similar \\
         --config_file configs/256_resnet50.yml --gallery_data /out \\

@@ -4,8 +4,9 @@ Counterpart of ``centroids_reid_tpu/inference/service.py`` on one device:
 decode on the host, then normalise -> backbone -> BNNeck (or the int8 PTQ
 embed, which takes the uint8 image itself) -> (optional) L2 -> top-k
 selection on the bf16 / fp32 gallery or on the int8 gallery index -> exact
-fp32 re-score and sort. Only the uint8 query batch and the k results cross
-the host boundary.
+fp32 re-score and sort -> (optional) windowed k-reciprocal re-ranking of
+each query's top-r window. Only the uint8 query batch and the k results
+cross the host boundary.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data.transforms import ingest_blobs, normalize_batch
+from ..ops.rerank import _WIN_CHUNK, _windowed
 from ..ops.retrieval import (
     _G_TILE,
     _Q_TILE,
@@ -51,6 +53,33 @@ def ranked_query(e, gf, gf32, gn, k: int):
     return d, torch.gather(idx, 1, order)
 
 
+def reranked_query(e, gf, gf32, gn, k: int, r: int, k1: int, k2: int,
+                   lam: float, dist: str = "euclidean"):
+    """``ranked_query`` at depth ``r``, then windowed k-reciprocal
+    re-ranking of each query's top-``r`` window (``ops.rerank._windowed``,
+    the core of ``rerank_topk``). Returns ``(scores [B, k], indices [B,
+    k])`` ascending by ``lam * dn + (1 - lam) * jaccard``, the values that
+    ``get_similar`` with ``TPU.RERANK_WINDOW`` saves. ``dist`` is the
+    re-rank's local distance; selection is always the euclidean raw score,
+    rank-equivalent to cosine on L2-normalised rows."""
+    _, idx0 = ranked_query(e, gf, gf32, gn, r)
+    return _rerank_tail(e, gf32, idx0, k, r, k1, k2, lam, dist)
+
+
+def _rerank_tail(e, gf32, idx0, k: int, r: int, k1: int, k2: int,
+                 lam: float, dist: str):
+    """Re-rank the selected windows ``idx0 [B, r]`` (the shared back half of
+    ``reranked_query`` and ``reranked_query_int8``)."""
+    # the clamps of ops.rerank.rerank_topk: r + 1 rows a set, k1 + 1 ranks
+    k1c = max(1, min(int(k1), r))
+    k2c = max(1, min(int(k2), k1c + 1))
+    vals = _windowed(e.float(), gf32, idx0, float(lam), k1c + 1,
+                     k1c // 2 + 1, k2c, max(1, min(_WIN_CHUNK, e.shape[0])),
+                     dist)
+    vals, order = torch.sort(vals, dim=1, stable=True)
+    return vals[:, :k], torch.gather(idx0, 1, order[:, :k])
+
+
 def ranked_query_int8(e, gal: Int8Gallery, gf32, k: int, sel: int = 0):
     """``ranked_query`` over an int8 gallery index: int8 candidate selection
     at margin ``sel`` (0 -> ``default_margin(k)``; the caller clamps it to
@@ -63,6 +92,16 @@ def ranked_query_int8(e, gal: Int8Gallery, gf32, k: int, sel: int = 0):
                                 sel=sel)
     e32 = e.float()
     return val[:b] + (e32 * e32).sum(dim=1)[:, None], idx[:b]
+
+
+def reranked_query_int8(e, gal: Int8Gallery, gf32, k: int, r: int, k1: int,
+                        k2: int, lam: float, dist: str = "euclidean",
+                        sel: int = 0):
+    """``reranked_query`` with the window selected on the int8 index
+    (margin semantics of ``ranked_query_int8``); the re-rank itself runs on
+    the exact fp32 rows ``gf32``."""
+    _, idx0 = ranked_query_int8(e, gal, gf32, r, sel=sel)
+    return _rerank_tail(e, gf32, idx0, k, r, k1, k2, lam, dist)
 
 
 def embed_query(model, imgs_u8, mean, std, dtype, normalize: bool):
@@ -113,11 +152,26 @@ class RetrievalService:
     with the reference defaults) runs the embed as the int8 PTQ pipeline,
     which takes the uint8 RGB batch directly; ``int8_qfn`` takes precedence.
 
-    ``mesh``, ``rerank_window`` and ``TPU.FAST_DECODE`` without an int8
-    embed are not ported yet and raise ``NotImplementedError``. The service
-    runs on the card unless ``device`` says otherwise. An empty gallery,
-    and the reference's refused combinations (``mesh`` or, in capacity
-    mode, ``rerank_window`` with the int8 gallery), raise ``ValueError``.
+    ``rerank_window=r`` (r > 0) re-ranks each query's top-r window with
+    k-reciprocal encoding after the exact re-score (``reranked_query``;
+    ``rerank_k1``, ``rerank_k2``, ``rerank_lambda`` as ``TPU.RERANK_*``):
+    the returned distances are the re-rank scores, equal to what
+    ``get_similar`` with ``TPU.RERANK_WINDOW`` saves on the same inputs. r
+    is clamped to [k, gallery]; the local distance is
+    ``SOLVER.DISTANCE_FUNC``, and cosine needs ``normalize`` (euclidean
+    selection is rank-equivalent to cosine only on unit rows). Selection
+    runs at depth ``rerank_window or k``, which picks the route (K2 at
+    bf16 depth <= 32, else a [B, G] score matrix), the int8 margin and the
+    ``max_query_batch`` clamp.
+
+    ``mesh`` and ``TPU.FAST_DECODE`` without an int8 embed are not ported
+    yet and raise ``NotImplementedError``. The service runs on the card
+    unless ``device`` says otherwise; ``query_arrays`` makes ``device``
+    current while it runs, so a service on ``cuda:1`` launches there from
+    any thread. An empty gallery, and the reference's refused combinations
+    (``mesh`` or, in capacity mode, ``rerank_window`` with the int8
+    gallery; cosine re-ranking without ``normalize``), raise
+    ``ValueError``.
     """
 
     def __init__(self, cfg, gallery_embeddings: np.ndarray,
@@ -125,7 +179,9 @@ class RetrievalService:
                  use_bf16_kernel: bool = True, *, device="cuda", model=None,
                  max_query_batch: int = 512, exact_rescore: bool = True,
                  mesh=None, use_int8_gallery: bool = False,
-                 rerank_window: int = 0, int8_calib_imgs=None, int8_qfn=None):
+                 rerank_window: int = 0, rerank_k1: int = 20,
+                 rerank_k2: int = 6, rerank_lambda: float = 0.3,
+                 int8_calib_imgs=None, int8_qfn=None):
         int8_embed = int8_qfn is not None or int8_calib_imgs is not None
         if use_int8_gallery and mesh is not None:
             raise ValueError(
@@ -138,7 +194,6 @@ class RetrievalService:
                 "full-precision rows")
         unported = {
             "mesh": (mesh is not None, "multi-GPU"),
-            "rerank_window": (bool(rerank_window), "re-ranking"),
             # an int8 embed takes RGB, so it never reads the fast ingest
             "TPU.FAST_DECODE": (bool(cfg.TPU.FAST_DECODE) and not int8_embed,
                                 "fast ingest"),
@@ -152,6 +207,21 @@ class RetrievalService:
         self.cfg = cfg
         self.device = torch.device(device)
         self.k = int(min(k, g))
+        self.rerank_window = (min(max(int(rerank_window), self.k), g)
+                              if rerank_window else 0)
+        self._rerank_params = (int(rerank_k1), int(rerank_k2),
+                               float(rerank_lambda))
+        self._rerank_dist = str(cfg.SOLVER.DISTANCE_FUNC)
+        if (self.rerank_window and self._rerank_dist == "cosine"
+                and not normalize):
+            raise ValueError(
+                "rerank_window with SOLVER.DISTANCE_FUNC='cosine' needs "
+                "normalize=True (--normalize_features): on unnormalized "
+                "features euclidean candidate selection is not "
+                "rank-equivalent to cosine selection, so served results "
+                "could not equal get_similar's re-ranked ones")
+        # selection depth per query: it picks the route and the int8 margin
+        k_sel = self.rerank_window or self.k
         self.normalize = normalize
         self.paths = np.asarray(gallery_paths)
         self.model = (load_inference_model(cfg, self.device) if model is None
@@ -167,7 +237,7 @@ class RetrievalService:
         if self.use_int8_gallery:
             # the margin is clamped to the REAL row count, so +inf pad rows
             # never become candidates
-            self._int8_sel = min(g, default_margin(self.k))
+            self._int8_sel = min(g, default_margin(k_sel))
             gal = quantize_gallery(gf_t)  # zero pad rows -> zero codes
             gn_i8 = gal.gn.clone()
             gn_i8[g:] = float("inf")      # pads never win selection
@@ -181,7 +251,7 @@ class RetrievalService:
             self._gn = torch.from_numpy(gn).to(self.device)[None, :]
 
         self.max_query_batch = int(max_query_batch)
-        if self.use_int8_gallery or not (use_bf16_kernel and self.k <= 32):
+        if self.use_int8_gallery or not (use_bf16_kernel and k_sel <= 32):
             # the [B, Gp] fp32 score matrix stays within the score budget
             cap = max(128, (_SCORE_BUDGET_BYTES // (gf.shape[0] * 4))
                       // 128 * 128)
@@ -201,8 +271,16 @@ class RetrievalService:
                 self.model, [np.asarray(int8_calib_imgs)], self._mean,
                 self._std, calib_percentile=cfg.TPU.INT8_CALIB_PCT)
 
-    @torch.inference_mode()
     def _run(self, imgs_u8: np.ndarray):
+        if self.device.type != "cuda":
+            return self._query(imgs_u8)
+        # threads start with cuda:0 current, and the kernels launch on the
+        # current device's stream
+        with torch.cuda.device(self.device):
+            return self._query(imgs_u8)
+
+    @torch.inference_mode()
+    def _query(self, imgs_u8: np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
         if self._qfn is None:
             e = embed_query(self.model, x, self._mean, self._std,
@@ -211,9 +289,18 @@ class RetrievalService:
             e = self._qfn(x)
             if self.normalize:
                 e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
-        if self.use_int8_gallery:
+        rr = self.rerank_window
+        if self.use_int8_gallery and rr:
+            d, idx = reranked_query_int8(
+                e, self._gf, self._gf32, self.k, rr, *self._rerank_params,
+                dist=self._rerank_dist, sel=self._int8_sel)
+        elif self.use_int8_gallery:
             d, idx = ranked_query_int8(e, self._gf, self._gf32, self.k,
                                        sel=self._int8_sel)
+        elif rr:
+            d, idx = reranked_query(e, self._gf, self._gf32, self._gn,
+                                    self.k, rr, *self._rerank_params,
+                                    dist=self._rerank_dist)
         else:
             d, idx = ranked_query(e, self._gf, self._gf32, self._gn, self.k)
         return d.cpu().numpy(), idx.cpu().numpy()
@@ -241,6 +328,11 @@ class RetrievalService:
             idxs.append(idx[:rows])
         d, idx = np.concatenate(ds), np.concatenate(idxs)
         return d, idx, self.paths[idx]
+
+    @property
+    def model_name(self) -> str:
+        """``cfg.MODEL.NAME``, which the HTTP server's /healthz reports."""
+        return str(self.cfg.MODEL.NAME)
 
     @property
     def ingest_format(self) -> str:

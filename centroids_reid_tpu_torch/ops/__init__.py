@@ -1,10 +1,11 @@
-from . import int8_conv, retrieval, retrieval_int8
+from . import int8_conv, rerank, retrieval, retrieval_int8
 from .int8_conv import (
     conv3x3_requant,
     conv3x3_requant_plain,
     matmul_requant,
     matmul_requant_plain,
 )
+from .rerank import rerank_distmat, rerank_topk
 from .retrieval import (
     kpass_topk,
     kpass_topk_plain,
@@ -48,6 +49,8 @@ __all__ = [
     "matmul_requant",
     "matmul_requant_plain",
     "quantize_gallery",
+    "rerank_distmat",
+    "rerank_topk",
     "reset_launch_counts",
     "scores",
     "scores_i8",

@@ -321,6 +321,13 @@ def topk_retrieval(qf, gf, k: int,
     [Q, k]) as numpy arrays. Distances are the reference's eval flavours:
     squared euclidean without sqrt, or ``|1 - cos|``. bf16 inputs select on
     the kernels. Runs on the device of ``qf``."""
+    val, idx = topk_retrieval_tensors(qf, gf, k, dist)
+    return val.cpu().numpy(), idx.cpu().numpy()
+
+
+def topk_retrieval_tensors(qf, gf, k: int, dist: str = "euclidean"):
+    """``topk_retrieval`` with its results left on the device of ``qf``:
+    (distances fp32 [Q, k], indices int64 [Q, k])."""
     if dist == "cosine":
         in_dtype = qf.dtype
         qf32, gf32 = qf.float(), gf.float()
@@ -372,4 +379,4 @@ def _finalize_distances(val, idx, qf, dist):
         val = (1.0 - sim).abs().clamp_min(1e-12)
     else:
         val = val + (qf.float() * qf.float()).sum(dim=1)[:, None]
-    return val.cpu().numpy(), idx.cpu().numpy()
+    return val, idx

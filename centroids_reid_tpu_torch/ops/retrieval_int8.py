@@ -217,4 +217,5 @@ def topk_retrieval_int8(qf, gal: Int8Gallery, gf32: Optional[torch.Tensor],
                                 k_eff, sel=sel)
         vals.append(v[:rows])
         idxs.append(i[:rows])
-    return _finalize_distances(torch.cat(vals), torch.cat(idxs), qf, dist)
+    val, idx = _finalize_distances(torch.cat(vals), torch.cat(idxs), qf, dist)
+    return val.cpu().numpy(), idx.cpu().numpy()

@@ -15,13 +15,15 @@ bf16 autocast) and seeded random weights:
 * K2u through its own entry point, ``stream_topk(packed=False)``, in its
   comparison phase;
 * evaluation: ONLY_TEST through ``engine.runner.main`` on a synthetic
-  Market-1501-layout dataset, in bf16 and with ``TPU.INT8_EVAL`` (the
-  reference's serving engine: unfused int8 convs, bf16 accumulator), both
-  centroid modes, each metric held against the same metric computed on the
-  CPU from the same embeddings;
+  Market-1501-layout dataset, in bf16, with ``TPU.INT8_EVAL`` (the
+  reference's serving engine: unfused int8 convs, bf16 accumulator) and
+  with ``TPU.RERANK`` (k-reciprocal re-ranking), both centroid modes, each
+  metric held against the same metric computed on the CPU from the same
+  embeddings;
 * the offline CLIs: ``inference.create_embeddings`` (with and without
   centroids) and ``inference.get_similar`` at ``--topk`` 10 and 100 (K3),
-  the gallery images as queries;
+  and re-ranked (dense, and windowed at r=100), the gallery images as
+  queries;
 * training (phase 8): CTL training through ``engine.runner.main --mode
   ctl`` on a synthetic train split of Market-1501's size (751 pids, 12,936
   JPEGs), 64 x 4 images a step from the image bank on the card, 2 epochs
@@ -29,7 +31,16 @@ bf16 autocast) and seeded random weights:
   a resume from ``checkpoint_epoch1``, ONLY_TEST of the best checkpoint;
   the step's time, rate, memory, idle share, profiler split and share of
   the bf16 peak; one full-width step on the card against the CPU. No
-  hand-written kernel runs there.
+  hand-written kernel runs there;
+* online serving (phase 9): the HTTP front built by
+  ``inference.server.build_from_args`` over phase 4's gallery written as
+  an index (k=100, dynamic batching, warm-up of the buckets 1-64), plain,
+  re-ranked (``--rerank_window 100``) and on the int8 gallery re-ranked;
+  8-image JPEG ``/search`` requests serially and from 8 client threads,
+  each response held against ``query_arrays`` (and the re-ranked ones
+  against ``ops.rerank``), ``/healthz``, a 400 and a 429; and
+  ``rerank_distmat`` at Market-1501's test size (3,368 + 15,913 rows), a
+  cut of it held against the CPU.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -42,13 +53,17 @@ K6's device time and launches in one int8 embed call (batch 8 and 256), per
 shape with its bound, its tile plan and, beside each K5 shape, the device
 time of ``torch._int_mm`` (a GEMM without the epilogue; a yardstick only).
 Phase 3b holds K5 and K6 against their plain versions at every shape of an
-8-image int8 embed call.
+8-image int8 embed call. Phase 9 times /search (p50 serial, requests/s, p50
+and p99 at concurrency 8), the device busy time of a re-ranked request
+split into selection and re-rank, the kernels' launches per request, and
+the dense re-ranker at Market-1501's size with its peak memory.
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import re
@@ -91,6 +106,14 @@ BF16_KERNELS = ("scores", "stream_topk", "kpass_topk")
 # k=100: k + k / 4)
 K3_SHAPES = ((12544, 100), (800, 100), (12544, 26), (208, 26), (12544, 125),
              (1000, 125))
+# (rows, W) of each K3 launch of the re-rankers, all at k = k1 + 1 = 21:
+# the windowed ranks of 8 and of 32 windows of 101 (a /search request, a
+# get_similar chunk), the dense ranks of get_similar (N = 3,600), of
+# ONLY_TEST (N = 2,000, and 300 with centroids) and 2,048 of the 19,281
+# rows at Market-1501's test size
+RERANK_K3_SHAPES = ((808, 101), (3232, 101), (3600, 3600), (2000, 2000),
+                    (300, 300), (2048, 19281))
+RERANK_K = 21
 INT8_KERNELS = ("kpass_topk", "scores_i8", "matmul_requant",
                 "conv3x3_requant")
 
@@ -158,10 +181,10 @@ def request_ms(svc, imgs, n: int) -> list:
     return lat
 
 
-def device_busy_ms(svc, imgs, n: int):
-    """Device time per request in ms: torch.profiler's kernel and copy
-    time over ``n`` requests (one stream, so nothing overlaps). None when
-    the profiler saw no device time."""
+def device_busy_ms(fn, n: int):
+    """Device time per call of ``fn`` in ms (a request, say): torch.
+    profiler's kernel and copy time over ``n`` calls (one stream, so
+    nothing overlaps). None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -169,7 +192,7 @@ def device_busy_ms(svc, imgs, n: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            svc.query_arrays(imgs)
+            fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
@@ -346,8 +369,38 @@ def phase_compare() -> dict:
         "and at every path shape "
         + ", ".join(f"[128,{w}] k={k}" for w, k in K3_SHAPES)
         + ": values and indices exact")
+    for rows, w in RERANK_K3_SHAPES:
+        for kind, x in (("random", torch.randn((rows, w), generator=gen,
+                                               device="cuda")),
+                        ("distances", rerank_rows(rows, w, gen))):
+            require(kpass_equal(x, RERANK_K),
+                    f"K3 differs at [{rows},{w}] k={RERANK_K} ({kind})")
+    log("K3 at the re-rankers' shapes "
+        + ", ".join(f"[{r},{w}]" for r, w in RERANK_K3_SHAPES)
+        + f", k={RERANK_K}, on random rows and on squared distances with "
+        "zero self distances and duplicated columns (exact ties): values "
+        "and indices exact")
     torch.cuda.synchronize()
     return errs
+
+
+def rerank_rows(rows: int, w: int, gen):
+    """Rows like a re-ranker's: squared euclidean distances of unit rows
+    to ``w`` unit rows, every second one a copy of its neighbour (exact
+    ties), with each row's own column at 0 (row i's own column is i mod w,
+    as in the stacked [C, w, w] windows)."""
+    import torch
+
+    cols = unit_rows(w, gen, torch.float32)
+    cols[1::2] = cols[0::2][:w // 2]
+    own = torch.arange(rows, device="cuda") % w
+    q = cols[own] + 0.01 * torch.randn((rows, DIM), generator=gen,
+                                       device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    d = ((q * q).sum(1)[:, None] + (cols * cols).sum(1)[None, :]
+         - 2.0 * q @ cols.T).clamp_min(0.0)
+    d[torch.arange(rows, device="cuda"), own] = 0.0
+    return d
 
 
 def kpass_equal(x, k: int) -> bool:
@@ -810,10 +863,11 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
     """ONLY_TEST through ``engine.runner.main`` (the configs default:
     ResNet-50, 256x128, bf16), then again with ``TPU.INT8_EVAL True``
     (the reference's serving engine: unfused int8 convs with a bf16
-    accumulator, no hand-written kernel). Every metric the runner computed
-    on the card is held against the same metric computed on the CPU from
-    the same embeddings (captured at ``compute_reid_metrics``). Returns the
-    launch counts and timings of both runs."""
+    accumulator, no hand-written kernel) and with ``TPU.RERANK True`` (the
+    fully re-ranked distances; K3 ranks the rows). Every metric the runner
+    computed on the card is held against the same metric computed on the
+    CPU from the same embeddings (captured at ``compute_reid_metrics``).
+    Returns the launch counts and timings of the three runs."""
     import os
 
     import torch
@@ -847,7 +901,8 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
     runs = {}
     try:
         for name, extra in (("bf16", ()),
-                            ("int8", ("TPU.INT8_EVAL", "True"))):
+                            ("int8", ("TPU.INT8_EVAL", "True")),
+                            ("rerank", ("TPU.RERANK", "True"))):
             captured.clear()
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -878,6 +933,7 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
             log(f"{name} ONLY_TEST: {secs:.2f} s for both centroid modes "
                 f"(host clock: decode, model load"
                 + (", calibration" if name == "int8" else "")
+                + (", re-ranking" if name == "rerank" else "")
                 + f", two evaluations); kernel launches: {launches}")
             runs[name] = {"launches": launches, "seconds": secs,
                           "metrics": out}
@@ -908,8 +964,9 @@ def phase_cli(tmp: str, ckpt: str, root: str) -> dict:
     """``create_embeddings`` over a subfolder copy of the gallery (one
     folder per pid) with and without centroids, then ``get_similar`` with
     the gallery images as queries against the non-centroid index at
-    ``--topk`` 10 and 100: each query's top-1 is its own row. Returns the
-    launch counts of the ``get_similar`` runs."""
+    ``--topk`` 10 and 100, and at 100 re-ranked (``TPU.RERANK``, dense and
+    with ``TPU.RERANK_WINDOW 100``): each query's top-1 is its own row.
+    Returns the launch counts of the ``get_similar`` runs."""
     import os
     import shutil
 
@@ -967,6 +1024,31 @@ def phase_cli(tmp: str, ckpt: str, root: str) -> dict:
         log(f"get_similar --topk {topk}, {len(res)} queries: every top-1 "
             f"is its own row, self distance <= {worst:.2e} (tol "
             f"{SELF_DIST_TOL}); {secs:.2f} s")
+    for tag, opts in (("dense", ("TPU.RERANK", "True")),
+                      ("windowed", ("TPU.RERANK", "True",
+                                    "TPU.RERANK_WINDOW", "100"))):
+        t0 = time.perf_counter()
+        res = get_similar.main([
+            "--gallery_data", index[False], "--topk", "100",
+            "--normalize_features", *common, gallery, *opts,
+            "OUTPUT_DIR", os.path.join(tmp, f"similar_rerank_{tag}")])
+        secs = time.perf_counter() - t0
+        worst = 0.0
+        require(len(res) == len(names), "get_similar: one result per query")
+        for qp, r in res.items():
+            require(len(r["indices"]) == 100
+                    and np.isfinite(r["distances"]).all()
+                    and (np.diff(r["distances"]) >= 0).all(),
+                    f"get_similar re-ranked {tag}: bad result for {qp}")
+            require(os.path.basename(r["paths"][0]) == os.path.basename(qp),
+                    f"get_similar re-ranked {tag}: top-1 of {qp} is "
+                    f"{r['paths'][0]}")
+            worst = max(worst, float(r["distances"][0]))
+        log(f"get_similar --topk 100 TPU.RERANK True"
+            + (" TPU.RERANK_WINDOW 100" if tag == "windowed" else
+               f" (dense, N = {2 * len(names)})")
+            + f", {len(res)} queries: every top-1 is its own row (re-rank "
+            f"score <= {worst:.3e}); {secs:.2f} s")
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"kernel launches while running get_similar: {launches}")
@@ -982,7 +1064,7 @@ def time_requests(name: str, svc, imgs) -> None:
     # unprofiled, profiled, unprofiled: the busy time and the latency it
     # is divided by come from the same run
     before = request_ms(svc, imgs, 30)
-    busy = device_busy_ms(svc, imgs, 10)
+    busy = device_busy_ms(lambda: svc.query_arrays(imgs), 10)
     after = request_ms(svc, imgs, 30)
     p50 = np.percentile(before + after, 50)
     log(f"request of {REQUEST} images, {name} (host clock, 2 x 30 runs): "
@@ -1034,10 +1116,12 @@ PROFILED = {"matmul_requant": "requant_gemm_kernel<1,",
             "conv3x3_requant": "requant_gemm_kernel<9,"}
 
 
-def kernel_device_us(fn, calls: int = 1) -> tuple:
+def kernel_device_us(fn, calls: int = 1, complete=None) -> tuple:
     """``calls`` calls of ``fn``, after a warm-up call, under
     torch.profiler: ({kernel name: (device us, launches)} over everything
-    they ran on the device, the launch counters of those calls)."""
+    they ran on the device, the launch counters of those calls). The
+    profiler can drop kernel events: a trace for which ``complete(per,
+    counts)`` is false is taken again, up to three in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1046,22 +1130,28 @@ def kernel_device_us(fn, calls: int = 1) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if (e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
-        name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
-        us, n = out.get(name, (0.0, 0))
-        out[name] = (us + e.self_device_time_total, n + e.count)
-    return out, launch_counts()
+    for attempt in range(3):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0
+                    or getattr(e, "is_user_annotation", False)):
+                continue
+            m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
+            name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
+            us, n = out.get(name, (0.0, 0))
+            out[name] = (us + e.self_device_time_total, n + e.count)
+        counts = launch_counts()
+        if complete is None or complete(out, counts) or attempt == 2:
+            break
+        log("  a trace lost kernel events; tracing again")
+    return out, counts
 
 
 def nbytes(*tensors) -> int:
@@ -1108,8 +1198,13 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
         f"convs), batch 256: {ms8:.3f} ms/batch = {256 / ms8 * 1e3:.1f} "
         f"embeddings/s (bf16: {256 / ms * 1e3:.1f})")
     for batch in (REQUEST, 256):
+        def complete(per, counts):
+            return all(sum(n for k, (_, n) in per.items() if k.startswith(tag))
+                       == counts[name] for name, tag in PROFILED.items())
+
         with torch.inference_mode():
-            per, counts = kernel_device_us(lambda: qfn(x[:batch]))
+            per, counts = kernel_device_us(lambda: qfn(x[:batch]),
+                                           complete=complete)
         parts = []
         for name, tag in PROFILED.items():
             mine = [v for k, v in per.items() if k.startswith(tag)]
@@ -1304,6 +1399,26 @@ def phase_timing_k3(gen) -> None:
             f"(CUDA events, host-paced) {k_paced:.4f} ms, torch.topk "
             f"{l_paced:.4f} ms; host {host_us_per_launch(kern):.2f} us per "
             f"K3 launch, {host_us_per_launch(lib):.2f} per torch.topk")
+    for rows, w in RERANK_K3_SHAPES:
+        xs = rerank_rows(rows, w, gen)
+        shape = f"[{rows},{w}] k={RERANK_K}"
+        k_ms, p_ms, l_ms = time_pair(
+            "kpass_topk", lambda xs=xs: R.kpass_topk(xs, RERANK_K),
+            lambda xs=xs: R.kpass_topk_plain(xs, RERANK_K), shape,
+            lambda xs=xs: torch.topk(xs, RERANK_K, dim=1, largest=False),
+            graph_ms)
+        b_ms, _ = bound(f"kpass_topk {shape}",
+                        nbytes(xs) + rows * RERANK_K * 12, float(rows * w),
+                        "fp32")
+        log(f"kpass_topk {shape} (re-ranker): K3 {k_ms:.4f} ms, plain "
+            f"(stable sort) {p_ms:.4f} ms, torch.topk {l_ms:.4f} ms (graph "
+            f"replay); {b_ms / k_ms:.3f} of its bound")
+
+
+# kernel name in a trace -> its wrapper's launch counter (one each a call)
+REQUEST_KERNELS = (("scores_kernel", "scores"),
+                   ("scores_i8_kernel", "scores_i8"),
+                   ("kpass_topk_kernel", "kpass_topk"))
 
 
 def phase_timing_requests(state: dict, int8_state: dict) -> None:
@@ -1312,12 +1427,14 @@ def phase_timing_requests(state: dict, int8_state: dict) -> None:
     imgs = state["imgs"][:REQUEST]
     for name, svc in (("serve-k100", state["services"][100]),
                       ("int8-k100", int8_state["services"]["int8-k100"])):
-        per, counts = kernel_device_us(lambda svc=svc: svc.query_arrays(imgs))
+        per, counts = kernel_device_us(
+            lambda svc=svc: svc.query_arrays(imgs),
+            complete=lambda per, counts: all(
+                per.get(k, (0.0, 0))[1] == counts[c]
+                for k, c in REQUEST_KERNELS))
         total = sum(us for us, _ in per.values())
         parts = []
-        for kname, counter in (("scores_kernel", "scores"),
-                               ("scores_i8_kernel", "scores_i8"),
-                               ("kpass_topk_kernel", "kpass_topk")):
+        for kname, counter in REQUEST_KERNELS:
             us, n = per.get(kname, (0.0, 0))
             require(n == counts[counter],
                     f"{name}: {n} {kname} launches traced, "
@@ -1379,18 +1496,26 @@ def phase_timing_requant(qfn, x) -> None:
     with torch.inference_mode():
         qfn(x)
         torch.cuda.synchronize()
+    # a trace that lost kernel events is taken again, up to three in all
+    for attempt in range(3):
+        shapes.clear()
         C.matmul_requant, C.conv3x3_requant = rec_mm, rec_conv
         try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with torch.inference_mode(), profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
                 qfn(x)
                 torch.cuda.synchronize()
         finally:
             C.matmul_requant, C.conv3x3_requant = mm, conv
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and "requant_gemm_kernel" in e.name),
-                    key=lambda e: e.time_range.start)
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and "requant_gemm_kernel" in e.name),
+                        key=lambda e: e.time_range.start)
+        if len(events) == len(shapes) or attempt == 2:
+            break
+        log(f"  K5/K6 trace: {len(events)} kernels traced, {len(shapes)} "
+            f"launches recorded; tracing again")
     require(len(events) == len(shapes),
             f"{len(events)} K5/K6 kernels traced, {len(shapes)} launches "
             f"recorded in one int8 embed call")
@@ -2005,6 +2130,581 @@ def train_parity(cfg, dataset, bank_np) -> dict:
             "parity_grad32_whole": card_whole, "bf16_loss_rel": bf16_rel}
 
 
+# --------------------------------------------------------- phase 9 ------
+
+HTTP_CLIENTS = 8         # concurrent /search clients
+HTTP_PER_CLIENT = 24     # requests each client sends
+RERANK_R = 100           # --rerank_window
+# Market-1501's test split: 3,368 queries and 15,913 gallery images of 750
+# pids (the dense re-ranker at its size); the cut held against the CPU
+MARKET = (3368, 15913, 750)
+MARKET_CUT = (300, 1500)
+
+
+# a closed-loop load generator in its own process: CLIENTS threads send
+# the JSON bodies of a payload file round robin; prints the wall seconds
+# and each request's (status, seconds)
+LOAD_CLIENT = r"""
+import json, sys, threading, time, urllib.error, urllib.request
+port, clients, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+with open(path) as f:
+    bodies = [json.dumps(p).encode() for p in json.load(f)]
+out = [None] * len(bodies)
+url = f"http://127.0.0.1:{port}/search"
+def run(c):
+    for r in range(c, len(bodies), clients):
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    url, data=bodies[r]), timeout=120) as resp:
+                resp.read()
+                status = resp.status
+        except urllib.error.HTTPError as e:
+            status = e.code
+        out[r] = (status, time.perf_counter() - t0)
+threads = [threading.Thread(target=run, args=(c,)) for c in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"wall": time.perf_counter() - t0, "lat": out}))
+"""
+
+
+def _jpeg(img: np.ndarray) -> str:
+    import base64
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=95)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _request_rows(r: int) -> list:
+    """The image rows of request ``r``: 8 rows from ``r % N_IMAGES`` with an
+    odd stride, so no two of the phase's requests carry the same batch."""
+    step = 1 + 2 * (r // N_IMAGES)
+    return [(r % N_IMAGES + j * step) % N_IMAGES for j in range(REQUEST)]
+
+
+def _http(port: int, method: str, path: str, obj=None):
+    """(status, JSON body, Retry-After) of one request on its own
+    connection."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read()), r.headers.get(
+                "Retry-After")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def _serve_cli(index: str, ckpt: str, *extra):
+    """``build_from_args`` as a user starts the server (``python -m
+    centroids_reid_tpu_torch.inference.server ...``), on port 0."""
+    from centroids_reid_tpu_torch.inference.server import build_from_args
+
+    t0 = time.perf_counter()
+    server = build_from_args([
+        "--gallery_data", index, "--port", "0", "--topk", "100",
+        "--normalize_features", "--batch_window_ms", "2", "--max_batch",
+        "64", "--warmup_buckets", "64", *extra, "MODEL.PRETRAIN_PATH", ckpt])
+    log(f"server {' '.join(extra) or '(bf16)'}: built in "
+        f"{time.perf_counter() - t0:.1f} s (index load, model, gallery on "
+        f"the card, warm-up of the 7 buckets 1-64)")
+    return server.start_background()
+
+
+def _clients(port: int, payloads: list, clients: int) -> list:
+    """``clients`` threads sending ``payloads`` round robin; returns
+    [(status, body, retry_after)] in payload order."""
+    import threading
+
+    out = [None] * len(payloads)
+
+    def run(c):
+        for r in range(c, len(payloads), clients):
+            out[r] = _http(port, "POST", "/search", payloads[r])
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return out
+
+
+def _hold(name: str, svc, blobs: list, rows: list, body: dict) -> None:
+    """A /search response against ``svc.query_arrays`` on the same decoded
+    images (one dispatch of the same bucket): indices equal, distances
+    within 1e-5 relative (1e-6 absolute near 0)."""
+    d, idx, paths = svc.query_arrays(svc.ingest_bytes(blobs))
+    got = body["results"]
+    require(len(got) == len(rows), f"{name}: {len(got)} results")
+    for i, res in enumerate(got):
+        require(res["indices"] == [int(j) for j in idx[i]]
+                and res["paths"] == [str(p) for p in paths[i]],
+                f"{name}: indices differ from query_arrays")
+        require(np.allclose(res["distances"], d[i], rtol=1e-5, atol=1e-6),
+                f"{name}: distances differ from query_arrays")
+
+
+def _same_ranking(vals, idx, ref_idx, tol: float) -> bool:
+    """Indices equal wherever neighbouring ascending values differ by more
+    than ``tol``; the same set within a run of closer values."""
+    for v, i, ri in zip(np.asarray(vals), np.asarray(idx),
+                        np.asarray(ref_idx)):
+        cuts = np.nonzero(np.diff(v) > tol)[0] + 1
+        for a, b in zip(np.split(i, cuts), np.split(ri, cuts)):
+            if sorted(a) != sorted(b):
+                return False
+    return True
+
+
+def _hold_rerank(name: str, tail: tuple, served_d, served_i,
+                 strict_window: bool) -> dict:
+    """The served re-ranked top-k of one request against (a) ``_windowed``
+    on the window that request's dispatch selected, on the card and on the
+    CPU, and (b) ``rerank_topk`` on the card over the same embeddings,
+    whose window is the exact fp32 top-r: values within 1e-5 and rankings
+    equal wherever the windows hold the same rows (all of them with
+    ``strict_window``; bf16 selection can swap a boundary row). ``tail`` is
+    the dispatch's recorded ``service._rerank_tail`` call: its embeddings,
+    fp32 gallery and windows, and the result it returned."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import rerank_topk
+    from centroids_reid_tpu_torch.ops.rerank import _windowed
+
+    (e, gf32, win, k, r, k1, k2, lam, dist), _, (got_d, got_i) = tail
+    require(np.allclose(got_d.cpu().numpy(), served_d, rtol=1e-5, atol=1e-6)
+            and np.array_equal(got_i.cpu().numpy(), served_i),
+            f"{name}: the response is not what its dispatch re-ranked")
+    k1 = min(k1, r)
+    args = (lam, k1 + 1, k1 // 2 + 1, min(k2, k1 + 1), 32, dist)
+    with torch.inference_mode():
+        own = _windowed(e, gf32, win, *args)
+        rows, local = torch.unique(win, return_inverse=True)
+        own_cpu = _windowed(e.float().cpu(), gf32[rows].float().cpu(),
+                            local.cpu(), *args)
+        ref_d, ref_i = rerank_topk(e, gf32, r=r, k1=k1, k2=k2,
+                                   lambda_value=lam, dist=dist)
+    win, own, own_cpu = win.cpu().numpy(), own.cpu().numpy(), own_cpu.numpy()
+    err_cpu = float(np.abs(own - own_cpu).max())
+    require(err_cpu <= 1e-5, f"{name}: _windowed card vs CPU {err_cpu:.3e}")
+    ov, oi = (np.sort(own, 1, kind="stable")[:, :k],
+              np.argsort(own, 1, kind="stable")[:, :k])
+    oi_cpu = np.argsort(own_cpu, 1, kind="stable")[:, :k]
+    require(_same_ranking(ov, np.take_along_axis(win, oi, 1),
+                          np.take_along_axis(win, oi_cpu, 1), 1e-5),
+            f"{name}: _windowed ranks differ, card vs CPU")
+    require(np.abs(ov - served_d).max() <= 1e-5
+            and _same_ranking(served_d, served_i,
+                              np.take_along_axis(win, oi, 1), 1e-5),
+            f"{name}: served top-{k} is not the re-rank of its window")
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    same = [set(a) == set(b) for a, b in zip(win, ref_i)]
+    ref_d, ref_i = ref_d[:, :k], ref_i[:, :k]
+    if strict_window:
+        require(all(same), f"{name}: a window differs from rerank_topk's")
+    require(any(same), f"{name}: no window equals rerank_topk's")
+    for q in np.nonzero(same)[0]:
+        require(np.abs(served_d[q] - ref_d[q]).max() <= 1e-5
+                and _same_ranking(served_d[q:q + 1], served_i[q:q + 1],
+                                  ref_i[q:q + 1], 1e-5),
+                f"{name}: served top-{k} differs from rerank_topk")
+    return {"windows_equal": int(sum(same)), "queries": len(same),
+            "cpu_err": err_cpu}
+
+
+@contextlib.contextmanager
+def _recording(owner, name: str):
+    """``owner.name`` wrapped for the block: yields the list of ``(args,
+    kwargs, result)`` of every call made through it, in order."""
+    orig = getattr(owner, name)
+    own = name in vars(owner)
+    calls = []
+
+    def rec(*args, **kw):
+        res = orig(*args, **kw)
+        calls.append((args, kw, res))
+        return res
+
+    setattr(owner, name, rec)
+    try:
+        yield calls
+    finally:
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+
+
+def _served(port: int, payloads: list) -> list:
+    """The bodies of ``payloads`` sent one after another, with every kernel
+    launch count set to 0 just before (read them just after)."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    bodies = []
+    for r, payload in enumerate(payloads):
+        status, body, _ = _http(port, "POST", "/search", payload)
+        require(status == 200, f"/search {r}: {status} {body}")
+        bodies.append(body)
+    torch.cuda.synchronize()
+    return bodies
+
+
+def _serial(port: int, payloads: list, n: int) -> list:
+    lat = []
+    for r in range(n):
+        t0 = time.perf_counter()
+        status, _, _ = _http(port, "POST", "/search",
+                             payloads[r % len(payloads)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        require(status == 200, f"serial request {r}: {status}")
+    return lat
+
+
+def phase_serve_http(state: dict, tmp: str) -> dict:
+    """Phase 9, online serving: phase 4's 100,000 x 2048 gallery written as
+    a create_embeddings index, served by ``build_from_args`` (ResNet-50
+    bf16, k=100, dynamic batching, warm-up of the buckets 1-64), plain,
+    with ``--rerank_window 100`` and with ``--int8_gallery --rerank_window
+    100``; 8-image JPEG requests over HTTP, serially and from 8 client
+    threads; the dense re-ranker at Market-1501's test size. Returns the
+    launch counts of the serial requests per server."""
+    import base64
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.inference import service
+    from centroids_reid_tpu_torch.inference.server import RetrievalHTTPServer
+    from centroids_reid_tpu_torch.ops import launch_counts
+
+    log("== phase 9: online serving (HTTP /search) and re-ranking")
+    gpu = gpu_line()
+    ckpt = state["cfg"].MODEL.PRETRAIN_PATH
+    index = os.path.join(tmp, "http_index")
+    os.makedirs(index)
+    t0 = time.perf_counter()
+    np.save(os.path.join(index, "embeddings.npy"), state["gallery"])
+    np.save(os.path.join(index, "paths.npy"), state["paths"])
+    log(f"index {GALLERY_ROWS} x {DIM} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    imgs = state["imgs"]
+    b64 = [_jpeg(im) for im in imgs]
+    rows = [_request_rows(r) for r in range(HTTP_CLIENTS * HTTP_PER_CLIENT)]
+    payloads = [{"images_b64": [b64[i] for i in rr]} for rr in rows]
+    blobs = [[base64.b64decode(b64[i]) for i in rr] for rr in rows]
+    out = {"launches": {}}
+
+    # ---- the plain server: contract, correctness, serial and concurrent
+    server = _serve_cli(index, ckpt)
+    svc, port = server.service, server.port
+    try:
+        status, h, _ = _http(port, "GET", "/healthz")
+        require(status == 200 and h["status"] == "ok"
+                and h["gallery_size"] == GALLERY_ROWS and h["k"] == 100
+                and h["model"] == state["cfg"].MODEL.NAME and h["batching"]
+                and h["rerank_window"] == 0, f"/healthz: {h}")
+        status, body, _ = _http(port, "POST", "/search",
+                                {"images_b64": ["!!not base64!!"]})
+        require(status == 400 and "base64" in body["error"],
+                f"bad base64: {status} {body}")
+        n = N_IMAGES // REQUEST
+        bodies = _served(port, payloads[:n])
+        launches = launch_counts()
+        for r, body in enumerate(bodies):
+            _hold("serve-http", svc, blobs[r], rows[r], body)
+            require([res["indices"][0] for res in body["results"]]
+                    == [int(state["rows"][i]) for i in rows[r]],
+                    "serve-http: top-1 is not the image's own row")
+        out["launches"]["serve-http"] = launches
+        require(launches["scores"] > 0 and launches["kpass_topk"] > 0,
+                f"serve-http did not launch K1 and K3: {launches}")
+        log(f"serve-http: {n} serial /search requests of {REQUEST} JPEGs, "
+            f"each held against query_arrays on the same decoded images "
+            f"(indices equal, distances within 1e-5 relative); /healthz ok, "
+            f"one 400; kernel launches per request: "
+            + ", ".join(f"{k} {v / n:g}" for k, v in launches.items())
+            + f" [{gpu}]")
+
+        # concurrency 8: the recorded dispatches, each replayed and held
+        # against the responses that rode it
+        with _recording(svc, "query_arrays") as calls:
+            res = _clients(port, payloads, HTTP_CLIENTS)
+        seen = [(args[0], d, idx) for args, _, (d, idx, _) in calls]
+        for x, d, idx in seen:
+            d2, idx2, _ = svc.query_arrays(x)
+            require(np.array_equal(idx, idx2) and np.allclose(
+                d, d2, rtol=1e-5, atol=1e-6), "a dispatch does not replay")
+        keys = [[hash(row.tobytes()) for row in x] for x, _, _ in seen]
+        for r, (status, body, _) in enumerate(res):
+            require(status == 200, f"concurrent /search {r}: {status}")
+            want = [hash(row.tobytes()) for row in svc.ingest_bytes(blobs[r])]
+            hit = next(((d[o:o + REQUEST], idx[o:o + REQUEST])
+                        for (_, d, idx), key in zip(seen, keys)
+                        for o in range(len(key) - REQUEST + 1)
+                        if key[o:o + REQUEST] == want), None)
+            require(hit is not None, f"request {r} rode no dispatch")
+            for i, one in enumerate(body["results"]):
+                require(one["indices"] == [int(j) for j in hit[1][i]]
+                        and np.allclose(one["distances"], hit[0][i],
+                                        rtol=1e-5, atol=1e-6),
+                        f"concurrent request {r} differs from its dispatch")
+        sizes = [len(x) for x, _, _ in seen]
+        log(f"serve-http-c8: {len(res)} requests from {HTTP_CLIENTS} client "
+            f"threads coalesced into {len(seen)} dispatches (rows "
+            f"{min(sizes)}-{max(sizes)}, all powers of two: "
+            f"{all(s & (s - 1) == 0 for s in sizes)}); every dispatch "
+            f"replays, every response equals its rows")
+        require(all(s & (s - 1) == 0 and s <= 64 for s in sizes),
+                "a dispatch is not a power-of-two bucket <= 64")
+
+        # timing: serial p50, then concurrency 8 from a client process of
+        # its own (client threads here would share the server's
+        # interpreter lock)
+        _serial(port, payloads, 5)
+        lat = _serial(port, payloads, 60)
+        out["serial_p50"] = float(np.percentile(lat, 50))
+        log(f"/search p50, serial {REQUEST}-image requests, bf16 k=100 "
+            f"(host clock around the HTTP POST, 60 requests): "
+            f"{out['serial_p50']:.4f} ms, p90 "
+            f"{np.percentile(lat, 90):.4f} ms [{gpu}]")
+        load = os.path.join(tmp, "http_payloads.json")
+        with open(load, "w") as f:
+            json.dump(payloads, f)
+        proc = subprocess.run(
+            [sys.executable, "-c", LOAD_CLIENT, str(port), str(HTTP_CLIENTS),
+             load], capture_output=True, text=True, timeout=600, check=True)
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        require(all(s == 200 for s, _ in got["lat"]), "client process 200s")
+        ms, secs = np.array([t for _, t in got["lat"]]) * 1e3, got["wall"]
+        log(f"serve-http-c8 (a client process): {len(ms) / secs:.2f} "
+            f"requests/s ({len(ms) * REQUEST / secs:.1f} images/s), p50 "
+            f"{np.percentile(ms, 50):.4f} ms, p99 "
+            f"{np.percentile(ms, 99):.4f} ms at concurrency {HTTP_CLIENTS}, "
+            f"closed loop, batching (2 ms window, max 64 rows; {len(ms)} "
+            f"requests) [{gpu}]")
+
+        # the host's share of a serial request, piece by piece
+        parts = {"base64 + JPEG decode": [], "query_arrays": [],
+                 "JSON of the response": []}
+        for r in range(20):
+            t0 = time.perf_counter()
+            dec = svc.ingest_bytes([base64.b64decode(x) for x in
+                                    payloads[r]["images_b64"]])
+            t1 = time.perf_counter()
+            d, idx, paths = svc.query_arrays(dec)
+            t2 = time.perf_counter()
+            json.dumps({"results": [
+                {"paths": [str(p) for p in paths[i]],
+                 "indices": [int(j) for j in idx[i]],
+                 "distances": [float(x) for x in d[i]]}
+                for i in range(len(dec))]})
+            t3 = time.perf_counter()
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[key].append(dt * 1e3)
+        log(f"serve-http, one {REQUEST}-image request in parts (host clock, "
+            f"p50 of 20, outside the server): "
+            + ", ".join(f"{k} {np.percentile(v, 50):.4f} ms"
+                        for k, v in parts.items())
+            + f"; the rest of the {out['serial_p50']:.4f} ms p50 is HTTP, "
+            f"the client's JSON and the handler [{gpu}]")
+
+        # 429: a second server on the same service with max_pending 1
+        shed = RetrievalHTTPServer(svc, port=0, batch_window_ms=2,
+                                   max_batch=64, max_pending=1)
+        shed.start_background()
+        try:
+            res = _clients(shed.port, payloads[:32], HTTP_CLIENTS)
+        finally:
+            shed.shutdown()
+        codes = [s for s, _, _ in res]
+        retry = {ra for s, _, ra in res if s == 429}
+        require(429 in codes and set(codes) <= {200, 429}
+                and retry == {"1"}, f"max_pending 1: codes {codes}")
+        log(f"max_pending 1 under {HTTP_CLIENTS} clients: "
+            f"{codes.count(429)} of {len(codes)} requests shed with 429 "
+            f"and Retry-After: 1, the rest 200")
+    finally:
+        server.shutdown()
+    del server, svc
+
+    # ---- re-ranking: bf16 and int8 windows of 100, re-ranked on the card
+    for name, extra, strict in (
+            ("serve-rerank-r100", ("--rerank_window", str(RERANK_R)), False),
+            ("int8-rerank-r100", ("--int8_gallery", "--rerank_window",
+                                  str(RERANK_R)), True)):
+        server = _serve_cli(index, ckpt, *extra)
+        svc, port = server.service, server.port
+        try:
+            status, h, _ = _http(port, "GET", "/healthz")
+            require(h["rerank_window"] == RERANK_R, f"/healthz: {h}")
+            n = N_IMAGES // REQUEST
+            # the served dispatches' own selection and re-rank calls
+            sel_name = ("ranked_query_int8" if "int8" in name
+                        else "ranked_query")
+            with _recording(service, sel_name) as sels, \
+                    _recording(service, "_rerank_tail") as tails:
+                bodies = _served(port, payloads[:n])
+            launches = launch_counts()
+            require(len(sels) == n and len(tails) == n,
+                    f"{name}: {len(sels)} selections and {len(tails)} "
+                    f"re-ranks recorded for {n} requests")
+            held = {"windows_equal": 0, "queries": 0, "cpu_err": 0.0}
+            for r, body in enumerate(bodies):
+                _hold(name, svc, blobs[r], rows[r], body)
+                d = np.array([x["distances"] for x in body["results"]],
+                             np.float32)
+                i = np.array([x["indices"] for x in body["results"]])
+                one = _hold_rerank(name, tails[r], d, i, strict)
+                held = {k: (max if k == "cpu_err" else sum)(
+                    (held[k], one[k])) for k in held}
+            out["launches"][name] = launches
+            sel = "scores_i8" if "int8" in name else "scores"
+            require(launches[sel] > 0 and launches["kpass_topk"] > 0,
+                    f"{name} did not launch {sel} and K3: {launches}")
+            log(f"{name}: {n} serial requests held against query_arrays, "
+                f"against _windowed on their own windows (card vs CPU max "
+                f"|err| {held['cpu_err']:.3e}, tol 1e-5) and against "
+                f"rerank_topk on the card over the same embeddings where "
+                f"the window equals its exact fp32 top-{RERANK_R} "
+                f"({held['windows_equal']} of {held['queries']} queries"
+                + ("; all required" if strict else "; bf16 selection may "
+                   "swap a boundary row") + ")")
+            log(f"{name}: kernel launches per request (the {n} serial "
+                f"requests alone): "
+                + ", ".join(f"{k} {v / n:g}" for k, v in launches.items())
+                + f" [{gpu}]")
+            if name == "serve-rerank-r100":
+                _serial(port, payloads, 5)
+                lat = _serial(port, payloads, 60)
+                out["rerank_p50"] = float(np.percentile(lat, 50))
+                log(f"/search p50, serial {REQUEST}-image requests, bf16 "
+                    f"k=100 re-ranked (r=100; host clock, 60 requests): "
+                    f"{out['rerank_p50']:.4f} ms, p90 "
+                    f"{np.percentile(lat, 90):.4f} ms (not re-ranked: "
+                    f"{out['serial_p50']:.4f} ms) [{gpu}]")
+            # device busy per request and its split: the first request's
+            # recorded selection and re-rank, called again as it called them
+            dec = svc.ingest_bytes(blobs[0])
+            select, rerank = getattr(service, sel_name), service._rerank_tail
+            (s_args, s_kw, _), (t_args, _, _) = sels[0], tails[0]
+            with torch.inference_mode():
+                total = device_busy_ms(lambda: svc.query_arrays(dec), 10)
+                t_sel = device_busy_ms(lambda: select(*s_args, **s_kw), 10)
+                t_rr = device_busy_ms(lambda: rerank(*t_args), 10)
+            if None in (total, t_sel, t_rr):
+                log(f"{name}: device busy not measured (the profiler saw no "
+                    f"device time)")
+            else:
+                log(f"{name}: device busy per request (torch.profiler, 10 "
+                    f"requests) {total:.4f} ms: selection + exact re-score "
+                    f"{t_sel:.4f} ms, re-rank {t_rr:.4f} ms, embed and "
+                    f"copies {total - t_sel - t_rr:.4f} ms [{gpu}]")
+                out[f"{name}_busy"] = (total, t_sel, t_rr)
+        finally:
+            server.shutdown()
+        del server, svc
+    torch.cuda.empty_cache()
+    phase_rerank_market(gpu)
+    return out
+
+
+def op_device_ms(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: (device busy ms, the kernel
+    and copy time on the card; [(ATen operator, device ms of the kernels
+    it launched itself)], largest first)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in events
+            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+            and e.self_device_time_total > 0]
+    return busy, sorted(rows, key=lambda r: -r[1])
+
+
+def phase_rerank_market(gpu: str) -> None:
+    """The dense re-ranker at Market-1501's test size: 3,368 + 15,913
+    clustered random unit rows (750 pids), 2048-d, on the card (time, peak
+    memory); a 300 + 1,500 cut held against the CPU."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import (
+        launch_counts,
+        rerank_distmat,
+        reset_launch_counts,
+    )
+
+    nq, ng, pids = MARKET
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    centers = torch.randn((pids, DIM), generator=gen, device="cuda")
+    pid = torch.randint(0, pids, (nq + ng,), generator=gen, device="cuda")
+    f = centers[pid] + 0.8 * torch.randn((nq + ng, DIM), generator=gen,
+                                         device="cuda")
+    f = f / f.norm(dim=1, keepdim=True)
+    qf, gf = f[:nq], f[nq:]
+    rerank_distmat(qf[:64], gf[:256])   # first use of each kernel shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rerank_distmat(qf, gf)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    require(out.shape == (nq, ng) and bool(torch.isfinite(out).all()),
+            "rerank_distmat at Market size: bad output")
+    log(f"rerank-dense-market: rerank_distmat [{nq}, {DIM}] x [{ng}, {DIM}] "
+        f"(N = {nq + ng}, k1 20, k2 6, lambda 0.3): "
+        f"{secs[0]:.3f} / {secs[1]:.3f} s (host clock, synchronized), peak "
+        f"{peak:.2f} GiB above the inputs; K3 launches "
+        f"{launch_counts()['kpass_topk'] // 2} per call [{gpu}]")
+    del out
+    busy, ops = op_device_ms(lambda: rerank_distmat(qf, gf))
+    log("rerank-dense-market under torch.profiler: " + (
+        f"device busy {busy / 1e3:.3f} s (idle share of the unprofiled call "
+        f"{1 - busy / 1e3 / secs[1]:.4f}); by operator: "
+        + ", ".join(f"{name} {ms:.1f} ms" for name, ms in ops[:8])
+        if busy else "device time not measured (the profiler saw none)"))
+    cq, cg = MARKET_CUT
+    card = rerank_distmat(qf[:cq], gf[:cg]).cpu().numpy()
+    cpu = rerank_distmat(qf[:cq].cpu(), gf[:cg].cpu()).numpy()
+    err = float(np.abs(card - cpu).max())
+    oc, op = (np.argsort(x, 1, kind="stable") for x in (card, cpu))
+    same = _same_ranking(np.take_along_axis(card, oc, 1), oc, op, 1e-5)
+    log(f"rerank-dense-market cut {cq} + {cg}: card vs CPU max |err| "
+        f"{err:.3e} (tol 1e-5), stable ranks equal: {same}")
+    require(err <= 1e-5 and same, "rerank_distmat card vs CPU")
+
+
 def main() -> int:
     import torch
 
@@ -2031,6 +2731,7 @@ def main() -> int:
         cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
         times = phase_timing(state, int8_state)
         phase_train(tmp, ckpt, eval_state["root"])
+        phase_serve_http(state, tmp)
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path
@@ -2047,6 +2748,9 @@ def main() -> int:
         log(f"{name} evaluation kernel launches (no hand-written kernel: "
             f"{embed} embed, matmul distances, argsort): "
             f"{eval_state['runs'][name]['launches']}")
+    log(f"re-ranked evaluation kernel launches (K3 ranks each row of the "
+        f"re-ranker's distance matrix): "
+        f"{eval_state['runs']['rerank']['launches']}")
     log(f"all checks passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source,

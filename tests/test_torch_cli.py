@@ -150,11 +150,60 @@ def test_find_similar_matches_jax(cli_setup, flat_index, topk, normalize):
 
 
 @pytest.mark.parametrize("flag", ["RERANK", "SHARDED_RETRIEVAL"])
-def test_find_similar_refuses_unported_options(cli_setup, flag):
+def test_find_similar_refuses_unported_options(cli_setup, flat_index, flag):
+    """``TPU.SHARDED_RETRIEVAL`` is refused. With ``TPU.RERANK`` (ported)
+    the reference routes to the re-ranker before it reads the sharding
+    flag, so the two together re-rank and nothing is refused."""
     from centroids_reid_tpu_torch.inference import find_similar
 
     pth, _, queries, tmp = cli_setup
-    cfg = _cfg(get_default_cfg, pth, queries, str(tmp / "refused"))
+    cfg = _cfg(get_default_cfg, pth, queries, str(tmp / f"refused_{flag}"))
     setattr(cfg.TPU, flag, True)
-    with pytest.raises(NotImplementedError, match=flag):
-        find_similar(cfg, str(tmp), False, False, 5, device="cpu")
+    if flag == "SHARDED_RETRIEVAL":
+        with pytest.raises(NotImplementedError, match=flag):
+            find_similar(cfg, str(tmp), False, False, 5, device="cpu")
+        return
+    cfg.TPU.SHARDED_RETRIEVAL = True
+    out = find_similar(cfg, flat_index[1], False, False, 5, device="cpu")
+    assert len(out) == 7 and all(len(r["indices"]) == 5
+                                 for r in out.values())
+
+
+@pytest.mark.parametrize("window,topk", [(0, 6), (0, 0), (10, 6)],
+                         ids=["dense", "dense-all", "windowed"])
+def test_find_similar_rerank_matches_jax(cli_setup, flat_index, window,
+                                         topk):
+    """``TPU.RERANK True``: the fully re-ranked matrix (``--topk 0``: every
+    gallery entry) or, with ``TPU.RERANK_WINDOW``, each query's top-r
+    window re-ranked; ``results.npy`` as the JAX package's: indices and
+    paths equal, re-rank scores within 1e-5 (the embeddings differ by the
+    fp32 conv order only)."""
+    from centroids_reid_tpu.inference import api as japi
+    from centroids_reid_tpu_torch.inference import get_similar
+
+    pth, _, queries, tmp = cli_setup
+    jout = flat_index[0]
+    tag = f"rr{window}_{topk}"
+    jres, tres = str(tmp / f"j{tag}"), str(tmp / f"t{tag}")
+    opts = ["TPU.RERANK", "True", "TPU.RERANK_WINDOW", str(window),
+            "TPU.RERANK_K1", "6", "TPU.RERANK_K2", "3"]
+    jcfg = _cfg(jax_default_cfg, pth, queries, jres)
+    jcfg.merge_from_list(opts)
+    japi.find_similar(jcfg, jout, images_in_subfolders=False,
+                      normalize_features=True, topk=topk)
+    get_similar.main([
+        "--gallery_data", jout, "--topk", str(topk), "--device", "cpu",
+        "--normalize_features", "MODEL.NAME", "resnet18",
+        "MODEL.BACKBONE_EMB_SIZE", "512", "USE_MIXED_PRECISION", "False",
+        "INPUT.SIZE_TEST", "[32,16]", "TEST.IMS_PER_BATCH", "8",
+        "MODEL.PRETRAIN_PATH", pth, "DATASETS.ROOT_DIR", queries,
+        "OUTPUT_DIR", tres, *opts])
+    ref = np.load(f"{jres}/results.npy", allow_pickle=True).item()
+    got = np.load(f"{tres}/results.npy", allow_pickle=True).item()
+    assert list(got) == list(ref)
+    for qp in ref:
+        np.testing.assert_array_equal(got[qp]["indices"], ref[qp]["indices"])
+        np.testing.assert_array_equal(got[qp]["paths"], ref[qp]["paths"])
+        np.testing.assert_allclose(got[qp]["distances"],
+                                   ref[qp]["distances"], rtol=0, atol=1e-5)
+        assert len(got[qp]["indices"]) == (topk or 15)

@@ -237,8 +237,79 @@ def test_runner_refuses_unported_routes(eval_setup, opt, value, match):
     if opt == "TEST.ONLY_TEST":
         # training is ported; its multi-group form is not
         cfg.TPU.NUM_GROUPS = 2
+    else:
+        # full re-ranking is ported; windowed re-ranked evaluation needs
+        # the streaming evaluator, refused at startup
+        cfg.TPU.RERANK_WINDOW = 50
     with pytest.raises(NotImplementedError, match=match):
         runner.run_single(cfg, "ctl", "test", device="cpu")
+
+
+def test_only_test_rerank_matches_jax(eval_setup):
+    """``TPU.RERANK True``: both centroid modes evaluate on the fully
+    re-ranked distances; Top-k equal, mAP within 1e-6."""
+    from centroids_reid_tpu.engine import runner as jrunner
+    from centroids_reid_tpu_torch.engine import runner
+
+    pth, data, tmp = eval_setup
+    cfgs = []
+    for make_cfg, logs in ((jax_default_cfg, "jax_rerank"),
+                           (get_default_cfg, "port_rerank")):
+        cfg = small_cfg(make_cfg, pth, data, str(tmp / logs))
+        cfg.TPU.RERANK = True
+        cfg.TPU.RERANK_K1 = 6
+        cfg.TPU.RERANK_K2 = 3
+        cfgs.append(cfg)
+    ref = jrunner.run_single(cfgs[0], "ctl", "test")
+    got = runner.run_single(cfgs[1], "ctl", "test", device="cpu")
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        if "mAP" in key:
+            assert abs(got[key] - ref[key]) <= 1e-6, key
+        else:
+            assert got[key] == ref[key], key
+
+
+def test_validate_rerank_config_refuses_what_evaluation_cannot_do(
+        eval_setup, monkeypatch):
+    """At startup: full re-ranking of an eval set past the guard raises
+    the reference's ValueError (with and without centroids, counted
+    exactly), windowed re-ranked evaluation NotImplementedError; without
+    ``TPU.RERANK`` nothing is checked."""
+    from centroids_reid_tpu.data import init_dataset as jinit
+    from centroids_reid_tpu.engine import evaluate as jevaluate
+    from centroids_reid_tpu.ops import rerank as jrerank
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.engine import evaluate
+    from centroids_reid_tpu_torch.ops import rerank
+
+    pth, data, tmp = eval_setup
+    cfg = small_cfg(get_default_cfg, pth, data, str(tmp / "v"))
+    ds = init_dataset("market1501", cfg)
+    jcfg = small_cfg(jax_default_cfg, pth, data, str(tmp / "jv"))
+    jds = jinit("market1501", jcfg)
+    evaluate.validate_rerank_config(cfg, ds)
+    cfg.TPU.RERANK = jcfg.TPU.RERANK = True
+    evaluate.validate_rerank_config(cfg, ds)   # 42 rows: within the guard
+    for keep in (False, True):
+        cfg.MODEL.KEEP_CAMID_CENTROIDS = keep
+        jcfg.MODEL.KEEP_CAMID_CENTROIDS = keep
+        n = ds.num_query + evaluate._centroid_gallery_rows(
+            [r.pid for r in ds.val[ds.num_query:]],
+            [r.camid for r in ds.val[ds.num_query:]],
+            [r.pid for r in ds.val[:ds.num_query]],
+            [r.camid for r in ds.val[:ds.num_query]], keep)
+        monkeypatch.setattr(rerank, "DEFAULT_MAX_N", n)
+        monkeypatch.setattr(jrerank, "DEFAULT_MAX_N", n)
+        with pytest.raises(ValueError) as port:
+            evaluate.validate_rerank_config(cfg, ds)
+        with pytest.raises(ValueError) as ref:
+            jevaluate.validate_rerank_config(jcfg, jds)
+        assert str(port.value) == str(ref.value)
+        assert "plain eval N=42" in str(port.value)
+    cfg.TPU.RERANK_WINDOW = 50
+    with pytest.raises(NotImplementedError, match="streaming"):
+        evaluate.validate_rerank_config(cfg, ds)
 
 
 def test_runner_main_parses_the_training_cli_flags(eval_setup, tmp_path):

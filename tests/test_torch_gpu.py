@@ -785,3 +785,118 @@ def test_train_step_on_gpu_equals_cpu(cuda):
         assert err <= 1e-4, (name, float(err))
     torch.testing.assert_close(rm_gpu, rm_cpu, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rv_gpu, rv_cpu, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ re-ranking ----
+
+def _same_ranking(vals, idx, ref_idx, tol=1e-5):
+    """Per row of ascending ``vals``: ``idx`` equals ``ref_idx`` wherever
+    neighbouring values differ by more than ``tol``; the same set of
+    indices within a run of closer values."""
+    for v, i, ri in zip(np.asarray(vals), np.asarray(idx),
+                        np.asarray(ref_idx)):
+        cuts = np.nonzero(np.diff(v) > tol)[0] + 1
+        for a, b in zip(np.split(i, cuts), np.split(ri, cuts)):
+            assert sorted(a) == sorted(b), (v, i, ri)
+
+
+def _integer_clusters(seed, n, d=64, clusters=40):
+    """Clustered small-integer rows: every euclidean distance is an exact
+    fp32 integer on both devices, so the ranks are equal."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randint(-4, 5, (clusters, d))
+    return (centers[rng.randint(0, clusters, n)]
+            + rng.randint(-1, 2, (n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("dist", ["euclidean", "cosine"])
+def test_rerank_distmat_on_card_matches_cpu(cuda, dist):
+    """The dense re-ranker on the card (ranks on K3) against the CPU:
+    values within 1e-5, stable ranks equal."""
+    from centroids_reid_tpu_torch.ops import rerank_distmat
+
+    f = (_integer_clusters(20, 1200) if dist == "euclidean"
+         else np.random.RandomState(20).randn(1200, 64).astype(np.float32))
+    R.reset_launch_counts()
+    g = rerank_distmat(f[:200], f[200:], dist=dist, device=cuda)
+    torch.cuda.synchronize()
+    assert g.device.type == "cuda" and R.LAUNCHES["kpass_topk"] == 1
+    g = g.cpu().numpy()
+    c = rerank_distmat(f[:200], f[200:], dist=dist, device="cpu").numpy()
+    np.testing.assert_allclose(g, c, rtol=0, atol=1e-5)
+    og, oc = (np.argsort(x, 1, kind="stable") for x in (g, c))
+    _same_ranking(np.take_along_axis(g, og, 1), og, oc)
+
+
+def test_rerank_topk_on_card_matches_cpu(cuda):
+    """Windowed re-ranking on the card (exact fp32 window on the
+    hierarchical top-k, local ranks on K3) against the CPU."""
+    from centroids_reid_tpu_torch.ops import rerank_topk
+
+    f = _integer_clusters(21, 5100)
+    d, i = rerank_topk(f[:100], f[100:], r=100, device=cuda)
+    rd, ri = rerank_topk(f[:100], f[100:], r=100, device="cpu")
+    assert d.device.type == "cuda" and d.shape == (100, 100)
+    np.testing.assert_allclose(d.cpu().numpy(), rd.numpy(), rtol=0,
+                               atol=1e-5)
+    _same_ranking(d.cpu().numpy(), i.cpu().numpy(), ri.numpy())
+
+
+def test_windowed_core_on_card_matches_cpu(cuda):
+    """``_windowed`` on the same candidate windows of random unit rows, fp32
+    local distances with TF32 off, card against CPU."""
+    from centroids_reid_tpu_torch.ops import rerank as RR
+
+    rng = np.random.RandomState(22)
+    g = rng.randn(3000, 256).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    q = g[:40] + 0.1 * rng.randn(40, 256).astype(np.float32)
+    d0 = (g * g).sum(1)[None, :] - 2.0 * q @ g.T
+    idx = torch.from_numpy(np.argsort(d0, 1, kind="stable")[:, :100])
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = RR._windowed(
+            torch.from_numpy(q).to(dev), torch.from_numpy(g).to(dev),
+            idx.to(dev), 0.3, 21, 11, 6, 32, "euclidean").cpu()
+    c, k = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(k.numpy(), c.numpy(), rtol=0, atol=1e-5)
+    kv, ko = torch.sort(k, dim=1, stable=True)
+    _same_ranking(kv.numpy(), ko.numpy(),
+                  torch.sort(c, dim=1, stable=True)[1].numpy())
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_reranked_service_on_gpu_matches_cpu(cuda, int8):
+    """``RetrievalService(rerank_window=50)`` on the card (K1 + K3, or the
+    int8 embed on K5 / K6 and K4 + K3, then the re-rank) against the same
+    service on the CPU's plain versions; fp32 embed with TF32 off (or one
+    int8 artifact), so the embeddings agree to ~1e-6: scores within 1e-4,
+    rankings equal."""
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.INPUT.SIZE_TEST = [64, 32]
+    rng = np.random.RandomState(23)
+    gallery = rng.randn(3000, 512).astype(np.float32)
+    queries = rng.randint(0, 256, (6, 64, 32, 3)).astype(np.uint8)
+    paths = [str(i) for i in range(3000)]
+    model = create_model(cfg)
+    kw = dict(k=50, rerank_window=50)
+    if int8:
+        kw.update(use_int8_gallery=True, int8_qfn=quantize_reid_model(
+            model, [queries], cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+            use_pallas=True, acc_dtype=torch.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        svc = RetrievalService(cfg, gallery, paths, device=dev, model=model,
+                               **kw)
+        out[str(dev)] = svc.query_arrays(queries)
+    (dc, ic, _), (dg, ig, _) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4)
+    _same_ranking(dg, ig, ic, tol=1e-4)

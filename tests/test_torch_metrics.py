@@ -114,8 +114,48 @@ def test_r1map_compute_matches_jax(respect):
     _assert_metrics_equal(plain, plain_ref)
 
 
-@pytest.mark.parametrize("kwargs", [{"streaming": True}, {"mesh": object()},
-                                    {"rerank": True}, {"rerank_window": 5}])
+@pytest.mark.parametrize("kwargs", [
+    {"streaming": True}, {"mesh": object()},
+    # windowed re-ranked evaluation runs on the streaming evaluator
+    {"rerank": True, "rerank_window": 5},
+    {"rerank": True, "mesh": object()}])
 def test_r1map_refuses_unported_options(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         TR.R1mAP(4, device="cpu", **kwargs)
+
+
+def _clustered(rng, pids_q, pids_g, dim=16, noise=2.0):
+    centers = rng.randn(max(max(pids_q), max(pids_g)) + 1, dim) * 3.0
+    qf = np.stack([centers[p] + noise * rng.randn(dim) for p in pids_q])
+    gf = np.stack([centers[p] + noise * rng.randn(dim) for p in pids_g])
+    return qf.astype(np.float32), gf.astype(np.float32)
+
+
+@pytest.mark.parametrize("dist", ["euclidean", "cosine"])
+def test_r1map_rerank_matches_jax(dist):
+    """R1mAP(rerank=True) scores the fully re-ranked distance matrix: CMC,
+    Top-k and mAP (within 1e-6) as the JAX package's, and the metrics
+    differ from the unranked ones on these overlapping clusters."""
+    rng = np.random.RandomState(2)
+    q_pids, g_pids = np.repeat(np.arange(6), 2), np.repeat(np.arange(6), 6)
+    qf, gf = _clustered(rng, q_pids, g_pids)
+    feats = np.concatenate([qf, gf])
+    pids = np.concatenate([q_pids, g_pids])
+    camids = np.concatenate([np.zeros(12, int), np.ones(36, int)])
+    kw = dict(feat_norm=True, dist_name=dist, rerank=True, rerank_k1=8,
+              rerank_k2=4, rerank_lambda=0.3)
+    ref = JR.R1mAP(12, **kw).compute(feats, pids, camids)
+    ev = TR.R1mAP(12, device="cpu", **kw)
+    got = ev.compute(feats, pids, camids)
+    _assert_metrics_equal(got, ref)
+    assert ev.last_distmat.shape == (12, 36)
+    plain = TR.R1mAP(12, feat_norm=True, dist_name=dist,
+                     device="cpu").compute(feats, pids, camids)
+    assert plain.mAP != got.mAP
+
+
+def test_r1map_rerank_refuses_the_streaming_evaluator():
+    """Full re-ranking with ``streaming=True`` is the reference's
+    ValueError."""
+    with pytest.raises(ValueError, match="streaming"):
+        TR.R1mAP(4, rerank=True, streaming=True, device="cpu")

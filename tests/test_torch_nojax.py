@@ -1,10 +1,12 @@
 """The port stands without JAX and without the JAX package: importing it,
 serving a query on the CPU through the bf16 path and the int8 path (PTQ
-embed + int8 gallery), an ONLY_TEST evaluation through its runner, a
-one-epoch training run and its resume, the offline CLIs' flows, and
-importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
-any module of ``centroids_reid_tpu``; no source file of the port imports
-it; and the service refuses what is not ported."""
+embed + int8 gallery), a re-ranked service behind the HTTP server
+answering one /search, an ONLY_TEST evaluation through its runner (also
+re-ranked), a one-epoch training run and its resume, the offline CLIs'
+flows (``find_similar`` also re-ranked), and importing ``chip_smoke`` load
+neither jax nor flax nor optax nor orbax nor any module of
+``centroids_reid_tpu``; no source file of the port imports it; and the
+service refuses what is not ported."""
 
 import os
 import re
@@ -14,13 +16,14 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import cpu_subprocess_env
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent("""
-    import io, os, sys, tempfile
+    import base64, io, json, os, sys, tempfile, urllib.request
     import numpy as np
     import torch
     from PIL import Image
@@ -30,7 +33,9 @@ _SCRIPT = textwrap.dedent("""
     from centroids_reid_tpu_torch.inference import (
         RetrievalService, build_embeddings, find_similar)
     from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.inference.server import RetrievalHTTPServer
     from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
+    from centroids_reid_tpu_torch.ops import rerank_distmat, rerank_topk
     import chip_smoke
 
     cfg = get_default_cfg()
@@ -53,6 +58,23 @@ _SCRIPT = textwrap.dedent("""
                            use_int8_gallery=True)
     d, idx, _ = svc.query_bytes([buf.getvalue()])
     assert d.shape == (1, 3) and np.isfinite(d).all(), d
+    svc = RetrievalService(cfg, gallery, [str(i) for i in range(40)], k=3,
+                           device="cpu", model=model, rerank_window=10)
+    server = RetrievalHTTPServer(svc, port=0, batch_window_ms=1.0)
+    server.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/search",
+            data=json.dumps({"images_b64": [
+                base64.b64encode(buf.getvalue()).decode()]}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            res = json.loads(r.read())["results"][0]
+    finally:
+        server.shutdown()
+    assert len(res["indices"]) == 3 and server.health()["rerank_window"] == 10
+    d, i = rerank_topk(gallery[:4], gallery, r=10, device="cpu")
+    assert d.shape == (4, 10) and (i[:, 0].numpy() == range(4)).all(), i
+    assert rerank_distmat(gallery[:4], gallery, device="cpu").shape == (4, 40)
 
     with tempfile.TemporaryDirectory() as tmp:
         pth = os.path.join(tmp, "reid.pth")
@@ -73,6 +95,10 @@ _SCRIPT = textwrap.dedent("""
         cfg.LOG_DIR = os.path.join(tmp, "logs")
         out = runner.run_single(cfg, "ctl", "test", device="cpu")
         assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        cfg.TPU.RERANK = True
+        out = runner.run_single(cfg, "ctl", "test", device="cpu")
+        assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        cfg.TPU.RERANK = False
         cfg.TEST.ONLY_TEST = False
         cfg.MODEL.PRETRAINED = False
         cfg.INPUT.SIZE_TRAIN = [32, 16]
@@ -94,6 +120,12 @@ _SCRIPT = textwrap.dedent("""
         build_embeddings(cfg, False, device="cpu")
         cfg.DATASETS.ROOT_DIR = os.path.join(base, "query")
         cfg.OUTPUT_DIR = os.path.join(tmp, "results")
+        res = find_similar(cfg, os.path.join(tmp, "index"), False, False, 2,
+                           device="cpu")
+        assert len(res) == 3 and all(len(r["indices"]) == 2
+                                     for r in res.values()), res
+        cfg.TPU.RERANK = True
+        cfg.TPU.RERANK_WINDOW = 4
         res = find_similar(cfg, os.path.join(tmp, "index"), False, False, 2,
                            device="cpu")
         assert len(res) == 3 and all(len(r["indices"]) == 2
@@ -132,7 +164,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
                 offenders.append(os.path.relpath(path, _REPO))
     assert len(files) > 20 and not offenders, offenders
     scanned = {os.path.relpath(p, _REPO) for p in files}
-    for module in ("losses/triplet.py", "losses/centroid.py",
+    for module in ("ops/rerank.py", "inference/server.py",
+                   "losses/triplet.py", "losses/centroid.py",
                    "losses/classification.py", "solver/build.py",
                    "data/sampler.py", "data/device_data.py",
                    "engine/steps.py", "engine/state.py",
@@ -153,28 +186,33 @@ class _Int8EmbedStub:
     ("mesh", {"mesh": object()}),
     ("rerank_window", {"rerank_window": 20}),
     ("TPU.FAST_DECODE", {}),
-    # re-ranking stays unported on the int8 gallery too
     ("rerank_window", {"use_int8_gallery": True, "rerank_window": 20}),
     # the fast ingest is refused unless an int8 embed takes RGB instead
     ("TPU.FAST_DECODE", {"use_int8_gallery": True}),
 ])
 def test_service_refuses_unported_options(option, kwargs):
+    """``mesh`` and ``TPU.FAST_DECODE`` are refused. ``rerank_window`` is
+    ported, on the bf16 / fp32 and the int8 gallery: it builds, clamped
+    to the gallery's 4 rows."""
     from centroids_reid_tpu_torch.config import get_default_cfg
     from centroids_reid_tpu_torch.inference import RetrievalService
 
     cfg = get_default_cfg()
     if option == "TPU.FAST_DECODE":
         cfg.TPU.FAST_DECODE = True
+    args = (cfg, np.ones((4, 8), np.float32), list("abcd"))
+    if option == "rerank_window":
+        svc = RetrievalService(*args, device="cpu",
+                               model=torch.nn.Identity(), **kwargs)
+        assert svc.rerank_window == 4
+        return
     with pytest.raises(NotImplementedError, match=f"{option} .*not ported"):
-        RetrievalService(cfg, np.ones((4, 8), np.float32), list("abcd"),
-                         device="cpu", model=object(), **kwargs)
+        RetrievalService(*args, device="cpu", model=object(), **kwargs)
 
 
 def test_fast_decode_with_an_int8_embed_serves_rgb():
     from centroids_reid_tpu_torch.config import get_default_cfg
     from centroids_reid_tpu_torch.inference import RetrievalService
-
-    import torch
 
     cfg = get_default_cfg()
     cfg.TPU.FAST_DECODE = True
