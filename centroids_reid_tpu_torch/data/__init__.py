@@ -6,11 +6,15 @@ from .transforms import (
     apply_augment,
     augment_batch,
     available_decoder,
+    decode_and_pack_yuv420_bytes,
     decode_and_resize_bytes,
     draw_augment_params,
     ingest_blobs,
+    load_and_pack_yuv420,
     load_and_resize,
     normalize_batch,
+    normalize_yuv420_batch,
+    yuv420_to_rgb,
 )
 
 __all__ = [
@@ -25,11 +29,15 @@ __all__ = [
     "augment_batch",
     "available_decoder",
     "build_epoch_plan",
+    "decode_and_pack_yuv420_bytes",
     "decode_and_resize_bytes",
     "draw_augment_params",
     "ingest_blobs",
     "init_dataset",
+    "load_and_pack_yuv420",
     "load_and_resize",
     "max_steps_bound",
     "normalize_batch",
+    "normalize_yuv420_batch",
+    "yuv420_to_rgb",
 ]

@@ -5,7 +5,8 @@
 The host decodes and resizes (optionally from an in-RAM uint8 cache); a
 background thread assembles the next uint8 batch while the card runs the
 current one. Augmentation runs on the card (``transforms.apply_augment``).
-RGB only: the packed-YUV420 fast ingest is not ported yet.
+An ``ImageStore`` yields RGB, or packed YUV420 for the fast ingest
+(``TPU.FAST_DECODE``), which the embed unpacks on the card.
 """
 
 from __future__ import annotations
@@ -18,38 +19,42 @@ import numpy as np
 
 from .datasets import Record, ReidDataset
 from .sampler import EpochPlan, build_epoch_plan
-from .transforms import load_and_resize
+from .transforms import (
+    ingest_item_shape,
+    load_and_pack_yuv420,
+    load_and_resize,
+)
 
 
 class ImageStore:
-    """Decoded-and-resized uint8 [H, W, 3] images with an optional RAM
-    cache. ``fmt="yuv420"`` (the fast serving ingest) raises
-    ``NotImplementedError``."""
+    """Decoded-and-resized uint8 images with an optional RAM cache:
+    ``fmt="rgb"`` yields [H, W, 3]; ``fmt="yuv420"`` (the fast serving
+    ingest, ``TPU.FAST_DECODE``) yields packed planar YUV420 [1.5 * H * W],
+    half the bytes to the card, and needs an even height and width."""
 
     def __init__(self, size_hw: Tuple[int, int], cache: bool = True,
                  fmt: str = "rgb"):
-        if fmt == "yuv420":
-            raise NotImplementedError(
-                "the yuv420 ImageStore (TPU.FAST_DECODE) is not ported yet; "
-                "see ROADMAP.md queue 1 item 6 (fast ingest)")
-        if fmt != "rgb":
+        if fmt not in ("rgb", "yuv420"):
             raise ValueError(f"unknown ImageStore fmt {fmt!r}")
         self.size_hw = tuple(int(v) for v in size_hw)
+        if fmt == "yuv420" and (self.size_hw[0] % 2 or self.size_hw[1] % 2):
+            raise ValueError(f"YUV420 needs even dims, got {self.size_hw}")
         self.cache_enabled = cache
         self.fmt = fmt
+        self._load = load_and_resize if fmt == "rgb" else load_and_pack_yuv420
         self._cache: Dict[str, np.ndarray] = {}
 
     def item_shape(self) -> Tuple[int, ...]:
-        return (*self.size_hw, 3)
+        return ingest_item_shape(self.fmt, self.size_hw)
 
     def get(self, path: str) -> np.ndarray:
         if self.cache_enabled:
             img = self._cache.get(path)
             if img is None:
-                img = load_and_resize(path, self.size_hw)
+                img = self._load(path, self.size_hw)
                 self._cache[path] = img
             return img
-        return load_and_resize(path, self.size_hw)
+        return self._load(path, self.size_hw)
 
     def get_many(self, paths: List[str], out: np.ndarray,
                  n_threads: int = 0) -> None:
@@ -75,8 +80,9 @@ class ImageStore:
                     blobs.append(f.read())
             except OSError:
                 blobs.append(b"")
-        res = native.decode_resize_batch(blobs, self.size_hw,
-                                         n_threads=n_threads)
+        batch_fn = (native.decode_resize_batch if self.fmt == "rgb"
+                    else native.decode_fast_batch)
+        res = batch_fn(blobs, self.size_hw, n_threads=n_threads)
         if res is None:  # native library unavailable: per-image path
             for i in missing:
                 out[i] = self.get(paths[i])
@@ -85,7 +91,7 @@ class ImageStore:
         failed = set(failed)
         for j, i in enumerate(missing):
             if j in failed:
-                out[i] = load_and_resize(paths[i], self.size_hw)  # PIL
+                out[i] = self._load(paths[i], self.size_hw)  # PIL
             else:
                 out[i] = decoded[j]
             if self.cache_enabled:

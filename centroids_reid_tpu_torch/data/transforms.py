@@ -2,10 +2,18 @@
 normalise and the training augmentation.
 
 Counterpart of ``centroids_reid_tpu/data/transforms.py``
-(``decode_and_resize_bytes``, ``load_and_resize``, ``ingest_item_shape``,
-the RGB branch of ``ingest_blobs``, ``normalize_batch`` and
-``augment_batch``). The native JPEG decoder is the port's own copy
-(``centroids_reid_tpu_torch/native``).
+(``decode_and_resize_bytes``, ``load_and_resize``, the fast ingest's
+``decode_and_pack_yuv420_bytes``, ``load_and_pack_yuv420``,
+``yuv420_to_rgb`` and ``normalize_yuv420_batch``, ``ingest_item_shape``,
+``ingest_blobs``, ``normalize_batch`` and ``augment_batch``). The native
+JPEG decoder is the port's own copy (``centroids_reid_tpu_torch/native``).
+
+The fast serving ingest (``TPU.FAST_DECODE``) ships packed planar YUV420,
+1.5 bytes a pixel instead of 3: the host decodes (DCT-scaled where the
+native decoder runs), resizes and packs (``native.rgb_to_yuv420``), and the
+device unpacks inside the embed (``yuv420_to_rgb``: libjpeg's 3/4-1/4
+chroma upsample, then the full-range BT.601 inverse). The packing is lossy
+(4:2:0 chroma), so it is a serving option; evaluation stays on RGB.
 
 The training augmentation is the reference's torchvision chain on uint8
 [H, W, 3] batches: horizontal flip, zero pad + random crop, normalise,
@@ -80,6 +88,28 @@ def load_and_resize(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
     return decode_and_resize_bytes(data, size_hw)
 
 
+def decode_and_pack_yuv420_bytes(data: bytes,
+                                 size_hw: Tuple[int, int]) -> np.ndarray:
+    """Encoded image bytes -> packed planar YUV420 uint8 [1.5 * H * W]:
+    the native decoder's DCT-scaled decode, resize and pack, or for
+    anything it declines (and everything without it) the exact PIL decode
+    and bilinear resize, packed by ``native.rgb_to_yuv420_np``."""
+    from ..native import decode_fast, rgb_to_yuv420_np
+
+    out = decode_fast(data, size_hw)
+    if out is not None:
+        return out
+    return rgb_to_yuv420_np(decode_and_resize_bytes(data, size_hw))
+
+
+def load_and_pack_yuv420(path: str, size_hw: Tuple[int, int]) -> np.ndarray:
+    """File variant of ``decode_and_pack_yuv420_bytes`` (the offline fast
+    ingest)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_and_pack_yuv420_bytes(data, size_hw)
+
+
 def ingest_item_shape(fmt: str, size_hw: Tuple[int, int]) -> Tuple[int, ...]:
     """Per-image uint8 shape of a serving wire format: packed planar YUV420
     ``[1.5 * H * W]`` or RGB ``[H, W, 3]`` (the shape the HTTP server's
@@ -92,13 +122,14 @@ def ingest_item_shape(fmt: str, size_hw: Tuple[int, int]) -> Tuple[int, ...]:
 
 def ingest_blobs(fmt: str, size_hw: Tuple[int, int],
                  blobs: Sequence[bytes]) -> np.ndarray:
-    """Encoded image bytes -> uint8 RGB batch [B, H, W, 3]."""
-    if fmt != "rgb":
-        raise NotImplementedError(
-            f"ingest format {fmt!r} (TPU.FAST_DECODE) is not ported yet; "
-            "see ROADMAP.md, queue 1 (fast ingest)"
-        )
+    """Encoded image bytes -> the uint8 batch a serving query takes, shape
+    ``[B, *ingest_item_shape(fmt, size_hw)]``. Host work only."""
     size = tuple(int(v) for v in size_hw)
+    if fmt == "yuv420":
+        return np.stack([decode_and_pack_yuv420_bytes(b, size)
+                         for b in blobs])
+    if fmt != "rgb":
+        raise ValueError(f"unknown ingest format {fmt!r}")
     return np.stack([decode_and_resize_bytes(b, size) for b in blobs])
 
 
@@ -109,6 +140,43 @@ def normalize_batch(imgs_u8: torch.Tensor, mean, std,
     m = torch.tensor(mean, dtype=torch.float32, device=imgs_u8.device)
     s = torch.tensor(std, dtype=torch.float32, device=imgs_u8.device)
     return ((imgs_u8.float() / 255.0 - m) / s).to(dtype)
+
+
+def yuv420_to_rgb(packed_u8: torch.Tensor,
+                  size_hw: Tuple[int, int]) -> torch.Tensor:
+    """Packed YUV420 uint8 [..., 1.5 * H * W] -> RGB fp32 [..., H, W, 3] in
+    [0, 255] on the input's device: libjpeg's chroma upsample (the triangle
+    filter, weights 3/4 and 1/4 along each axis, edges replicated), then
+    the full-range BT.601 inverse of ``native.rgb_to_yuv420_np``.
+
+    The triangle filter at twice the size is bilinear resampling at pixel
+    centres, so both chroma planes take one ``F.interpolate``; its weight
+    products (9/16, 3/16, 1/16) of 8-bit values are exact in fp32, so the
+    result equals the reference's separable upsample bit for bit."""
+    import torch.nn.functional as F
+
+    h, w = (int(v) for v in size_hw)
+    hw = h * w
+    lead = packed_u8.shape[:-1]
+    y = packed_u8[..., :hw].reshape(*lead, h, w).float()
+    uv = packed_u8[..., hw:].reshape(-1, 2, h // 2, w // 2).float()
+    uv = F.interpolate(uv, scale_factor=2, mode="bilinear",
+                       align_corners=False).reshape(*lead, 2, h, w) - 128.0
+    u, v = uv.unbind(-3)
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    b = y + 1.772 * u
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def normalize_yuv420_batch(packed_u8: torch.Tensor, size_hw, mean, std,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Packed YUV420 uint8 [B, 1.5 * H * W] -> normalised [B, H, W, 3]
+    ``(rgb / 255 - mean) / std``, cast to ``dtype``."""
+    rgb = yuv420_to_rgb(packed_u8, size_hw)
+    m = torch.tensor(mean, dtype=torch.float32, device=rgb.device)
+    s = torch.tensor(std, dtype=torch.float32, device=rgb.device)
+    return ((rgb / 255.0 - m) / s).to(dtype)
 
 
 _N_ERASE_DRAWS = 8

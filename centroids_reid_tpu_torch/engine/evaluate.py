@@ -4,15 +4,15 @@
 
 ``emb = bn(GAP(trunk(x)))`` per batch on the model's device, concatenated
 over query + gallery, optionally replaced by per-pid centroids, then R1 /
-mAP on the same device. The reference's ``make_embed_many_fn`` scans
-several batches in one dispatch to amortise its TPU's per-dispatch
-latency; here each loader batch is one embed call (``make_embed_fn``).
-Single process only: multi-process extraction and ``TEST.VISUALIZE`` are
-not ported yet and raise ``NotImplementedError``. ``TPU.RERANK`` evaluates
-on the fully re-ranked distance matrix; windowed re-ranked evaluation
-(``TPU.RERANK_WINDOW > 0``) runs on the streaming evaluator in the
-reference, is not ported yet, and ``validate_rerank_config`` refuses it at
-startup.
+mAP on the same device (the streaming evaluator past 2^28 query x gallery
+cells). The reference's ``make_embed_many_fn`` scans several batches in
+one dispatch to amortise its TPU's per-dispatch latency; here each loader
+batch is one embed call (``make_embed_fn``). ``TPU.RERANK`` evaluates on
+the fully re-ranked distance matrix, or with ``TPU.RERANK_WINDOW > 0`` on
+each query's re-ranked window (streaming, any gallery size).
+``TEST.VISUALIZE yes`` writes one rank strip per query under
+``OUTPUT_DIR/visrank``. Single process only: multi-process extraction is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,22 +41,28 @@ def _shared_store(dataset, cfg) -> ImageStore:
     return store
 
 
-def make_embed_fn(model, cfg):
-    """uint8 [B, H, W, 3] (array or tensor) -> fp32 [B, D] embeddings on
-    the model's device: normalise, trunk under bf16 autocast when
-    ``USE_MIXED_PRECISION``, GAP, BNNeck."""
+def make_embed_fn(model, cfg, input_format: str = "rgb"):
+    """uint8 batches (array or tensor) -> [B, D] embeddings on the model's
+    device: normalise, trunk under bf16 autocast when
+    ``USE_MIXED_PRECISION``, GAP, BNNeck. ``input_format="rgb"`` takes
+    [B, H, W, 3] and returns fp32; ``"yuv420"`` (``TPU.FAST_DECODE``) takes
+    packed planar YUV420 [B, 1.5 * H * W] of ``INPUT.SIZE_TEST``, unpacks
+    it on the device, and returns bf16 (half the bytes back to the host;
+    ``extract_embeddings`` widens them to fp32), as the reference."""
     from ..inference.service import embed_query
 
     device = _model_device(model)
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
     dtype = torch.bfloat16 if cfg.USE_MIXED_PRECISION else torch.float32
+    size_hw = tuple(cfg.INPUT.SIZE_TEST)
 
     @torch.inference_mode()
     def embed(imgs_u8):
         x = (imgs_u8 if torch.is_tensor(imgs_u8)
              else torch.from_numpy(np.ascontiguousarray(imgs_u8)))
-        return embed_query(model, x.to(device), mean, std, dtype,
-                           normalize=False)
+        e = embed_query(model, x.to(device), mean, std, dtype,
+                        normalize=False, size_hw=size_hw)
+        return e.to(torch.bfloat16) if input_format == "yuv420" else e
 
     return embed
 
@@ -78,7 +84,7 @@ def extract_embeddings(model, cfg, loader: EvalLoader, embed_fn=None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (embeddings [N, D] fp32, pids [N], camids [N]). One batch
     stays in flight: batch i + 1 is launched before batch i is copied to
-    the host."""
+    the host (in the embed's dtype, widened to fp32 there)."""
     embed = embed_fn or make_embed_fn(model, cfg)
     embs, pids, camids = [], [], []
     pending = []
@@ -89,9 +95,9 @@ def extract_embeddings(model, cfg, loader: EvalLoader, embed_fn=None
         camids.append(batch["camids"][v])
         if len(pending) > 1:
             e, valid = pending.pop(0)
-            embs.append(e.cpu().numpy()[valid])
+            embs.append(e.cpu().float().numpy()[valid])
     for e, valid in pending:
-        embs.append(e.cpu().numpy()[valid])
+        embs.append(e.cpu().float().numpy()[valid])
     return (np.concatenate(embs).astype(np.float32, copy=False),
             np.concatenate(pids), np.concatenate(camids))
 
@@ -112,21 +118,22 @@ def _centroid_gallery_rows(g_pids, g_camids, q_pids, q_camids,
 
 def validate_rerank_config(cfg, dataset) -> None:
     """Refuse at startup a ``TPU.RERANK`` run whose evaluation would fail
-    later (at the first validation of a training run, hours in): full
-    re-ranking of an eval set, with or without centroids, past
-    ``ops.rerank.DEFAULT_MAX_N`` rows raises ``ValueError`` as in the
-    reference; windowed re-ranked evaluation (``TPU.RERANK_WINDOW > 0``)
-    needs the streaming evaluator, which is not ported yet
-    (``NotImplementedError``)."""
+    later (at the first validation of a training run, hours in), with the
+    reference's ``ValueError``s: full re-ranking of an eval set, with or
+    without centroids, past ``ops.rerank.DEFAULT_MAX_N`` rows; windowed
+    re-ranking (``TPU.RERANK_WINDOW > 0``, any gallery size) together with
+    ``TEST.VISUALIZE yes``, which needs the distance matrix that the
+    windowed evaluation never builds."""
     if not cfg.TPU.RERANK:
         return
     if int(cfg.TPU.RERANK_WINDOW) > 0:
-        raise NotImplementedError(
-            "TPU.RERANK with TPU.RERANK_WINDOW > 0 (windowed re-ranked "
-            "evaluation) runs on the streaming evaluator, which is not "
-            "ported yet; see ROADMAP.md queue 1 item 6 (the streaming "
-            "evaluator, metrics/streaming_eval.py). Set TPU.RERANK_WINDOW 0 "
-            "for full re-ranking.")
+        if cfg.TEST.VISUALIZE == "yes":
+            raise ValueError(
+                "TEST.VISUALIZE needs the materialised distance matrix, "
+                "but windowed re-ranking (TPU.RERANK_WINDOW > 0) "
+                "evaluates on the streaming path — drop one of the two "
+                "settings")
+        return
     from ..ops.rerank import DEFAULT_MAX_N
 
     nq = dataset.num_query
@@ -152,9 +159,14 @@ def validate_rerank_config(cfg, dataset) -> None:
 
 def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
                          use_centroids: bool, return_evaluator: bool = False,
-                         device="cuda"):
+                         streaming: bool = None, device="cuda"):
     """Centroids (when ``use_centroids``) + R1 / mAP on ``device``; with
-    ``TPU.RERANK``, on the k-reciprocal re-ranked distances."""
+    ``TPU.RERANK``, on the k-reciprocal re-ranked distances (each query's
+    window with ``TPU.RERANK_WINDOW > 0``). ``streaming`` goes to
+    ``R1mAP``: None switches to the streaming evaluator past its cell
+    count; a caller that reads ``evaluator.last_distmat`` afterwards (rank
+    visualisation) passes False. Full re-ranking pins the materialising
+    path."""
     respect = bool(cfg.MODEL.KEEP_CAMID_CENTROIDS and use_centroids)
     if use_centroids:
         print("Evaluation is done using centroids")
@@ -162,13 +174,19 @@ def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
             torch.from_numpy(np.asarray(embeddings, np.float32)).to(device),
             pids, camids, num_query, respect)
         embeddings, pids, camids = es.embeddings, es.labels, es.camids
-    if cfg.TPU.RERANK:
+    if cfg.TPU.RERANK and cfg.TPU.RERANK_WINDOW > 0:
+        print("Windowed re-ranking with k-reciprocal encoding (r={}, "
+              "k1={}, k2={}, lambda={})".format(
+                  cfg.TPU.RERANK_WINDOW, cfg.TPU.RERANK_K1,
+                  cfg.TPU.RERANK_K2, cfg.TPU.RERANK_LAMBDA))
+    elif cfg.TPU.RERANK:
         print("Re-ranking with k-reciprocal encoding (k1={}, k2={}, "
               "lambda={})".format(cfg.TPU.RERANK_K1, cfg.TPU.RERANK_K2,
                                   cfg.TPU.RERANK_LAMBDA))
+        streaming = False
     evaluator = R1mAP(num_query=num_query, feat_norm=cfg.TEST.FEAT_NORM,
                       dist_name=cfg.SOLVER.DISTANCE_FUNC,
-                      rerank=bool(cfg.TPU.RERANK),
+                      streaming=streaming, rerank=bool(cfg.TPU.RERANK),
                       rerank_k1=int(cfg.TPU.RERANK_K1),
                       rerank_k2=int(cfg.TPU.RERANK_K2),
                       rerank_lambda=float(cfg.TPU.RERANK_LAMBDA),
@@ -183,15 +201,14 @@ def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
 def run_validation(cfg, model, dataset, use_centroids: bool
                    ) -> Dict[str, float]:
     """Full validation pass on the model's device; returns {'mAP': ...,
-    'Top-1': ..., ...}."""
-    if cfg.TEST.VISUALIZE == "yes":
-        raise NotImplementedError(
-            "TEST.VISUALIZE is not ported yet; see ROADMAP.md queue 1 item 6")
+    'Top-1': ..., ...}. With ``TEST.VISUALIZE yes`` the evaluation stays on
+    the materialising path and writes the rank strips under
+    ``OUTPUT_DIR/visrank``."""
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
             "multi-process extraction is not ported yet; see ROADMAP.md "
-            "queue 1 item 6 (multi-GPU)")
+            "queue 1 item 6.3 (with item 6.4, multi-GPU)")
     store = _shared_store(dataset, cfg)
     # one quantization per dataset object covers the double evaluation; the
     # key holds everything the quantized embed depends on
@@ -212,8 +229,25 @@ def run_validation(cfg, model, dataset, use_centroids: bool
     emb, pids, camids = extract_embeddings(
         model, cfg, EvalLoader(dataset.val, cfg, store=store),
         embed_fn=int8_fn)
-    m = compute_reid_metrics(cfg, emb, pids, camids, dataset.num_query,
-                             use_centroids, device=_model_device(model))
+    visualize = cfg.TEST.VISUALIZE == "yes"
+    m, evaluator = compute_reid_metrics(
+        cfg, emb, pids, camids, dataset.num_query, use_centroids,
+        return_evaluator=True, streaming=False if visualize else None,
+        device=_model_device(model))
+    if visualize:
+        import os
+
+        from ..metrics.visrank import visualize_ranked_results
+
+        print("Start visualization...")
+        visualize_ranked_results(
+            evaluator.last_distmat, dataset.query, dataset.gallery,
+            save_dir=os.path.join(cfg.OUTPUT_DIR or ".", "visrank"),
+            width=cfg.INPUT.SIZE_TEST[1], height=cfg.INPUT.SIZE_TEST[0],
+            topk=cfg.TEST.VISUALIZE_TOPK, use_centroids=use_centroids,
+            respect_camids=bool(cfg.MODEL.KEEP_CAMID_CENTROIDS
+                                and use_centroids),
+            max_number=cfg.TEST.VISUALIZE_MAX_NUMBER)
     log = {"mAP": m.mAP}
     for val, kk in zip(m.all_topk, K_LIST):
         print("top-k, Rank-{:<3}:{:.1%}".format(kk, float(val)))

@@ -70,7 +70,7 @@ def make_loss_fn(model, centers, cfg, num_classes: int, mode: str
     if cfg.TPU.NUM_GROUPS > 1:
         raise NotImplementedError(
             f"training with TPU.NUM_GROUPS={cfg.TPU.NUM_GROUPS} groups is not "
-            "ported yet; see ROADMAP.md queue 1 item 6 (multi-GPU)")
+            "ported yet; see ROADMAP.md queue 1 item 6.4 (multi-GPU)")
     s = cfg.SOLVER
     k = cfg.DATALOADER.NUM_INSTANCE
     margin, dist = s.MARGIN, s.DISTANCE_FUNC

@@ -149,7 +149,7 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
     if cfg.TPU.SHARDED_RETRIEVAL and not cfg.TPU.RERANK:
         raise NotImplementedError(
             "TPU.SHARDED_RETRIEVAL is not ported yet; see ROADMAP.md queue 1 "
-            "item 6 (multi-GPU)")
+            "item 6.4 (multi-GPU)")
     embeddings, paths = _embed_folder(cfg, images_in_subfolders, print_freq,
                                       device)
     load_path = Path(gallery_data)

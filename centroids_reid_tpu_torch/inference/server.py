@@ -12,7 +12,7 @@ Endpoints (all JSON):
 
   GET  /healthz
       -> {"status": "ok|degraded", "gallery_size": N, "k": K,
-          "ingest": "rgb", "model": cfg.MODEL.NAME,
+          "ingest": "rgb|yuv420", "model": cfg.MODEL.NAME,
           "rerank_window": r (0 = off), "batching": bool, "pending": n,
           "max_pending": m, "in_dispatch_s": age of the oldest dispatch in
           flight, "dispatch_timeout_s": T, "requests", "images", "errors",
@@ -42,7 +42,7 @@ CUDA call cannot be interrupted; the 503 path bounds only the requests
 waiting behind it, and /healthz reports it.
 
 Not ported: ``--artifact`` (``inference/export.py``; ROADMAP.md queue 1
-item 6, artifacts) and ``TPU.SHARDED_RETRIEVAL`` (item 6, multi-GPU).
+item 6.5, artifacts) and ``TPU.SHARDED_RETRIEVAL`` (item 6.4, multi-GPU).
 Divergence from the JAX server: a 0-row batch dispatches nothing and gets
 an empty result (the reference's ``_dispatch_sliced`` raises on it).
 """
@@ -554,7 +554,7 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     parser.add_argument(
         "--artifact", type=str, default="",
         help="a retriever artifact; not ported yet (ROADMAP.md queue 1 "
-             "item 6, artifacts)")
+             "item 6.5, artifacts)")
     parser.add_argument("--host", default="127.0.0.1", type=str)
     parser.add_argument("--port", default=8000, type=int)
     parser.add_argument(
@@ -613,7 +613,7 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     if args.artifact:
         raise SystemExit(
             "--artifact is not ported yet (inference/export.py); see "
-            "ROADMAP.md queue 1 item 6 (artifacts). Serve --gallery_data.")
+            "ROADMAP.md queue 1 item 6.5 (artifacts). Serve --gallery_data.")
     if not args.gallery_data:
         raise SystemExit("--gallery_data is required")
     cfg = get_default_cfg()
@@ -623,7 +623,7 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     if cfg.TPU.SHARDED_RETRIEVAL:
         raise NotImplementedError(
             "TPU.SHARDED_RETRIEVAL is not ported yet; see ROADMAP.md queue 1 "
-            "item 6 (multi-GPU)")
+            "item 6.4 (multi-GPU)")
 
     load_path = Path(args.gallery_data)
     emb = np.load(load_path / "embeddings.npy", allow_pickle=True)

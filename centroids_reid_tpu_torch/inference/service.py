@@ -1,8 +1,10 @@
 """Serving: image -> top-k retrieval against a device-resident gallery.
 
 Counterpart of ``centroids_reid_tpu/inference/service.py`` on one device:
-decode on the host, then normalise -> backbone -> BNNeck (or the int8 PTQ
-embed, which takes the uint8 image itself) -> (optional) L2 -> top-k
+decode on the host (to RGB, or with ``TPU.FAST_DECODE`` to packed YUV420,
+half the bytes to the card), then unpack and normalise -> backbone ->
+BNNeck (or the int8 PTQ embed, which takes the uint8 RGB image itself) ->
+(optional) L2 -> top-k
 selection on the bf16 / fp32 gallery or on the int8 gallery index -> exact
 fp32 re-score and sort -> (optional) windowed k-reciprocal re-ranking of
 each query's top-r window. Only the uint8 query batch and the k results
@@ -16,7 +18,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..data.transforms import ingest_blobs, normalize_batch
+from ..data.transforms import (
+    ingest_blobs,
+    normalize_batch,
+    normalize_yuv420_batch,
+)
 from ..ops.rerank import _WIN_CHUNK, _windowed
 from ..ops.retrieval import (
     _G_TILE,
@@ -32,8 +38,6 @@ from ..ops.retrieval_int8 import (
     topk_select_int8,
 )
 from .api import load_inference_model
-
-_NOT_PORTED = "is not ported yet; see ROADMAP.md queue 1 ({})"
 
 
 def ranked_query(e, gf, gf32, gn, k: int):
@@ -104,11 +108,16 @@ def reranked_query_int8(e, gal: Int8Gallery, gf32, k: int, r: int, k1: int,
     return _rerank_tail(e, gf32, idx0, k, r, k1, k2, lam, dist)
 
 
-def embed_query(model, imgs_u8, mean, std, dtype, normalize: bool):
-    """uint8 [B, H, W, 3] on the model's device -> fp32 [B, D] embeddings
-    (L2-normalised when ``normalize``). The NHWC batch enters the model as
-    a channels_last NCHW view."""
-    x = normalize_batch(imgs_u8, mean, std, dtype)
+def embed_query(model, imgs_u8, mean, std, dtype, normalize: bool,
+                size_hw=None):
+    """uint8 RGB [B, H, W, 3], or packed YUV420 [B, 1.5 * H * W] of
+    ``size_hw`` (``TPU.FAST_DECODE``), on the model's device -> fp32 [B, D]
+    embeddings (L2-normalised when ``normalize``). The NHWC batch enters
+    the model as a channels_last NCHW view."""
+    if imgs_u8.dim() == 2:
+        x = normalize_yuv420_batch(imgs_u8, size_hw, mean, std, dtype)
+    else:
+        x = normalize_batch(imgs_u8, mean, std, dtype)
     e = model.embed(x.permute(0, 3, 1, 2))
     if normalize:
         e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
@@ -164,8 +173,10 @@ class RetrievalService:
     bf16 depth <= 32, else a [B, G] score matrix), the int8 margin and the
     ``max_query_batch`` clamp.
 
-    ``mesh`` and ``TPU.FAST_DECODE`` without an int8 embed are not ported
-    yet and raise ``NotImplementedError``. The service runs on the card
+    ``TPU.FAST_DECODE`` (``ingest_format`` "yuv420"): ``ingest_bytes``
+    packs planar YUV420 and the embed unpacks it on the card; an int8 embed
+    takes RGB, so with one the service ingests RGB. ``mesh`` is not ported
+    yet and raises ``NotImplementedError``. The service runs on the card
     unless ``device`` says otherwise; ``query_arrays`` makes ``device``
     current while it runs, so a service on ``cuda:1`` launches there from
     any thread. An empty gallery, and the reference's refused combinations
@@ -182,7 +193,6 @@ class RetrievalService:
                  rerank_window: int = 0, rerank_k1: int = 20,
                  rerank_k2: int = 6, rerank_lambda: float = 0.3,
                  int8_calib_imgs=None, int8_qfn=None):
-        int8_embed = int8_qfn is not None or int8_calib_imgs is not None
         if use_int8_gallery and mesh is not None:
             raise ValueError(
                 "use_int8_gallery is the single-device capacity lever; a "
@@ -192,15 +202,10 @@ class RetrievalService:
                 "use_int8_gallery with exact_rescore=False (capacity mode) "
                 "cannot re-rank: the windowed k-reciprocal core needs the "
                 "full-precision rows")
-        unported = {
-            "mesh": (mesh is not None, "multi-GPU"),
-            # an int8 embed takes RGB, so it never reads the fast ingest
-            "TPU.FAST_DECODE": (bool(cfg.TPU.FAST_DECODE) and not int8_embed,
-                                "fast ingest"),
-        }
-        for name, (used, item) in unported.items():
-            if used:
-                raise NotImplementedError(f"{name} " + _NOT_PORTED.format(item))
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh is not ported yet; see ROADMAP.md queue 1 item 6.4 "
+                "(multi-GPU)")
         g = len(gallery_paths)
         if g == 0:
             raise ValueError("empty gallery")
@@ -260,6 +265,7 @@ class RetrievalService:
         self._std = tuple(cfg.INPUT.PIXEL_STD)
         self._in_dtype = (torch.bfloat16 if cfg.USE_MIXED_PRECISION
                           else torch.float32)
+        self._size_hw = tuple(int(v) for v in cfg.INPUT.SIZE_TEST)
 
         self._qfn = None
         if int8_qfn is not None:
@@ -284,7 +290,7 @@ class RetrievalService:
         x = torch.from_numpy(np.ascontiguousarray(imgs_u8)).to(self.device)
         if self._qfn is None:
             e = embed_query(self.model, x, self._mean, self._std,
-                            self._in_dtype, self.normalize)
+                            self._in_dtype, self.normalize, self._size_hw)
         else:
             e = self._qfn(x)
             if self.normalize:
@@ -306,7 +312,8 @@ class RetrievalService:
         return d.cpu().numpy(), idx.cpu().numpy()
 
     def query_arrays(self, imgs_u8: np.ndarray):
-        """uint8 [B, H, W, 3] -> (distances [B, k], indices [B, k], paths).
+        """uint8 [B, H, W, 3], or packed YUV420 [B, 1.5 * H * W] on the fast
+        ingest, -> (distances [B, k], indices [B, k], paths).
 
         Batches beyond ``max_query_batch`` run in chunks, the tail chunk
         zero-padded to the chunk size, so peak memory stays O(chunk * G)."""
@@ -336,15 +343,20 @@ class RetrievalService:
 
     @property
     def ingest_format(self) -> str:
-        """The wire format ``ingest_bytes`` produces: always ``"rgb"``. An
-        int8 embed consumes uint8 RGB even with ``TPU.FAST_DECODE`` set, and
-        without one the packed-YUV420 ingest is refused at construction
-        (not ported yet)."""
-        return "rgb"
+        """The wire format ``ingest_bytes`` produces, shared with the HTTP
+        front's /healthz and warm-up: ``"rgb"`` for an int8 embed (it
+        consumes uint8 RGB), else ``inference.utils.serving_ingest_format``
+        (``"yuv420"`` with ``TPU.FAST_DECODE``)."""
+        from .utils import serving_ingest_format
+
+        if self._qfn is not None:
+            return "rgb"
+        return serving_ingest_format(self.cfg)
 
     def ingest_bytes(self, blobs: Sequence[bytes]) -> np.ndarray:
-        """Encoded image bytes -> the uint8 RGB batch ``query_arrays``
-        takes. Host work only."""
+        """Encoded image bytes -> the uint8 batch ``query_arrays`` takes:
+        RGB [B, H, W, 3] or packed YUV420 [B, 1.5 * H * W]. Host work
+        only."""
         return ingest_blobs(self.ingest_format,
                             tuple(self.cfg.INPUT.SIZE_TEST), blobs)
 

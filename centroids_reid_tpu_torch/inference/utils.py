@@ -17,7 +17,7 @@ import numpy as np
 
 from ..data.datasets import Record
 from ..data.loader import EvalLoader, ImageStore
-from ..engine.evaluate import extract_embeddings
+from ..engine.evaluate import extract_embeddings, make_embed_fn
 
 log = logging.getLogger(__name__)
 
@@ -29,8 +29,8 @@ IMG_EXTENSIONS = (
 def serving_ingest_format(cfg) -> str:
     """'yuv420' when the fast serving ingest (``TPU.FAST_DECODE``) is on and
     usable, else 'rgb', as the reference decides. An int8 embed consumes
-    RGB. The yuv420 store is not ported yet, so a 'yuv420' answer makes
-    ``ImageStore`` raise ``NotImplementedError``."""
+    RGB; YUV420 needs an even ``SIZE_TEST`` and the native decoder (without
+    it the exact RGB path serves)."""
     if not cfg.TPU.FAST_DECODE:
         return "rgb"
     if cfg.TPU.INT8_EVAL:
@@ -95,18 +95,24 @@ def run_inference(model, cfg, image_paths: List[str], print_freq: int = 10,
                   embed_fn=None, store=None) -> Tuple[np.ndarray, np.ndarray]:
     """Embed a list of images on the model's device; returns (embeddings
     [N, D] fp32, paths [N]). ``embed_fn(imgs_u8)`` replaces the bf16 / fp32
-    embed (the int8 serving path); ``store`` shares decoded images with
-    e.g. the calibration pass."""
+    embed (the int8 serving path, which takes RGB); ``store`` shares
+    decoded images with e.g. the calibration pass. With
+    ``TPU.FAST_DECODE`` (and no ``embed_fn``) batches travel as packed
+    YUV420 and the embed unpacks them on the card."""
     if store is None:
         fmt = serving_ingest_format(cfg) if embed_fn is None else "rgb"
         store = ImageStore(tuple(cfg.INPUT.SIZE_TEST), cfg.TPU.CACHE_IMAGES,
                            fmt=fmt)
+    elif store.fmt == "yuv420" and embed_fn is not None:
+        raise ValueError(
+            "run_inference: a yuv420 store cannot feed a custom embed_fn "
+            "(custom fns consume uint8 RGB batches)")
     records = [Record(p, 0, 0, i) for i, p in enumerate(image_paths)]
     loader = EvalLoader(records, cfg, store=store)
     log.info(f"Embedding {len(records)} images in {len(loader)} batches of "
              f"{loader.batch_size} (progress every {print_freq} batches)")
-    embeddings, _, _ = extract_embeddings(model, cfg, loader,
-                                          embed_fn=embed_fn)
+    embed = embed_fn or make_embed_fn(model, cfg, input_format=store.fmt)
+    embeddings, _, _ = extract_embeddings(model, cfg, loader, embed_fn=embed)
     return embeddings, np.asarray(image_paths)
 
 

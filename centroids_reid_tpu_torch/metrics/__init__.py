@@ -6,6 +6,12 @@ from .centroids import (
 )
 from .eval_reid import K_LIST, ReidMetrics, camid_sets_to_bitmask, eval_func
 from .r1_map import R1mAP, compute_distmat, l2_normalize_rows
+from .streaming_eval import (
+    StreamRanks,
+    compute_stream_ranks,
+    eval_func_streaming,
+    eval_func_streaming_reranked,
+)
 
 __all__ = [
     "CentroidEvalSet",
@@ -19,4 +25,8 @@ __all__ = [
     "R1mAP",
     "compute_distmat",
     "l2_normalize_rows",
+    "StreamRanks",
+    "compute_stream_ranks",
+    "eval_func_streaming",
+    "eval_func_streaming_reranked",
 ]

@@ -9,8 +9,11 @@ the rank of the first hit among the kept entries; AP is the mean of the
 precision at each hit; top-k flags for k in ``K_LIST``.
 
 The algebra runs on the device of ``indices`` in the reference's dtypes:
-int32 ranks and counts, fp32 precision and AP. The bitmasks stay int64
-(torch shifts int64 on every device), so cameras >= 31 test their own bit.
+int32 ranks and counts, fp32 precision and AP. The bitmasks stay one int64
+word here and in the streaming evaluator (torch shifts int64 on every
+device), so cameras >= 31 test their own bit; the reference splits them
+into two int32 words (``split_camid_words``) only because JAX without x64
+truncates int64.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""R1 / mAP evaluator: normalise, distance matrix, rank, score (counterpart
-of ``centroids_reid_tpu/metrics/r1_map.py``, materialising path).
+"""R1 / mAP evaluator: normalise, then rank and score (counterpart of
+``centroids_reid_tpu/metrics/r1_map.py``).
 
-The distance matrix (or, with ``rerank``, the k-reciprocal re-ranked one
-of ``ops.rerank.rerank_distmat``) is computed on the evaluator's device in
-gallery chunks of bounded size, ranked there with a STABLE argsort (the
-reference's ``jnp.argsort`` is stable, and centroid galleries tie), and
-scored there; only the metrics come back to the host.
+On the materialising path the distance matrix (or, with ``rerank``, the
+k-reciprocal re-ranked one of ``ops.rerank.rerank_distmat``) is computed on
+the evaluator's device in gallery chunks of bounded size, ranked there with
+a STABLE argsort (the reference's ``jnp.argsort`` is stable, and centroid
+galleries tie), and scored there; only the metrics come back to the host.
+Past ``_STREAMING_CELLS`` query x gallery cells, and with windowed
+re-ranking, the streaming evaluator (``streaming_eval.py``) counts ranks
+over score tiles instead and never builds the matrix.
 """
 
 from __future__ import annotations
@@ -15,14 +18,17 @@ import torch
 
 from ..losses.distances import get_dist_func
 from .eval_reid import ReidMetrics, eval_func
+from .streaming_eval import (
+    _MESH_ITEM,
+    eval_func_streaming,
+    eval_func_streaming_reranked,
+)
 
 # Max fp32 elements of the distance matrix per gallery chunk (~256 MB).
 _CHUNK_ELEMS = 64 * 1024 * 1024
-# [Q, G] cells beyond which the reference switches to its streaming
-# evaluator (metrics/streaming_eval.py), which is not ported yet
+# [Q, G] cells beyond which compute() switches to the streaming evaluator
+# (the score matrix and its argsort would take Q * G * 12 bytes: 3 GB here)
 _STREAMING_CELLS = 256 * 1024 * 1024
-_STREAMING_ITEM = ("ROADMAP.md queue 1 item 6 (the streaming evaluator, "
-                   "metrics/streaming_eval.py)")
 
 
 def compute_distmat_device(qf, gf, dist_name: str = "euclidean",
@@ -55,16 +61,28 @@ def l2_normalize_rows(x: np.ndarray) -> np.ndarray:
 
 class R1mAP:
     """Functional evaluator on one device (the card unless ``device`` says
-    otherwise). ``streaming``: None (materialise up to the reference's
-    streaming threshold of 2^28 cells) or False.
+    otherwise).
+
+    ``streaming``: None (switch to the streaming evaluator past
+    ``_STREAMING_CELLS``), or force True / False. Streaming gives the same
+    metrics by counting ranks over score tiles and never builds the
+    distance matrix, so ``last_distmat`` (rank visualisation) exists only
+    after a materialising evaluation.
 
     ``rerank``: with ``rerank_window=0`` the distance matrix is replaced by
     the fully re-ranked one (``ops.rerank.rerank_distmat``, which refuses
     more than ``DEFAULT_MAX_N`` rows); it pins the materialising path, so
     ``rerank`` with ``streaming=True`` raises ``ValueError`` as in the
-    reference. Windowed re-ranked evaluation (``rerank_window > 0``) runs
-    on the streaming evaluator in the reference; it, ``streaming=True`` and
-    ``mesh`` are not ported yet and raise ``NotImplementedError``."""
+    reference (here when the evaluator is built). With ``rerank_window=r >
+    0`` every evaluation is the windowed re-ranked one on the streaming
+    evaluator (``eval_func_streaming_reranked``: each query's top-r window
+    re-ranked, the tail in its original order), whatever the gallery size
+    or ``streaming``.
+
+    ``compute`` takes the features as an array or as a tensor; a tensor
+    stays on its own device (a gallery on the card is never copied to the
+    host). ``mesh`` (the gallery sharded over several cards) is not ported
+    yet and raises ``NotImplementedError``."""
 
     def __init__(self, num_query: int, max_rank: int = 50,
                  feat_norm: bool = True, dist_name: str = "euclidean",
@@ -79,33 +97,55 @@ class R1mAP:
                 "re-ranking at any gallery scale), run with "
                 "streaming=False (small/centroid galleries), or disable "
                 "TPU.RERANK")
-        unported = {
-            "windowed re-ranking (rerank with rerank_window > 0)":
-                bool(rerank) and rerank_window > 0,
-            "streaming": bool(streaming), "mesh": mesh is not None}
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(
-                    f"R1mAP {name} is not ported yet; see {_STREAMING_ITEM}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"R1mAP mesh is not ported yet; see {_MESH_ITEM}")
         self.num_query = num_query
         self.max_rank = max_rank
         self.feat_norm = feat_norm
         self.dist_name = dist_name
+        self.streaming = streaming
         self.rerank = bool(rerank)
         self.rerank_k1 = rerank_k1
         self.rerank_k2 = rerank_k2
         self.rerank_lambda = rerank_lambda
+        self.rerank_window = int(rerank_window)
         self.device = torch.device(device)
         self._last_distmat_device = None
 
     def compute(self, feats, pids, camids,
                 respect_camids: bool = False) -> ReidMetrics:
-        feats = np.asarray(feats, np.float32)
+        if not torch.is_tensor(feats):
+            feats = torch.from_numpy(np.asarray(feats, np.float32))
+        if feats.device.type == "cpu":
+            feats = feats.to(self.device)
+        feats = feats.float()
         if self.feat_norm:
             print("The test feature is normalized")
-            feats = l2_normalize_rows(feats)
+            feats = feats / feats.norm(dim=1, keepdim=True).clamp_min(1e-12)
         nq = self.num_query
         qf, gf = feats[:nq], feats[nq:]
+        q_pids, g_pids = np.asarray(pids[:nq]), np.asarray(pids[nq:])
+        q_camids, g_camids = np.asarray(camids[:nq]), np.asarray(camids[nq:])
+        self._last_distmat_device = None
+
+        if self.rerank and self.rerank_window > 0:
+            # the window, not the gallery size, defines this metric
+            return eval_func_streaming_reranked(
+                qf, gf, q_pids, g_pids, q_camids, g_camids,
+                r=self.rerank_window, k1=self.rerank_k1, k2=self.rerank_k2,
+                lambda_value=self.rerank_lambda, max_rank=self.max_rank,
+                respect_camids=respect_camids, dist=self.dist_name)
+        stream = self.streaming
+        if stream is None:
+            stream = (not self.rerank
+                      and qf.shape[0] * gf.shape[0] > _STREAMING_CELLS)
+        if stream:
+            return eval_func_streaming(
+                qf, gf, q_pids, g_pids, q_camids, g_camids,
+                max_rank=self.max_rank, respect_camids=respect_camids,
+                dist=self.dist_name)
+
         if self.rerank:
             from ..ops.rerank import rerank_distmat
 
@@ -113,20 +153,11 @@ class R1mAP:
                 qf, gf, k1=self.rerank_k1, k2=self.rerank_k2,
                 lambda_value=self.rerank_lambda, dist=self.dist_name,
                 device=self.device)
-        elif qf.shape[0] * gf.shape[0] > _STREAMING_CELLS:
-            raise NotImplementedError(
-                f"evaluating {qf.shape[0]} x {gf.shape[0]} cells needs the "
-                f"streaming evaluator, which is not ported yet; see "
-                f"{_STREAMING_ITEM}")
         else:
-            distmat = compute_distmat_device(
-                torch.from_numpy(qf).to(self.device), torch.from_numpy(gf),
-                self.dist_name)
+            distmat = compute_distmat_device(qf, gf, self.dist_name)
         indices = torch.argsort(distmat, dim=1, stable=True)
-        metrics = eval_func(indices, np.asarray(pids[:nq]),
-                            np.asarray(pids[nq:]), np.asarray(camids[:nq]),
-                            np.asarray(camids[nq:]), self.max_rank,
-                            respect_camids)
+        metrics = eval_func(indices, q_pids, g_pids, q_camids, g_camids,
+                            self.max_rank, respect_camids)
         self._last_distmat_device = distmat
         return metrics
 
@@ -134,5 +165,8 @@ class R1mAP:
     def last_distmat(self) -> np.ndarray:
         """Host copy of the last distance matrix."""
         if self._last_distmat_device is None:
-            raise RuntimeError("no distance matrix computed yet")
+            raise RuntimeError(
+                "last_distmat is unavailable on the streaming evaluation "
+                "path (the distance matrix is never materialised); run "
+                "with streaming=False for rank visualisation")
         return self._last_distmat_device.cpu().numpy()

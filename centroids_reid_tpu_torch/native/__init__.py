@@ -226,25 +226,25 @@ def fast_available(size_hw: Tuple[int, int]) -> bool:
 
 def rgb_to_yuv420_np(img: np.ndarray) -> np.ndarray:
     """Numpy mirror of decode.cpp::rgb_to_yuv420 (bit-exact, same
-    fixed-point constants). Host fallback for images the native decoder
-    declines, and the oracle for tests/test_fast_ingest.py."""
+    fixed-point constants): the host packing wherever the native decoder
+    declines or is missing. Works on int32 colour planes; the 2x2 block
+    means are four strided adds."""
     h, w, _ = img.shape
     if h % 2 or w % 2:
         raise ValueError(f"YUV420 needs even dims, got {(h, w)}")
-    p = img.astype(np.int32)
-    r, g, b = p[..., 0], p[..., 1], p[..., 2]
+    p = np.moveaxis(img, -1, 0).astype(np.int32)          # [3, H, W]
+    r, g, b = p
     y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
     # 2x2 block mean (round-half-up) per channel, then convert
-    blk = p.reshape(h // 2, 2, w // 2, 2, 3).transpose(0, 2, 1, 3, 4)
-    m = (blk.reshape(h // 2, w // 2, 4, 3).sum(axis=2) + 2) >> 2
-    mr, mg, mb = m[..., 0], m[..., 1], m[..., 2]
+    mr, mg, mb = (p[:, 0::2, 0::2] + p[:, 1::2, 0::2] + p[:, 0::2, 1::2]
+                  + p[:, 1::2, 1::2] + 2) >> 2
     u = 128 + ((-11059 * mr - 21709 * mg + 32768 * mb + 32768) >> 16)
     v = 128 + ((32768 * mr - 27440 * mg - 5328 * mb + 32768) >> 16)
-    out = np.concatenate([
-        np.clip(y, 0, 255).ravel(),
-        np.clip(u, 0, 255).ravel(),
-        np.clip(v, 0, 255).ravel(),
-    ]).astype(np.uint8)
+    out = np.empty(yuv420_packed_len((h, w)), np.uint8)
+    c = (h // 2) * (w // 2)
+    out[:h * w] = np.clip(y, 0, 255).ravel()
+    out[h * w:h * w + c] = np.clip(u, 0, 255).ravel()
+    out[h * w + c:] = np.clip(v, 0, 255).ravel()
     return out
 
 

@@ -35,7 +35,7 @@ the card, a stable sort on the CPU): the k smallest, ties to the lower
 index, as ``lax.top_k(-d)``. The expansion's scatter-max over repeated
 indices is ``scatter_reduce(amax)``, which is deterministic. The JAX
 package's ``_windowed_feats`` (pre-gathered candidate rows of a sharded
-gallery) waits for multi-GPU serving (ROADMAP.md queue 1 item 6).
+gallery) waits for multi-GPU serving (ROADMAP.md queue 1 item 6.4).
 """
 
 from __future__ import annotations

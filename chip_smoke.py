@@ -38,9 +38,16 @@ bf16 autocast) and seeded random weights:
   re-ranked (``--rerank_window 100``) and on the int8 gallery re-ranked;
   8-image JPEG ``/search`` requests serially and from 8 client threads,
   each response held against ``query_arrays`` (and the re-ranked ones
-  against ``ops.rerank``), ``/healthz``, a 400 and a 429; and
+  against ``ops.rerank``), ``/healthz``, a 400 and a 429; the fast ingest
+  (``TPU.FAST_DECODE``, packed YUV420 unpacked on the card: services at
+  k=10 and k=100 and the HTTP front, timed beside RGB); and
   ``rerank_distmat`` at Market-1501's test size (3,368 + 15,913 rows), a
-  cut of it held against the CPU.
+  cut of it held against the CPU;
+* evaluation at any gallery scale (phase 10): ``R1mAP`` on Market-1501's
+  test split plus 500,000 distractors (1.74e9 cells) switches to the
+  streaming evaluator, held against the materialising path, the CPU and,
+  re-ranked in windows of 100, the stitched-order oracle. ONLY_TEST (phase
+  5) also runs windowed re-ranking and ``TEST.VISUALIZE``.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -859,15 +866,64 @@ def _eval_opts(ckpt: str, root: str, logs: str, *extra) -> list:
             "OUTPUT_DIR", logs, *extra]
 
 
+VIS_MAX = 10             # TEST.VISUALIZE_MAX_NUMBER: queries 0..10 drawn
+
+
+def _vis_check(real, compute, captured, runs_dir: str):
+    """Wraps ``metrics.visrank.visualize_ranked_results``: after the card's
+    strips are written, draws the same strips from the CPU's distance
+    matrix (the evaluation just captured, recomputed on the CPU) and holds
+    the card's against them: the same files, one per query up to
+    ``VIS_MAX``, and the same colour in every top-1 slot's border. Counts
+    the strips that are equal pixel for pixel."""
+    import os
+
+    from PIL import Image
+
+    def vis(distmat, query, gallery, save_dir, **kw):
+        real(distmat, query, gallery, save_dir, **kw)
+        cfg, emb, pids, camids, nq, cent, _ = captured[-1]
+        _, ev = compute(cfg, emb, pids, camids, nq, cent,
+                        return_evaluator=True, streaming=False, device="cpu")
+        cpu_dir = os.path.join(runs_dir,
+                               "centroids" if cent else "plain")
+        real(ev.last_distmat, query, gallery, cpu_dir, **kw)
+        names = sorted(os.listdir(save_dir))
+        require(names == sorted(os.listdir(cpu_dir))
+                and len(names) == min(len(query), VIS_MAX + 1),
+                f"visrank: {len(names)} strips for {len(query)} queries")
+        w = kw["width"]
+        x1 = w + 2 + 8          # the top-1 slot: GRID_SPACING, QUERY_EXTRA
+        equal = 0
+        for n in names:
+            a, b = (np.asarray(Image.open(os.path.join(d, n)))
+                    for d in (save_dir, cpu_dir))
+            require(a.shape == b.shape and np.array_equal(a[0, x1], b[0, x1])
+                    and tuple(a[0, x1]) in ((0, 255, 0), (255, 0, 0)),
+                    f"visrank {n}: top-1 border {a[0, x1]} against the "
+                    f"CPU's {b[0, x1]}")
+            equal += int(np.array_equal(a, b))
+        log(f"visrank ({'centroids' if cent else 'plain'}): {len(names)} "
+            f"strips of {kw['topk']} in {save_dir}, every top-1 border "
+            f"colour equal to the CPU ranking's, {equal} of {len(names)} "
+            f"strips equal pixel for pixel")
+
+    return vis
+
+
 def phase_eval(tmp: str, ckpt: str) -> dict:
     """ONLY_TEST through ``engine.runner.main`` (the configs default:
     ResNet-50, 256x128, bf16), then again with ``TPU.INT8_EVAL True``
     (the reference's serving engine: unfused int8 convs with a bf16
-    accumulator, no hand-written kernel) and with ``TPU.RERANK True`` (the
-    fully re-ranked distances; K3 ranks the rows). Every metric the runner
-    computed on the card is held against the same metric computed on the
-    CPU from the same embeddings (captured at ``compute_reid_metrics``).
-    Returns the launch counts and timings of the three runs."""
+    accumulator, no hand-written kernel), with ``TPU.RERANK True`` (the
+    fully re-ranked distances; K3 ranks the rows), with ``TPU.RERANK_WINDOW
+    100`` as well (windowed re-ranking on the streaming evaluator; K3 selects
+    each window and ranks it) and with ``TEST.VISUALIZE yes`` (the rank
+    strips, each top-1 border held against the CPU's ranking). Every metric
+    the runner computed on the card is held against the same metric
+    computed on the CPU from the same embeddings (captured at
+    ``compute_reid_metrics``). Returns the launch counts and timings of the
+    runs."""
     import os
 
     import torch
@@ -876,6 +932,7 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
     from centroids_reid_tpu_torch.data import EvalLoader, ImageStore
     from centroids_reid_tpu_torch.data import init_dataset
     from centroids_reid_tpu_torch.engine import evaluate, runner
+    from centroids_reid_tpu_torch.metrics import visrank
     from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
 
     log("== phase 5: evaluation (ONLY_TEST through the runner)")
@@ -893,16 +950,25 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
     compute = evaluate.compute_reid_metrics
 
     def capture(cfg, emb, pids, camids, nq, use_centroids, **kw):
-        m = compute(cfg, emb, pids, camids, nq, use_centroids, **kw)
+        out = compute(cfg, emb, pids, camids, nq, use_centroids, **kw)
+        m = out[0] if kw.get("return_evaluator") else out
         captured.append((cfg, emb, pids, camids, nq, use_centroids, m))
-        return m
+        return out
 
     evaluate.compute_reid_metrics = capture
+    draw = visrank.visualize_ranked_results
+    visrank.visualize_ranked_results = _vis_check(
+        draw, compute, captured, os.path.join(tmp, "vis_cpu"))
     runs = {}
     try:
         for name, extra in (("bf16", ()),
                             ("int8", ("TPU.INT8_EVAL", "True")),
-                            ("rerank", ("TPU.RERANK", "True"))):
+                            ("rerank", ("TPU.RERANK", "True")),
+                            ("rerank-window", ("TPU.RERANK", "True",
+                                               "TPU.RERANK_WINDOW", "100")),
+                            ("visualize", ("TEST.VISUALIZE", "yes",
+                                           "TEST.VISUALIZE_MAX_NUMBER",
+                                           str(VIS_MAX)))):
             captured.clear()
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -933,12 +999,17 @@ def phase_eval(tmp: str, ckpt: str) -> dict:
             log(f"{name} ONLY_TEST: {secs:.2f} s for both centroid modes "
                 f"(host clock: decode, model load"
                 + (", calibration" if name == "int8" else "")
-                + (", re-ranking" if name == "rerank" else "")
-                + f", two evaluations); kernel launches: {launches}")
+                + (", re-ranking" if name.startswith("rerank") else "")
+                + (", the card's and the CPU's strips" if name == "visualize"
+                   else "") + f", two evaluations); kernel launches: "
+                f"{launches}")
             runs[name] = {"launches": launches, "seconds": secs,
                           "metrics": out}
     finally:
         evaluate.compute_reid_metrics = compute
+        visrank.visualize_ranked_results = draw
+    require(runs["rerank-window"]["launches"]["kpass_topk"] > 0,
+            "windowed re-ranked evaluation launched no K3")
 
     # extraction rate of the eval loader + bf16 embed, warm image cache
     cfg = get_default_cfg()
@@ -1876,6 +1947,7 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
         "saved state tensor for tensor")
     timing = time_train_step(cfg, dataset, restored, banks[0])
     timing.update(train_parity(cfg, dataset, banks[0]))
+    timing["best"] = best
     return timing
 
 
@@ -2377,7 +2449,292 @@ def _serial(port: int, payloads: list, n: int) -> list:
     return lat
 
 
-def phase_serve_http(state: dict, tmp: str) -> dict:
+FAST_COSINE = 0.995       # the reference's fast-ingest smoke check
+FAST_CPU_TOL = 1e-6       # card against CPU, float64 embeddings (rel. L2)
+FAST_CPU_IMAGES = 4
+
+
+@contextlib.contextmanager
+def _pack_without_native_decoder():
+    """``TPU.FAST_DECODE`` takes packed YUV420 only where the native decoder
+    is built (``inference.utils.serving_ingest_format``, as the reference);
+    elsewhere it serves RGB. Where the decoder is missing, this lets the
+    packed route run: PIL's decode and the host packing
+    (``data.transforms.decode_and_pack_yuv420_bytes``, the decoder's own
+    fallback for images it declines) stand in for the native decode."""
+    from centroids_reid_tpu_torch import native
+
+    real = native.fast_available
+    if not native.available():
+        native.fast_available = lambda hw: hw[0] % 2 == 0 and hw[1] % 2 == 0
+    try:
+        yield
+    finally:
+        native.fast_available = real
+
+
+def phase_serve_fast(state: dict, tmp: str, trained: str, eval_root: str,
+                     payloads: list, blobs: list, rows: list,
+                     gpu: str) -> dict:
+    """The fast ingest (``TPU.FAST_DECODE``: packed planar YUV420 on the
+    wire, unpacked on the card), cell serve-fast-decode.
+
+    Held: the card's unpack against the CPU's, and the embeddings of
+    packed images on the card against the CPU's, in float64 (the CPU tests
+    hold both against the JAX package). The reference's smoke quantity,
+    the cosine of ``run_inference`` with the flag off and on over one JPEG
+    folder, is printed for phase 8's trained checkpoint and for the seeded
+    random model (FAST_COSINE is the reference's bar for a trained model
+    on photos; the synthetic images' per-pixel chroma noise is what 4:2:0
+    removes). The flag selects the packed ingest only where the native
+    decoder is built, as the reference; where it is missing, PIL's decode
+    and the host pack stand in for it from here on. An index embedded with
+    the flag on (``run_inference``, as ``create_embeddings``) over phase
+    4's gallery: services at k=10 (K2) and k=100 (K1 + K3), every
+    ``query_arrays`` top-1 the image's own row; the share of packed
+    queries whose top-1 is their own row of phase 4's RGB index is
+    printed. An HTTP front over the flag-on index, each /search held
+    against ``query_arrays`` on the same decoded images. Times the packed
+    service beside the RGB one (request p50, device busy, bytes to the
+    card per request) and /search p50."""
+    import base64
+    import copy
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch import native
+    from centroids_reid_tpu_torch.data.transforms import (
+        ingest_blobs,
+        yuv420_to_rgb,
+    )
+    from centroids_reid_tpu_torch.inference import (
+        RetrievalService,
+        load_inference_model,
+    )
+    from centroids_reid_tpu_torch.inference.service import embed_query
+    from centroids_reid_tpu_torch.inference.utils import (
+        list_images_flat,
+        run_inference,
+        serving_ingest_format,
+    )
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 9b: the fast ingest (TPU.FAST_DECODE, packed YUV420)")
+    cfg, model = state["cfg"], state["model"]
+    fast = cfg.clone()
+    fast.TPU.FAST_DECODE = True
+    h, w = cfg.INPUT.SIZE_TEST
+    fmt = serving_ingest_format(fast)
+    require(fmt == ("yuv420" if native.available() else "rgb"),
+            f"TPU.FAST_DECODE selected {fmt}")
+    log(f"TPU.FAST_DECODE with the native decoder "
+        f"{'built' if native.available() else 'missing'}: the {fmt} ingest, "
+        f"as the reference selects"
+        + ("" if native.available() else "; below, PIL's decode and the "
+           "host pack stand in for the native decoder to drive the packed "
+           "route (run_inference, the services, the HTTP front)"))
+    folder = os.path.join(tmp, "fast_jpegs")
+    os.makedirs(folder)
+    jpegs = [base64.b64decode(_jpeg(im)) for im in state["imgs"]]
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(folder, f"img{i:03d}.jpg"), "wb") as f:
+            f.write(data)
+    packed = ingest_blobs("yuv420", (h, w), jpegs)
+    decoded = ingest_blobs("rgb", (h, w), jpegs)
+    x = torch.from_numpy(packed)
+    card = yuv420_to_rgb(x.cuda(), (h, w)).cpu()
+    cpu = yuv420_to_rgb(x, (h, w))
+    err = float((card - cpu).abs().max())
+    loss = np.abs(cpu.numpy() - decoded)
+    log(f"yuv420_to_rgb of the {len(jpegs)} packed JPEGs: card against CPU "
+        f"max |err| {err:.3e} (tol 1e-4); the packing's loss against the "
+        f"RGB decode: mean {loss.mean():.3f}, max {loss.max():.1f} levels")
+    require(err <= 1e-4, "yuv420_to_rgb on the card differs from the CPU")
+
+    # float64: the random trunk grows fp32 rounding to 1e-2 between cuDNN
+    # and the CPU's convs; in float64 that growth stays near 1e-12
+    models = {dev: copy.deepcopy(model).to(dev, torch.float64)
+              for dev in ("cuda", "cpu")}
+    for m in models.values():
+        m.mixed_precision = False
+    mean, std = cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD
+    for name, batch in (("yuv420", packed[:FAST_CPU_IMAGES]),
+                        ("rgb", decoded[:FAST_CPU_IMAGES])):
+        with torch.inference_mode():
+            e = [embed_query(m, torch.from_numpy(batch).to(dev), mean, std,
+                             torch.float64, False, (h, w)).cpu()
+                 for dev, m in models.items()]
+        rel = float(((e[0] - e[1]).norm(dim=1) / e[1].norm(dim=1)).max())
+        log(f"float64 embed of {FAST_CPU_IMAGES} {name} images (the unpack "
+            f"in fp32), card against CPU: max relative L2 {rel:.3e} (tol "
+            f"{FAST_CPU_TOL})")
+        require(rel <= FAST_CPU_TOL, f"{name} embed: card differs from CPU")
+    del models
+
+    with _pack_without_native_decoder():
+        for name, ckpt in (("trained (phase 8)", trained),
+                           ("seeded random", cfg.MODEL.PRETRAIN_PATH)):
+            c_rgb, c_fast = cfg.clone(), fast.clone()
+            c_rgb.MODEL.PRETRAIN_PATH = c_fast.MODEL.PRETRAIN_PATH = ckpt
+            m = load_inference_model(c_rgb, "cuda")
+            paths = list_images_flat(os.path.join(eval_root, "market1501",
+                                                  "bounding_box_test"))
+            e_rgb, _ = run_inference(m, c_rgb, paths)
+            e_yuv, _ = run_inference(m, c_fast, paths)
+            require(e_yuv.dtype == np.float32 and e_yuv.shape == e_rgb.shape
+                    and np.isfinite(e_yuv).all(),
+                    f"fast ingest: {e_yuv.dtype} {e_yuv.shape}")
+            cos = (e_rgb * e_yuv).sum(1) / (
+                np.linalg.norm(e_rgb, axis=1) * np.linalg.norm(e_yuv, axis=1))
+            log(f"run_inference over {len(paths)} eval JPEGs, {name} model, "
+                f"TPU.FAST_DECODE off / on: embedding cosine min "
+                f"{cos.min():.6f}, mean {cos.mean():.6f}, share above "
+                f"{FAST_COSINE}: {(cos > FAST_COSINE).mean():.4f}")
+            del m
+
+        # the index embedded with the flag on, as create_embeddings does
+        e_fast, _ = run_inference(model, fast, list_images_flat(folder))
+        gallery = state["gallery"].copy()
+        gallery[state["rows"]] = e_fast / np.linalg.norm(e_fast, axis=1,
+                                                         keepdims=True)
+        svcs = {k: RetrievalService(fast, gallery, state["paths"], k=k,
+                                    device="cuda", model=model)
+                for k in (10, 100)}
+        rgb_svc = RetrievalService(cfg, state["gallery"], state["paths"],
+                                   k=100, device="cuda", model=model)
+        require(svcs[100].ingest_format == "yuv420"
+                and np.array_equal(svcs[100].ingest_bytes(jpegs), packed)
+                and packed.shape == (len(jpegs), h * w * 3 // 2),
+                f"fast ingest: {svcs[100].ingest_format} {packed.shape}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for k, svc in svcs.items():
+            for r in range(0, len(jpegs), REQUEST):
+                d, idx, _ = svc.query_arrays(packed[r:r + REQUEST])
+                require(d.shape == (REQUEST, k) and np.isfinite(d).all()
+                        and (idx[:, 0] == state["rows"][r:r + REQUEST]).all(),
+                        f"fast ingest k={k}: top-1 is not the image's own row")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for name in BF16_KERNELS:
+            require(launches[name] > 0, f"fast ingest did not launch {name}")
+        log(f"serve-fast-decode, k=10 and k=100: {len(jpegs) // REQUEST} "
+            f"requests of {REQUEST} packed images each against the index "
+            f"embedded with the flag on, every top-1 the image's own row; "
+            f"kernel launches: {launches}")
+        share = {}
+        for name, batch in (("yuv420", packed), ("rgb", decoded)):
+            share[name] = float(np.mean([
+                rgb_svc.query_arrays(batch[r:r + REQUEST])[1][:, 0]
+                == state["rows"][r:r + REQUEST]
+                for r in range(0, len(jpegs), REQUEST)]))
+        log(f"against phase 4's index (rows embedded from the images before "
+            f"JPEG, RGB): top-1 the image's own row for {share['yuv420']:.4f}"
+            f" of the packed JPEG queries, {share['rgb']:.4f} of the "
+            f"RGB-decoded ones (printed, not held: the seeded random trunk "
+            f"moves with JPEG noise alone)")
+
+        out = {}
+        cells = {"rgb": (rgb_svc, decoded[:REQUEST]),
+                 "yuv420": (svcs[100], packed[:REQUEST])}
+        lat = {name: [] for name in cells}
+        for name in ("rgb", "yuv420", "yuv420", "rgb"):
+            svc, x = cells[name]
+            request_ms(svc, x, 3)
+            lat[name] += request_ms(svc, x, 30)
+        for name, (svc, x) in cells.items():
+            busy = device_busy_ms(lambda: svc.query_arrays(x), 10)
+            out[name] = (float(np.percentile(lat[name], 50)), busy, x.nbytes)
+        for name, (p50, busy, nb) in out.items():
+            log(f"serve-k100, {name} ingest: query_arrays p50 {p50:.4f} ms "
+                f"(host clock, 60 requests), device busy "
+                + ("not measured" if busy is None else f"{busy:.4f} ms")
+                + f" per request (torch.profiler, 10 requests), {nb} bytes to "
+                f"the card per {REQUEST}-image request [{gpu}]")
+        t = {}
+        for name in ("rgb", "yuv420"):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                ingest_blobs(name, (h, w), jpegs)
+            t[name] = (time.perf_counter() - t0) / (5 * len(jpegs)) * 1e3
+        log(f"host decode of one {h}x{w} JPEG (q95): {t['rgb']:.4f} ms to "
+            f"RGB, {t['yuv420']:.4f} ms to packed YUV420 (decoder: "
+            f"{'native' if native.available() else 'PIL'}) [{gpu}]")
+        del svcs, rgb_svc, cells
+
+        index = os.path.join(tmp, "http_index_fast")
+        os.makedirs(index)
+        np.save(os.path.join(index, "embeddings.npy"), gallery)
+        np.save(os.path.join(index, "paths.npy"), state["paths"])
+        server = _serve_cli(index, cfg.MODEL.PRETRAIN_PATH,
+                            "TPU.FAST_DECODE", "True")
+        svc, port = server.service, server.port
+        try:
+            status, hz, _ = _http(port, "GET", "/healthz")
+            require(status == 200 and hz["ingest"] == "yuv420",
+                    f"/healthz: {hz}")
+            n = N_IMAGES // REQUEST
+            bodies = _served(port, payloads[:n])
+            launches = launch_counts()
+            for r, body in enumerate(bodies):
+                _hold("serve-http-fast", svc, blobs[r], rows[r], body)
+                require([res["indices"][0] for res in body["results"]]
+                        == [int(state["rows"][i]) for i in rows[r]],
+                        "serve-http-fast: top-1 is not the image's own row")
+            require(launches["scores"] > 0 and launches["kpass_topk"] > 0,
+                    f"serve-http-fast did not launch K1 and K3: {launches}")
+            _serial(port, payloads, 5)
+            lat = _serial(port, payloads, 60)
+            out["http_p50"] = float(np.percentile(lat, 50))
+            log(f"serve-http-fast: {n} serial /search requests held against "
+                f"query_arrays on the same packed images (/healthz ingest "
+                f"yuv420), every top-1 the image's own row; /search p50 "
+                f"{out['http_p50']:.4f} ms, p90 "
+                f"{np.percentile(lat, 90):.4f} ms "
+                f"(60 serial requests; decode: "
+                f"{'native' if native.available() else 'PIL, standing in'}"
+                f") [{gpu}]")
+            _request_parts("serve-http-fast", svc, payloads, out["http_p50"],
+                           gpu)
+        finally:
+            server.shutdown()
+        return out
+
+
+def _request_parts(name: str, svc, payloads: list, p50: float,
+                   gpu: str) -> None:
+    """The host's share of a serial request, piece by piece: base64 and
+    decode (``ingest_bytes``), ``query_arrays``, the response's JSON."""
+    import base64
+
+    parts = {"base64 + JPEG decode": [], "query_arrays": [],
+             "JSON of the response": []}
+    for r in range(20):
+        t0 = time.perf_counter()
+        dec = svc.ingest_bytes([base64.b64decode(x) for x in
+                                payloads[r % len(payloads)]["images_b64"]])
+        t1 = time.perf_counter()
+        d, idx, paths = svc.query_arrays(dec)
+        t2 = time.perf_counter()
+        json.dumps({"results": [
+            {"paths": [str(p) for p in paths[i]],
+             "indices": [int(j) for j in idx[i]],
+             "distances": [float(x) for x in d[i]]}
+            for i in range(len(dec))]})
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    log(f"{name}, one {REQUEST}-image request in parts (host clock, p50 of "
+        f"20, outside the server): "
+        + ", ".join(f"{k} {np.percentile(v, 50):.4f} ms"
+                    for k, v in parts.items())
+        + f"; the rest of the {p50:.4f} ms p50 is HTTP, the client's JSON "
+        f"and the handler [{gpu}]")
+
+
+def phase_serve_http(state: dict, tmp: str, trained: str,
+                     eval_root: str) -> dict:
     """Phase 9, online serving: phase 4's 100,000 x 2048 gallery written as
     a create_embeddings index, served by ``build_from_args`` (ResNet-50
     bf16, k=100, dynamic batching, warm-up of the buckets 1-64), plain,
@@ -2500,30 +2857,7 @@ def phase_serve_http(state: dict, tmp: str) -> dict:
             f"closed loop, batching (2 ms window, max 64 rows; {len(ms)} "
             f"requests) [{gpu}]")
 
-        # the host's share of a serial request, piece by piece
-        parts = {"base64 + JPEG decode": [], "query_arrays": [],
-                 "JSON of the response": []}
-        for r in range(20):
-            t0 = time.perf_counter()
-            dec = svc.ingest_bytes([base64.b64decode(x) for x in
-                                    payloads[r]["images_b64"]])
-            t1 = time.perf_counter()
-            d, idx, paths = svc.query_arrays(dec)
-            t2 = time.perf_counter()
-            json.dumps({"results": [
-                {"paths": [str(p) for p in paths[i]],
-                 "indices": [int(j) for j in idx[i]],
-                 "distances": [float(x) for x in d[i]]}
-                for i in range(len(dec))]})
-            t3 = time.perf_counter()
-            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
-                parts[key].append(dt * 1e3)
-        log(f"serve-http, one {REQUEST}-image request in parts (host clock, "
-            f"p50 of 20, outside the server): "
-            + ", ".join(f"{k} {np.percentile(v, 50):.4f} ms"
-                        for k, v in parts.items())
-            + f"; the rest of the {out['serial_p50']:.4f} ms p50 is HTTP, "
-            f"the client's JSON and the handler [{gpu}]")
+        _request_parts("serve-http", svc, payloads, out["serial_p50"], gpu)
 
         # 429: a second server on the same service with max_pending 1
         shed = RetrievalHTTPServer(svc, port=0, batch_window_ms=2,
@@ -2543,6 +2877,10 @@ def phase_serve_http(state: dict, tmp: str) -> dict:
     finally:
         server.shutdown()
     del server, svc
+    fast = phase_serve_fast(state, tmp, trained, eval_root, payloads, blobs,
+                            rows, gpu)
+    log(f"/search p50, serial, bf16 k=100: {out['serial_p50']:.4f} ms RGB "
+        f"ingest, {fast['http_p50']:.4f} ms YUV420 ingest [{gpu}]")
 
     # ---- re-ranking: bf16 and int8 windows of 100, re-ranked on the card
     for name, extra, strict in (
@@ -2705,6 +3043,293 @@ def phase_rerank_market(gpu: str) -> None:
     require(err <= 1e-5 and same, "rerank_distmat card vs CPU")
 
 
+# -------------------------------------------------------- phase 10 ------
+
+# eval-stream-market500k: Market-1501's test split (3,368 queries, 15,913
+# gallery rows of 750 pids, 6 cameras) plus its published 500,000
+# distractors, one pid that no query holds: 1.74e9 query x gallery cells
+DISTRACTORS = 500_000
+STREAM_CAMS = 6
+STREAM_HELD_Q = 256            # queries held against the materialising path
+STREAM_CUT = (300, 20_000)     # queries x gallery rows held against the CPU
+STREAM_R = 100                 # windowed re-ranking: r, k1 20, k2 6, 0.3
+
+
+def _metrics_equal(a, b, tol: float = 1e-6) -> bool:
+    """The reference's ``_assert_same``: mAP, CMC, top-k and each query's
+    AP within ``tol``, the same query ids."""
+    return (abs(a.mAP - b.mAP) <= tol
+            and np.allclose(a.cmc, b.cmc, rtol=0, atol=tol)
+            and np.allclose(a.all_topk, b.all_topk, rtol=0, atol=tol)
+            and np.array_equal(a.single_performance[:, 0],
+                               b.single_performance[:, 0])
+            and np.allclose(a.single_performance[:, 2],
+                            b.single_performance[:, 2], rtol=0, atol=tol))
+
+
+def _materialised_ranks(qf, gf, sr, q_pids, g_pids, q_cams, g_cams):
+    """Each hit of ``sr.pos`` ranked among the kept entries of the stable
+    argsort of the materialising path's distance matrix, on the card."""
+    import torch
+
+    from centroids_reid_tpu_torch.metrics.r1_map import compute_distmat_device
+
+    order = torch.argsort(compute_distmat_device(qf, gf), dim=1, stable=True)
+    gp = torch.as_tensor(g_pids, device=qf.device)[order]
+    gc = torch.as_tensor(g_cams, device=qf.device)[order]
+    qp = torch.as_tensor(q_pids, device=qf.device)[:, None]
+    qc = torch.as_tensor(q_cams, device=qf.device)[:, None]
+    kept = torch.cumsum(~((gp == qp) & (gc == qc)), dim=1) - 1
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=qf.device).expand_as(
+            order).contiguous())
+    pos = torch.as_tensor(sr.pos.astype(np.int64), device=qf.device)
+    at = torch.gather(inv, 1, pos.clamp_min(0))
+    return torch.gather(kept, 1, at).cpu().numpy()
+
+
+def phase_eval_stream(gpu: str) -> None:
+    """Phase 10, cell eval-stream-market500k: ``R1mAP`` on Market-1501's test
+    split with 500,000 distractors switches to the streaming evaluator by
+    itself. Held: the first STREAM_HELD_Q queries against the card's
+    materialising path (AP and first ranks; the hit ranks that differ are
+    counted), ``streaming=True`` against ``False`` on the rows without the
+    distractors, the card against the CPU on a cut, and windowed re-ranked
+    evaluation (r = 100) on the whole cell, on a cut against ``eval_func``
+    on the explicitly stitched order (its windows selected by K3's plain
+    version). K3 runs the windows' selection and their ranks; at each of
+    its shapes it is held exactly against its plain version and timed by
+    graph replay."""
+    import torch
+
+    from centroids_reid_tpu_torch.metrics import (
+        R1mAP,
+        compute_stream_ranks,
+        eval_func,
+        eval_func_streaming,
+        eval_func_streaming_reranked,
+        r1_map,
+    )
+    from centroids_reid_tpu_torch.metrics.r1_map import compute_distmat_device
+    from centroids_reid_tpu_torch.ops import (
+        kpass_topk,
+        launch_counts,
+        rerank_topk,
+        reset_launch_counts,
+        retrieval,
+    )
+
+    log("== phase 10: evaluation at any gallery scale (eval-stream-"
+        "market500k)")
+    nq, ng, pids = MARKET
+    n_all = nq + ng + DISTRACTORS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    centers = torch.randn((pids, DIM), generator=gen, device="cuda")
+    pid = torch.randint(0, pids, (nq + ng,), generator=gen, device="cuda")
+    near = torch.randint(0, pids, (DISTRACTORS,), generator=gen,
+                         device="cuda")
+    # distractors lie around the identities' centres, further out than
+    # their own images (noise 1.0 against 0.8): hard negatives
+    f = torch.cat([centers[pid] + 0.8 * torch.randn(
+        (nq + ng, DIM), generator=gen, device="cuda"),
+        centers[near] + 1.0 * torch.randn((DISTRACTORS, DIM), generator=gen,
+                                           device="cuda")])
+    f /= f.norm(dim=1, keepdim=True)
+    pids_all = np.concatenate([pid.cpu().numpy(),
+                               np.full(DISTRACTORS, pids, np.int64)])
+    cams = torch.randint(0, STREAM_CAMS, (n_all,), generator=gen,
+                         device="cuda").cpu().numpy()
+    qf, gf = f[:nq], f[nq:]
+    q_pids, g_pids, q_cams, g_cams = (pids_all[:nq], pids_all[nq:],
+                                      cams[:nq], cams[nq:])
+    del centers, pid, near
+    torch.cuda.synchronize()
+    log(f"{nq} queries, {ng} + {DISTRACTORS} gallery rows x {DIM} on the "
+        f"card: {nq * (n_all - nq):.3e} cells (the streaming switch: "
+        f"{r1_map._STREAMING_CELLS:.3e})")
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"{name}: {secs:.3f} s (host clock, synchronized), peak "
+            f"{peak:.2f} GiB above the inputs [{gpu}]")
+        return res
+
+    # the whole cell through the user's entry point: R1mAP streams
+    calls = []
+    real = r1_map.eval_func_streaming
+    r1_map.eval_func_streaming = lambda *a, **k: calls.append(1) or real(
+        *a, **k)
+    try:
+        ev = R1mAP(nq)
+        m = run("R1mAP.compute, the whole cell (streaming by itself)",
+                lambda: ev.compute(f, pids_all, cams))
+    finally:
+        r1_map.eval_func_streaming = real
+    require(calls == [1], "R1mAP did not switch to the streaming evaluator")
+    require(np.isfinite(m.mAP) and 0 < m.mAP <= 1
+            and len(m.single_performance) == nq, f"whole cell: {m.mAP}")
+    log(f"eval-stream-market500k: mAP {m.mAP:.6f}, R1 {m.all_topk[0]:.6f}, "
+        f"R5 {m.all_topk[1]:.6f}, R10 {m.all_topk[2]:.6f}")
+
+    # the two passes alone: wall, then the card's busy time by operator
+    args = (q_pids, g_pids, q_cams, g_cams)
+    run("compute_stream_ranks, the whole cell",
+        lambda: compute_stream_ranks(qf, gf, *args))
+    t0 = time.perf_counter()
+    compute_stream_ranks(qf, gf, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, ops = op_device_ms(lambda: compute_stream_ranks(qf, gf, *args))
+    log("compute_stream_ranks under torch.profiler: " + (
+        f"device busy {busy:.1f} ms of the unprofiled call's {wall * 1e3:.1f}"
+        f" ms (idle share {1 - busy / (wall * 1e3):.4f}); by operator: "
+        + ", ".join(f"{name} {ms:.1f} ms" for name, ms in ops[:8])
+        if busy else "device time not measured (the profiler saw none)")
+        + f" [{gpu}]")
+
+    # the first queries against the card's materialising path (1.3e8 cells)
+    hq = STREAM_HELD_Q
+    args = (q_pids[:hq], g_pids, q_cams[:hq], g_cams)
+    m_s = run(f"eval_func_streaming, {hq} queries",
+              lambda: eval_func_streaming(qf[:hq], gf, *args))
+    m_m = run(f"R1mAP(streaming=False), {hq} queries",
+              lambda: R1mAP(hq, feat_norm=False, streaming=False).compute(
+                  torch.cat([qf[:hq], gf]),
+                  np.concatenate([q_pids[:hq], g_pids]),
+                  np.concatenate([q_cams[:hq], g_cams])))
+    sr = compute_stream_ranks(qf[:hq], gf, *args)
+    mat = _materialised_ranks(qf[:hq], gf, sr, *args)
+    valid = sr.pos >= 0
+    differ = int((sr.ranks != mat)[valid].sum())
+    first_s = np.where(valid, sr.ranks, 1 << 30).min(1)
+    first_m = np.where(valid, mat, 1 << 30).min(1)
+    ap_diff = np.abs(m_s.single_performance[:, 2]
+                     - m_m.single_performance[:, 2]).max()
+    log(f"{hq} queries x {len(g_pids)} rows ({hq * len(g_pids):.3e} cells): "
+        f"streaming against materialising: mAP {m_s.mAP:.6f} / "
+        f"{m_m.mAP:.6f}, max |AP diff| {ap_diff:.3e}"
+        f" (tol 1e-6), first ranks equal {np.array_equal(first_s, first_m)}"
+        f", {differ} of {int(valid.sum())} hit ranks differ")
+    require(_metrics_equal(m_s, m_m) and np.array_equal(first_s, first_m),
+            "streaming differs from the materialising path")
+
+    # streaming=True against False without the distractors
+    fm = f[:nq + ng]
+    m_t = run("R1mAP(streaming=True), Market size",
+              lambda: R1mAP(nq, streaming=True).compute(
+                  fm, pids_all[:nq + ng], cams[:nq + ng]))
+    m_f = run("R1mAP(streaming=False), Market size",
+              lambda: R1mAP(nq, streaming=False).compute(
+                  fm, pids_all[:nq + ng], cams[:nq + ng]))
+    log(f"Market size ({nq} x {ng}): streaming=True mAP {m_t.mAP:.6f}, "
+        f"False {m_f.mAP:.6f}, equal within 1e-6: "
+        f"{_metrics_equal(m_t, m_f)}")
+    require(_metrics_equal(m_t, m_f), "streaming=True differs from False")
+
+    # the card against the CPU on a cut
+    cq, cg = STREAM_CUT
+    cut = (q_pids[:cq], g_pids[:cg], q_cams[:cq], g_cams[:cg])
+    m_card = eval_func_streaming(qf[:cq], gf[:cg], *cut)
+    m_cpu = run(f"eval_func_streaming on the CPU, {cq} x {cg}",
+                lambda: eval_func_streaming(qf[:cq].cpu(), gf[:cg].cpu(),
+                                            *cut, device="cpu"))
+    r_card = compute_stream_ranks(qf[:cq], gf[:cg], *cut)
+    r_cpu = compute_stream_ranks(qf[:cq].cpu(), gf[:cg].cpu(), *cut,
+                                 device="cpu")
+    differ = int((r_card.ranks != r_cpu.ranks)[r_card.pos >= 0].sum())
+    log(f"cut {cq} x {cg}: card mAP {m_card.mAP:.6f}, CPU {m_cpu.mAP:.6f}, "
+        f"equal within 1e-6: {_metrics_equal(m_card, m_cpu)}; {differ} hit "
+        f"ranks differ")
+    require(_metrics_equal(m_card, m_cpu), "card streaming differs from CPU")
+
+    # windowed re-ranking on the whole cell, K3 shapes recorded with the
+    # first input K3 took at each
+    shapes, inputs = {}, {}
+    real_k3 = retrieval.kpass_topk
+
+    def k3(x, k):
+        key = (x.shape[0], x.shape[1], k)
+        shapes[key] = shapes.get(key, 0) + 1
+        if key not in inputs:
+            inputs[key] = x.clone()
+        return real_k3(x, k)
+
+    retrieval.kpass_topk = k3
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m_r = run(f"R1mAP(rerank=True, rerank_window={STREAM_R}), the whole "
+                  f"cell", lambda: R1mAP(nq, rerank=True,
+                                         rerank_window=STREAM_R).compute(
+                      f, pids_all, cams))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        retrieval.kpass_topk = real_k3
+    require(np.isfinite(m_r.mAP) and launches["kpass_topk"] > 0,
+            f"windowed re-ranked evaluation: {m_r.mAP}, {launches}")
+    log(f"eval-stream-market500k re-ranked (r={STREAM_R}, k1 20, k2 6, "
+        f"lambda 0.3): mAP {m_r.mAP:.6f} (not re-ranked {m.mAP:.6f}), R1 "
+        f"{m_r.all_topk[0]:.6f}; kernel launches {launches}; K3 launches "
+        f"by shape (rows, W, k): {shapes}")
+
+    # K3 exact at each of the cell's shapes: on the input it took there, on
+    # random rows (the tensors timed below) and on distance rows with ties
+    timed = {}
+    for (rows, w, k) in sorted(shapes):
+        timed[rows, w, k] = torch.rand((rows, w), generator=gen,
+                                       device="cuda")
+        for kind, x in (("the cell's input", inputs[rows, w, k]),
+                        ("random", timed[rows, w, k]),
+                        ("distances", rerank_rows(rows, w, gen))):
+            require(kpass_equal(x, k),
+                    f"K3 differs at [{rows},{w}] k={k} ({kind})")
+    log("K3 at the cell's shapes "
+        + ", ".join(f"[{r},{w}] k={k}" for r, w, k in sorted(shapes))
+        + ", on the first input the cell's run gave it at each, on random "
+        "rows and on squared distances with exact ties: values and indices "
+        "exact")
+    del inputs
+
+    # on a cut, against eval_func on the explicitly stitched order, whose
+    # windows are selected with K3's plain version
+    kw = dict(r=STREAM_R, k1=20, k2=6, lambda_value=0.3)
+    m_w = eval_func_streaming_reranked(qf[:cq], gf[:cg], *cut, **kw)
+    retrieval.kpass_topk = retrieval.kpass_topk_plain
+    try:
+        _, ridx = rerank_topk(qf[:cq], gf[:cg], **kw)
+    finally:
+        retrieval.kpass_topk = real_k3
+    order = torch.argsort(compute_distmat_device(qf[:cq], gf[:cg]), dim=1,
+                          stable=True).cpu().numpy()
+    ridx = ridx.cpu().numpy()
+    stitched = np.stack([np.concatenate(
+        [ridx[i], order[i][~np.isin(order[i], ridx[i])]])
+        for i in range(cq)])
+    m_o = eval_func(torch.from_numpy(stitched).cuda(), *cut)
+    log(f"cut {cq} x {cg} re-ranked: streaming mAP {m_w.mAP:.6f}, stitched "
+        f"oracle {m_o.mAP:.6f}, equal within 1e-6: {_metrics_equal(m_w, m_o)}")
+    require(_metrics_equal(m_w, m_o), "windowed evaluation against the oracle")
+
+    # K3 at the cell's shapes, graph replay, beside torch.topk and the bound
+    for (rows, w, k), n in sorted(shapes.items()):
+        x = timed[rows, w, k]
+        ms = graph_ms(lambda: kpass_topk(x, k))
+        lib = graph_ms(lambda: torch.topk(x, k, dim=1, largest=False))
+        b = rows * w * 4 + rows * k * (4 + 8)
+        log(f"K3 [{rows},{w}] k={k} ({n} launches in the cell's run): "
+            f"{ms * 1e3:.1f} us (graph replay), torch.topk {lib * 1e3:.1f} "
+            f"us, bound {b / HBM_PEAK_GBS / 1e6 * 1e3:.1f} us by bytes "
+            f"[{gpu}]")
+
+
 def main() -> int:
     import torch
 
@@ -2730,8 +3355,10 @@ def main() -> int:
         eval_state = phase_eval(tmp, ckpt)
         cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
         times = phase_timing(state, int8_state)
-        phase_train(tmp, ckpt, eval_state["root"])
-        phase_serve_http(state, tmp)
+        trained = phase_train(tmp, ckpt, eval_state["root"])["best"]
+        phase_serve_http(state, tmp, trained, eval_state["root"])
+    torch.cuda.empty_cache()
+    phase_eval_stream(gpu_line())
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path

@@ -234,14 +234,17 @@ def test_runner_refuses_unported_routes(eval_setup, opt, value, match):
     cfg = small_cfg(get_default_cfg, pth, data, str(tmp / "refused"))
     section, key = opt.split(".")
     setattr(getattr(cfg, section), key, value)
+    error = NotImplementedError
     if opt == "TEST.ONLY_TEST":
         # training is ported; its multi-group form is not
         cfg.TPU.NUM_GROUPS = 2
     else:
-        # full re-ranking is ported; windowed re-ranked evaluation needs
-        # the streaming evaluator, refused at startup
+        # full and windowed re-ranking are ported; windowed re-ranking
+        # with rank visualisation is the reference's startup ValueError
         cfg.TPU.RERANK_WINDOW = 50
-    with pytest.raises(NotImplementedError, match=match):
+        cfg.TEST.VISUALIZE = "yes"
+        error = ValueError
+    with pytest.raises(error, match=match):
         runner.run_single(cfg, "ctl", "test", device="cpu")
 
 
@@ -274,8 +277,9 @@ def test_validate_rerank_config_refuses_what_evaluation_cannot_do(
         eval_setup, monkeypatch):
     """At startup: full re-ranking of an eval set past the guard raises
     the reference's ValueError (with and without centroids, counted
-    exactly), windowed re-ranked evaluation NotImplementedError; without
-    ``TPU.RERANK`` nothing is checked."""
+    exactly), and so does windowed re-ranking with ``TEST.VISUALIZE``;
+    windowed re-ranking alone passes at any size; without ``TPU.RERANK``
+    nothing is checked."""
     from centroids_reid_tpu.data import init_dataset as jinit
     from centroids_reid_tpu.engine import evaluate as jevaluate
     from centroids_reid_tpu.ops import rerank as jrerank
@@ -307,9 +311,14 @@ def test_validate_rerank_config_refuses_what_evaluation_cannot_do(
             jevaluate.validate_rerank_config(jcfg, jds)
         assert str(port.value) == str(ref.value)
         assert "plain eval N=42" in str(port.value)
-    cfg.TPU.RERANK_WINDOW = 50
-    with pytest.raises(NotImplementedError, match="streaming"):
+    cfg.TPU.RERANK_WINDOW = jcfg.TPU.RERANK_WINDOW = 50
+    evaluate.validate_rerank_config(cfg, ds)
+    cfg.TEST.VISUALIZE = jcfg.TEST.VISUALIZE = "yes"
+    with pytest.raises(ValueError) as port:
         evaluate.validate_rerank_config(cfg, ds)
+    with pytest.raises(ValueError) as ref:
+        jevaluate.validate_rerank_config(jcfg, jds)
+    assert str(port.value) == str(ref.value)
 
 
 def test_runner_main_parses_the_training_cli_flags(eval_setup, tmp_path):

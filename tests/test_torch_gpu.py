@@ -900,3 +900,91 @@ def test_reranked_service_on_gpu_matches_cpu(cuda, int8):
     (dc, ic, _), (dg, ig, _) = out["cpu"], out[str(cuda)]
     np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4)
     _same_ranking(dg, ig, ic, tol=1e-4)
+
+
+def _stream_set(seed, q=150, g=3000, d=64, pids=40):
+    """Integer-valued clustered rows (exact distances, many ties, a
+    duplicated gallery row) with pids, cameras and a query of no pid."""
+    rng = np.random.RandomState(seed)
+    f = _integer_clusters(seed, q + g, d=d, clusters=pids)
+    f[q + 7] = f[q + 900] = f[q + 2999]
+    pids_all = rng.randint(0, pids, q + g)
+    pids_all[q + 900] = pids_all[q + 2999] = pids_all[q + 7]
+    cams = rng.randint(0, 6, q + g)
+    pids_all[0] = pids + 3
+    return (f[:q], f[q:], pids_all[:q], pids_all[q:], cams[:q], cams[q:])
+
+
+def test_stream_ranks_on_card_equal_cpu(cuda):
+    """The streaming passes on the card (g_chunk 1024: 3 tiles, the last
+    ragged) give the CPU's per-hit ranks and distances exactly, and each
+    rank is the hit's position among the kept entries of the stable
+    argsort: no positive counts itself."""
+    from centroids_reid_tpu_torch.metrics import compute_stream_ranks
+    from centroids_reid_tpu_torch.metrics.r1_map import compute_distmat
+
+    qf, gf, qp, gp, qc, gc = _stream_set(30)
+    card = compute_stream_ranks(qf, torch.from_numpy(gf).to(cuda), qp, gp,
+                                qc, gc, g_chunk=1024)
+    cpu = compute_stream_ranks(qf, gf, qp, gp, qc, gc, g_chunk=1024,
+                               device="cpu")
+    np.testing.assert_array_equal(card.ranks, cpu.ranks)
+    np.testing.assert_array_equal(card.dpos, cpu.dpos)
+    order = np.argsort(compute_distmat(qf, gf, device="cpu"), axis=1,
+                       kind="stable")
+    for q in range(len(qf)):
+        keep = ~((gp[order[q]] == qp[q]) & (gc[order[q]] == qc[q]))
+        rank_of = (np.cumsum(keep) - 1)[np.argsort(order[q])]
+        hits = card.pos[q][card.pos[q] >= 0]
+        np.testing.assert_array_equal(card.ranks[q, :len(hits)],
+                                      rank_of[hits])
+
+
+@pytest.mark.parametrize("rerank_window", [0, 40])
+def test_r1map_streaming_on_card_matches_materialising(cuda, rerank_window):
+    """``R1mAP(streaming=True)`` on the card equals its materialising path
+    (mAP, CMC within 1e-6); with ``rerank_window`` the windowed re-ranked
+    evaluation on the card equals the CPU's."""
+    from centroids_reid_tpu_torch.metrics import R1mAP
+
+    qf, gf, qp, gp, qc, gc = _stream_set(31)
+    rng = np.random.RandomState(31)
+    feats = np.concatenate([qf, gf]) + rng.rand(len(qf) + len(gf), 64)
+    feats = feats.astype(np.float32)
+    pids, cams = np.concatenate([qp, gp]), np.concatenate([qc, gc])
+    kw = dict(rerank=bool(rerank_window), rerank_window=rerank_window,
+              rerank_k1=8, rerank_k2=4)
+    got = R1mAP(len(qf), streaming=True, device=cuda, **kw).compute(
+        torch.from_numpy(feats).to(cuda), pids, cams)
+    ref = (R1mAP(len(qf), device="cpu", **kw) if rerank_window
+           else R1mAP(len(qf), streaming=False, device=cuda))
+    ref = ref.compute(feats, pids, cams)
+    assert abs(got.mAP - ref.mAP) <= 1e-6
+    np.testing.assert_allclose(got.cmc, ref.cmc, atol=1e-6)
+    np.testing.assert_array_equal(got.single_performance[:, 0],
+                                  ref.single_performance[:, 0])
+    np.testing.assert_allclose(got.single_performance[:, 2],
+                               ref.single_performance[:, 2], atol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(256, 128), (32, 16)])
+def test_yuv420_unpack_on_card_equals_cpu(cuda, hw):
+    """``yuv420_to_rgb`` and ``normalize_yuv420_batch`` on the card against
+    the CPU: the chroma upsample is exact, the BT.601 products round in
+    fp32 (1e-4 on [0, 255]; 1e-5 normalised)."""
+    from centroids_reid_tpu_torch import native
+    from centroids_reid_tpu_torch.data import transforms as T
+
+    rng = np.random.RandomState(32)
+    imgs = rng.randint(0, 256, (8, *hw, 3)).astype(np.uint8)
+    packed = torch.from_numpy(np.stack([native.rgb_to_yuv420_np(i)
+                                        for i in imgs]))
+    card = T.yuv420_to_rgb(packed.to(cuda), hw)
+    assert card.device.type == "cuda"
+    np.testing.assert_allclose(card.cpu().numpy(),
+                               T.yuv420_to_rgb(packed, hw).numpy(), rtol=0,
+                               atol=1e-4)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    np.testing.assert_allclose(
+        T.normalize_yuv420_batch(packed.to(cuda), hw, mean, std).cpu(),
+        T.normalize_yuv420_batch(packed, hw, mean, std), rtol=0, atol=1e-5)

@@ -1,12 +1,13 @@
 """The port stands without JAX and without the JAX package: importing it,
-serving a query on the CPU through the bf16 path and the int8 path (PTQ
-embed + int8 gallery), a re-ranked service behind the HTTP server
-answering one /search, an ONLY_TEST evaluation through its runner (also
-re-ranked), a one-epoch training run and its resume, the offline CLIs'
-flows (``find_similar`` also re-ranked), and importing ``chip_smoke`` load
-neither jax nor flax nor optax nor orbax nor any module of
-``centroids_reid_tpu``; no source file of the port imports it; and the
-service refuses what is not ported."""
+serving a query on the CPU through the bf16 path, the fast ingest (packed
+YUV420) and the int8 path (PTQ embed + int8 gallery), a re-ranked service
+behind the HTTP server answering one /search, a streaming evaluation, an
+ONLY_TEST evaluation through its runner (also re-ranked, fully and in
+windows, and with its rank visualisation), a one-epoch training run and its
+resume, the offline CLIs' flows (``find_similar`` also re-ranked), and
+importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
+any module of ``centroids_reid_tpu``; no source file of the port imports
+it; and the service refuses what is not ported."""
 
 import os
 import re
@@ -34,6 +35,7 @@ _SCRIPT = textwrap.dedent("""
         RetrievalService, build_embeddings, find_similar)
     from centroids_reid_tpu_torch.models import create_model
     from centroids_reid_tpu_torch.inference.server import RetrievalHTTPServer
+    from centroids_reid_tpu_torch.metrics import R1mAP
     from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
     from centroids_reid_tpu_torch.ops import rerank_distmat, rerank_topk
     import chip_smoke
@@ -51,6 +53,17 @@ _SCRIPT = textwrap.dedent("""
     Image.fromarray(img).save(buf, "PNG")
     d, idx, _ = svc.query_bytes([buf.getvalue()])
     assert d.shape == (1, 3) and np.isfinite(d).all(), d
+    cfg.TPU.FAST_DECODE = True
+    svc = RetrievalService(cfg, gallery, [str(i) for i in range(40)], k=3,
+                           device="cpu", model=model)
+    assert svc.ingest_format == "yuv420", svc.ingest_format
+    assert svc.ingest_bytes([buf.getvalue()]).shape == (1, 32 * 16 * 3 // 2)
+    d, idx, _ = svc.query_bytes([buf.getvalue()])
+    assert d.shape == (1, 3) and np.isfinite(d).all(), d
+    cfg.TPU.FAST_DECODE = False
+    m = R1mAP(8, streaming=True, device="cpu").compute(
+        gallery, np.arange(40) % 5, np.arange(40) % 2)
+    assert 0.0 <= m.mAP <= 1.0, m
     qfn = quantize_reid_model(model, [img[None]], cfg.INPUT.PIXEL_MEAN,
                               cfg.INPUT.PIXEL_STD, use_pallas=True)
     svc = RetrievalService(cfg, gallery, [str(i) for i in range(40)], k=3,
@@ -98,7 +111,17 @@ _SCRIPT = textwrap.dedent("""
         cfg.TPU.RERANK = True
         out = runner.run_single(cfg, "ctl", "test", device="cpu")
         assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        cfg.TPU.RERANK_WINDOW = 2
+        out = runner.run_single(cfg, "ctl", "test", device="cpu")
+        assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
         cfg.TPU.RERANK = False
+        cfg.TPU.RERANK_WINDOW = 0
+        cfg.TEST.VISUALIZE = "yes"
+        cfg.OUTPUT_DIR = os.path.join(tmp, "vis")
+        runner.run_single(cfg, "ctl", "test", device="cpu")
+        pngs = os.listdir(os.path.join(tmp, "vis", "visrank"))
+        assert len(pngs) == 3 and all(p.endswith(".png") for p in pngs), pngs
+        cfg.TEST.VISUALIZE = "no"
         cfg.TEST.ONLY_TEST = False
         cfg.MODEL.PRETRAINED = False
         cfg.INPUT.SIZE_TRAIN = [32, 16]
@@ -165,6 +188,7 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert len(files) > 20 and not offenders, offenders
     scanned = {os.path.relpath(p, _REPO) for p in files}
     for module in ("ops/rerank.py", "inference/server.py",
+                   "metrics/streaming_eval.py", "metrics/visrank.py",
                    "losses/triplet.py", "losses/centroid.py",
                    "losses/classification.py", "solver/build.py",
                    "data/sampler.py", "data/device_data.py",
@@ -191,9 +215,10 @@ class _Int8EmbedStub:
     ("TPU.FAST_DECODE", {"use_int8_gallery": True}),
 ])
 def test_service_refuses_unported_options(option, kwargs):
-    """``mesh`` and ``TPU.FAST_DECODE`` are refused. ``rerank_window`` is
-    ported, on the bf16 / fp32 and the int8 gallery: it builds, clamped
-    to the gallery's 4 rows."""
+    """``mesh`` is refused. ``rerank_window`` is ported, on the bf16 / fp32
+    and the int8 gallery: it builds, clamped to the gallery's 4 rows.
+    ``TPU.FAST_DECODE`` is ported: without an int8 embed the service
+    ingests packed YUV420, on either gallery."""
     from centroids_reid_tpu_torch.config import get_default_cfg
     from centroids_reid_tpu_torch.inference import RetrievalService
 
@@ -205,6 +230,11 @@ def test_service_refuses_unported_options(option, kwargs):
         svc = RetrievalService(*args, device="cpu",
                                model=torch.nn.Identity(), **kwargs)
         assert svc.rerank_window == 4
+        return
+    if option == "TPU.FAST_DECODE":
+        svc = RetrievalService(*args, device="cpu",
+                               model=torch.nn.Identity(), **kwargs)
+        assert svc.ingest_format == "yuv420"
         return
     with pytest.raises(NotImplementedError, match=f"{option} .*not ported"):
         RetrievalService(*args, device="cpu", model=object(), **kwargs)

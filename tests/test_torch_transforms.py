@@ -37,8 +37,10 @@ def test_ingest_blobs_matches_jax():
     got = TT.ingest_blobs("rgb", (64, 32), blobs)
     np.testing.assert_array_equal(got, JT.ingest_blobs("rgb", (64, 32), blobs))
     assert got.shape == (4, 64, 32, 3) and got.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="FAST_DECODE"):
-        TT.ingest_blobs("yuv420", (64, 32), blobs)
+    packed = TT.ingest_blobs("yuv420", (64, 32), blobs)
+    np.testing.assert_array_equal(
+        packed, JT.ingest_blobs("yuv420", (64, 32), blobs))
+    assert packed.shape == (4, 64 * 32 * 3 // 2) and packed.dtype == np.uint8
 
 
 def test_decode_without_any_decoder_raises(monkeypatch):
