@@ -41,8 +41,10 @@ shape pays cuDNN's algorithm choice and the kernels' first use. A wedged
 CUDA call cannot be interrupted; the 503 path bounds only the requests
 waiting behind it, and /healthz reports it.
 
-Not ported: ``--artifact`` (``inference/export.py``; ROADMAP.md queue 1
-item 6.5, artifacts) and ``TPU.SHARDED_RETRIEVAL`` (item 6.4, multi-GPU).
+``--artifact`` serves a retriever artifact (``inference/export.py``):
+program, weights, gallery and paths come from the file, no checkpoint or
+index. Not ported: ``TPU.SHARDED_RETRIEVAL`` (ROADMAP.md queue 1 item 6.4,
+multi-GPU).
 Divergence from the JAX server: a 0-row batch dispatches nothing and gets
 an empty result (the reference's ``_dispatch_sliced`` raises on it).
 """
@@ -254,9 +256,10 @@ class _DynamicBatcher:
 
 
 class RetrievalHTTPServer:
-    """A ``RetrievalService`` (or any object with its ``paths``, ``k``,
-    ``ingest_format``, ``model_name``, ``ingest_bytes`` and
-    ``query_arrays``) behind a threaded HTTP server.
+    """A ``RetrievalService`` or ``export.LoadedRetriever`` (any object
+    with their ``paths``, ``k``, ``ingest_format``, ``model_name``,
+    ``input_size_hw``, ``ingest_bytes`` and ``query_arrays``) behind a
+    threaded HTTP server.
 
     ``port=0`` binds an ephemeral port (``server.port`` reports it).
     ``start_background()`` serves from a daemon thread, ``serve_forever()``
@@ -430,8 +433,7 @@ class RetrievalHTTPServer:
         svc = self.service
         if not max_rows:
             max_rows = self._batcher.max_batch if self._batcher else 1
-        shape = ingest_item_shape(svc.ingest_format,
-                                  tuple(svc.cfg.INPUT.SIZE_TEST))
+        shape = ingest_item_shape(svc.ingest_format, svc.input_size_hw)
         b = 1
         while True:
             svc.query_arrays(np.zeros((b, *shape), np.uint8))
@@ -536,7 +538,8 @@ def _make_handler(server: RetrievalHTTPServer):
 
 def build_from_args(argv=None) -> RetrievalHTTPServer:
     """The CLI: load a gallery index (``embeddings.npy`` + ``paths.npy`` of
-    ``create_embeddings``) and the model into a bound, not yet serving
+    ``create_embeddings``) and the model, or a retriever artifact
+    (``--artifact``), into a bound, not yet serving
     ``RetrievalHTTPServer``."""
     import argparse
     from pathlib import Path
@@ -553,8 +556,9 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
         help="dir with embeddings.npy/paths.npy from create_embeddings")
     parser.add_argument(
         "--artifact", type=str, default="",
-        help="a retriever artifact; not ported yet (ROADMAP.md queue 1 "
-             "item 6.5, artifacts)")
+        help="serve a retriever artifact (inference.export_model "
+             "--retriever): program, weights, gallery and paths from the "
+             "file; no checkpoint or index")
     parser.add_argument("--host", default="127.0.0.1", type=str)
     parser.add_argument("--port", default=8000, type=int)
     parser.add_argument(
@@ -610,12 +614,38 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
 
-    if args.artifact:
+    if args.artifact and args.int8_gallery:
         raise SystemExit(
-            "--artifact is not ported yet (inference/export.py); see "
-            "ROADMAP.md queue 1 item 6.5 (artifacts). Serve --gallery_data.")
+            "--int8_gallery applies to --gallery_data serving (the service "
+            "quantizes at build); artifacts carry their gallery in the file: "
+            "re-export instead")
+    if args.artifact:
+        # everything rides in the file; re-ranking is a load-time choice,
+        # with the TPU.RERANK_* defaults unless the flags say otherwise
+        from .export import load_retriever
+
+        dtpu = get_default_cfg().TPU
+        retriever = load_retriever(
+            args.artifact, args.device,
+            use_bf16_kernel=False if args.fp32_exact else None,
+            rerank_window=args.rerank_window,
+            rerank_k1=(dtpu.RERANK_K1 if args.rerank_k1 is None
+                       else args.rerank_k1),
+            rerank_k2=(dtpu.RERANK_K2 if args.rerank_k2 is None
+                       else args.rerank_k2),
+            rerank_lambda=(dtpu.RERANK_LAMBDA if args.rerank_lambda is None
+                           else args.rerank_lambda))
+        retriever.warmup()   # the first request must not pay a first use
+        server = RetrievalHTTPServer(
+            retriever, args.host, args.port,
+            batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
+            max_pending=args.max_pending, max_queue=args.max_queue,
+            dispatch_timeout_s=args.dispatch_timeout)
+        if args.warmup_buckets:
+            server.warmup_buckets(args.warmup_buckets)
+        return server
     if not args.gallery_data:
-        raise SystemExit("--gallery_data is required")
+        raise SystemExit("one of --gallery_data or --artifact is required")
     cfg = get_default_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)

@@ -342,6 +342,11 @@ class RetrievalService:
         return str(self.cfg.MODEL.NAME)
 
     @property
+    def input_size_hw(self):
+        """``INPUT.SIZE_TEST``, the (H, W) of the images it embeds."""
+        return self._size_hw
+
+    @property
     def ingest_format(self) -> str:
         """The wire format ``ingest_bytes`` produces, shared with the HTTP
         front's /healthz and warm-up: ``"rgb"`` for an int8 embed (it
@@ -357,8 +362,7 @@ class RetrievalService:
         """Encoded image bytes -> the uint8 batch ``query_arrays`` takes:
         RGB [B, H, W, 3] or packed YUV420 [B, 1.5 * H * W]. Host work
         only."""
-        return ingest_blobs(self.ingest_format,
-                            tuple(self.cfg.INPUT.SIZE_TEST), blobs)
+        return ingest_blobs(self.ingest_format, self._size_hw, blobs)
 
     def query_bytes(self, blobs: Sequence[bytes]):
         """Encoded image bytes -> (distances, indices, paths)."""

@@ -543,12 +543,15 @@ class QuantizedEmbed:
         out.extra_meta = self.extra_meta
         return out
 
-    def apply(self, qtree, imgs_u8):
+    def apply(self, qtree, imgs_u8, packed: Optional[Dict] = None):
         """The forward on explicit parameters: ``imgs_u8`` a uint8 tensor on
-        the parameters' device."""
+        the parameters' device. ``packed``: the fused convs' K-major
+        weights by ``id`` of their HWIO weight (as ``_Int8Engine`` keeps
+        them); None uses this embed's own, packed at first use."""
         f = dict(qtree)
         f.update(self._static)
-        eng = _Int8Engine(f, self._use_pallas, self._acc_dtype, self._packed)
+        eng = _Int8Engine(f, self._use_pallas, self._acc_dtype,
+                          self._packed if packed is None else packed)
         return _embed_tail(f["bnneck"], _backbone_forward(eng, f, imgs_u8))
 
     @torch.inference_mode()
@@ -627,6 +630,94 @@ class QuantizedEmbed:
         )
         out.extra_meta = meta.get("extra", {})
         return out
+
+
+def _fused_convs(qtree, plan, use_pallas):
+    """``(block index, conv name, kind)`` of every conv of ``qtree`` that
+    ``_Int8Engine`` may run on K5 ("matmul") or K6 ("conv3x3") at some
+    input size: the block plan's convs at their strides, the hw gate of
+    ``use_pallas == "large"`` left open. IBN's first conv never fuses (its
+    InstanceNorm runs between the conv and the requantization)."""
+    eng = _Int8Engine({}, use_pallas)
+    out = []
+    for i, (_, kind, _, stride, has_ds, use_ibn) in enumerate(plan):
+        if kind == "bottleneck":
+            convs = [("conv1", 1), ("conv2", stride), ("conv3", 1)]
+            if use_ibn:
+                convs = convs[1:]
+        else:
+            convs = [("conv1", stride), ("conv2", 1)]
+        if has_ds:
+            convs.append(("ds", stride))
+        for name, s in convs:
+            fused = eng._kernel_eligible(qtree["blocks"][i][name], s, 1 << 30)
+            if fused is not None:
+                out.append((i, name, fused))
+    return out
+
+
+class QuantizedEmbedModule(torch.nn.Module):
+    """An exportable view of a ``QuantizedEmbed``: ``forward(imgs_u8)`` is
+    ``qfn.apply(qtree, imgs_u8)``, with every tensor of the qtree a buffer
+    and, beside them, the K-major copy of every conv the engine fuses
+    (``_fused_convs``), packed once here. ``torch.export`` then records the
+    packed weights as constants of the program and the K5 / K6 operators
+    read them: no ``pack_weight`` runs inside the program."""
+
+    def __init__(self, qfn: "QuantizedEmbed"):
+        from ..ops.int8_conv import pack_weight
+
+        super().__init__()
+        self.qfn = qfn
+        self._skeleton = _tree_map_path(self._register_leaf, qfn.qtree, ())
+        self._packs: List[Tuple[str, str]] = []
+        for i, name, kind in _fused_convs(qfn.qtree, qfn._static["plan"],
+                                          qfn._use_pallas):
+            w = qfn.qtree["blocks"][i][name]["w"]
+            w_name = _leaf_name(("blocks", i, name, "w"))
+            self.register_buffer("packed" + w_name[1:], pack_weight(
+                w if kind == "conv3x3" else w.reshape(w.shape[2], w.shape[3])))
+            self._packs.append((w_name, "packed" + w_name[1:]))
+
+    def _register_leaf(self, path, v):
+        if not torch.is_tensor(v):
+            return v
+        self.register_buffer(_leaf_name(path), v)
+        return _Leaf(_leaf_name(path))
+
+    def forward(self, imgs_u8):
+        qtree = _tree_map(lambda v: getattr(self, v.name)
+                          if isinstance(v, _Leaf) else v, self._skeleton)
+        packed = {}
+        for w_name, p_name in self._packs:
+            w = getattr(self, w_name)
+            packed[id(w)] = (w, getattr(self, p_name))
+        n_packed = len(packed)
+        out = self.qfn.apply(qtree, imgs_u8, packed=packed)
+        if len(packed) != n_packed:
+            raise RuntimeError("a fused conv's weight was packed inside the "
+                               "program: _fused_convs missed it")
+        return out
+
+
+class _Leaf:
+    """A tensor's place in the skeleton of ``QuantizedEmbedModule``."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+
+def _leaf_name(path) -> str:
+    """A buffer name for a qtree path (act scale keys hold dots)."""
+    return "q__" + "__".join(str(p).replace(".", "_") for p in path)
+
+
+def _tree_map_path(fn, tree, path):
+    if isinstance(tree, dict):
+        return {k: _tree_map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
 def quantize_reid_model(model, calib_batches, pixel_mean: Sequence[float],

@@ -32,9 +32,14 @@ exact in any order) and runs the epilogue on it. One launch and no
 workspace: nothing outlives a launch, so launches on any stream are
 independent.
 
-A wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+Each wrapper runs through a PyTorch operator, ``torch.ops.crt.
+matmul_requant`` and ``torch.ops.crt.conv3x3_requant`` (``torch.library.
+custom_op``, with a fake implementation that gives the int8 output's
+shape), so that ``torch.export`` records a launch as one node of the
+program (``inference/export.py``) where it cannot follow a ``ctypes`` call
+on ``data_ptr()``. The operator takes its plain version only for tensors
+on the CPU; for CUDA tensors it launches its kernel or raises. Each launch
+adds one to ``LAUNCHES[name]``.
 """
 
 from __future__ import annotations
@@ -187,12 +192,13 @@ def matmul_requant_plain(x, w, scale, bias, res=None, res_scale=None,
     return _epilogue_plain(acc, scale, bias, relu, res, res_scale)
 
 
-def matmul_requant(x, w, scale, bias, res=None, res_scale=None,
-                   relu: bool = True, w_packed=None):
-    """K5: int8 [M, K] x [K, N] -> int8 [M, N] with the fused epilogue;
-    ``res`` an optional int8 [M, N] residual with scalar ``res_scale``;
-    ``w_packed`` an optional ``pack_weight(w)``. Kernel shapes: K % 64 ==
-    0, N % 64 == 0."""
+def _matmul_requant_impl(x: torch.Tensor, w: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         res: Optional[torch.Tensor],
+                         res_scale: Optional[torch.Tensor], relu: bool,
+                         w_packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """The body of the operator ``crt::matmul_requant``: the plain version
+    for CPU tensors, else the kernel."""
     tensors = [x, w, scale, bias] + [t for t in (res, w_packed)
                                      if t is not None]
     if _on_cpu(*tensors):
@@ -212,6 +218,27 @@ def matmul_requant(x, w, scale, bias, res=None, res_scale=None,
     return out
 
 
+_matmul_requant_op = torch.library.custom_op(
+    "crt::matmul_requant", _matmul_requant_impl, mutates_args=())
+
+
+@_matmul_requant_op.register_fake
+def _(x, w, scale, bias, res, res_scale, relu, w_packed):
+    return x.new_empty((x.shape[0], w.shape[-1]), dtype=torch.int8)
+
+
+def matmul_requant(x, w, scale, bias, res=None, res_scale=None,
+                   relu: bool = True, w_packed=None):
+    """K5: int8 [M, K] x [K, N] -> int8 [M, N] with the fused epilogue;
+    ``res`` an optional int8 [M, N] residual with scalar ``res_scale``;
+    ``w_packed`` an optional ``pack_weight(w)``. Kernel shapes: K % 64 ==
+    0, N % 64 == 0. Runs the operator ``torch.ops.crt.matmul_requant``,
+    which ``torch.export`` records as one node."""
+    return torch.ops.crt.matmul_requant(
+        x, w, scale, bias, res, _res_scale_arg(res, res_scale, x),
+        bool(relu), w_packed)
+
+
 # --------------------------------------------------------------- K6 ------
 
 def conv3x3_requant_plain(x_nhwc, w_hwio, scale, bias, res_nhwc=None,
@@ -229,11 +256,13 @@ def conv3x3_requant_plain(x_nhwc, w_hwio, scale, bias, res_nhwc=None,
     return _epilogue_plain(acc, scale, bias, relu, res_nhwc, res_scale)
 
 
-def conv3x3_requant(x_nhwc, w_hwio, scale, bias, res_nhwc=None,
-                    res_scale=None, relu: bool = True, w_packed=None):
-    """K6: stride-1, pad-1 3x3 int8 conv [B, H, W, K] -> [B, H, W, N] with
-    the fused epilogue; weights HWIO [3, 3, K, N], ``w_packed`` an optional
-    ``pack_weight(w_hwio)``. Kernel shapes: K % 64 == 0, N % 64 == 0."""
+def _conv3x3_requant_impl(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor,
+                          res_nhwc: Optional[torch.Tensor],
+                          res_scale: Optional[torch.Tensor], relu: bool,
+                          w_packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """The body of the operator ``crt::conv3x3_requant``: the plain version
+    for CPU tensors, else the kernel."""
     tensors = [x_nhwc, w_hwio, scale, bias] + [
         t for t in (res_nhwc, w_packed) if t is not None]
     if _on_cpu(*tensors):
@@ -255,6 +284,36 @@ def conv3x3_requant(x_nhwc, w_hwio, scale, bias, res_nhwc=None,
             w_packed, scale, bias, res_nhwc, rs, relu, out, (b, h, wd),
             b * h * wd, k, n, 9)
     return out
+
+
+_conv3x3_requant_op = torch.library.custom_op(
+    "crt::conv3x3_requant", _conv3x3_requant_impl, mutates_args=())
+
+
+@_conv3x3_requant_op.register_fake
+def _(x_nhwc, w_hwio, scale, bias, res_nhwc, res_scale, relu, w_packed):
+    return x_nhwc.new_empty((*x_nhwc.shape[:3], w_hwio.shape[-1]),
+                            dtype=torch.int8)
+
+
+def conv3x3_requant(x_nhwc, w_hwio, scale, bias, res_nhwc=None,
+                    res_scale=None, relu: bool = True, w_packed=None):
+    """K6: stride-1, pad-1 3x3 int8 conv [B, H, W, K] -> [B, H, W, N] with
+    the fused epilogue; weights HWIO [3, 3, K, N], ``w_packed`` an optional
+    ``pack_weight(w_hwio)``. Kernel shapes: K % 64 == 0, N % 64 == 0. Runs
+    the operator ``torch.ops.crt.conv3x3_requant``."""
+    return torch.ops.crt.conv3x3_requant(
+        x_nhwc, w_hwio, scale, bias, res_nhwc,
+        _res_scale_arg(res_nhwc, res_scale, x_nhwc), bool(relu), w_packed)
+
+
+def _res_scale_arg(res, res_scale, like) -> Optional[torch.Tensor]:
+    """``res_scale`` as the operators take it: an fp32 tensor on the device
+    of ``like`` (a Python or numpy scalar converted), or None without a
+    residual."""
+    if res is None or res_scale is None:
+        return None
+    return _res_scale(res_scale, like)
 
 
 def _checked_packed(w, w_packed, shape) -> torch.Tensor:

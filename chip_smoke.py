@@ -47,7 +47,13 @@ bf16 autocast) and seeded random weights:
   test split plus 500,000 distractors (1.74e9 cells) switches to the
   streaming evaluator, held against the materialising path, the CPU and,
   re-ranked in windows of 100, the stitched-order oracle. ONLY_TEST (phase
-  5) also runs windowed re-ranking and ``TEST.VISUALIZE``.
+  5) also runs windowed re-ranking and ``TEST.VISUALIZE``;
+* serving artifacts (phase 11, ``inference/export.py``): the bf16 embedder
+  (symbolic batch, programs for the card and the CPU), retrievers of phase
+  4's gallery at k=100 (also re-ranked at load, r=100) and k=10, and the
+  int8 embedder of the fused engine (K5 and K6 as the operators
+  ``torch.ops.crt.*``), each held against the live path it came from, with
+  the same kernel launches per call; the HTTP front over ``--artifact``.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -63,7 +69,11 @@ Phase 3b holds K5 and K6 against their plain versions at every shape of an
 8-image int8 embed call. Phase 9 times /search (p50 serial, requests/s, p50
 and p99 at concurrency 8), the device busy time of a re-ranked request
 split into selection and re-rank, the kernels' launches per request, and
-the dense re-ranker at Market-1501's size with its peak memory.
+the dense re-ranker at Market-1501's size with its peak memory. Phase 11
+prints export and load seconds and file bytes, the artifacts' embed rate
+(CUDA events) and request and ``/search`` p50 beside the live path's, in
+turns, and K5's and K6's host cost a launch through their operators and
+through the operators' bodies. Each phase prints its seconds.
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
@@ -533,7 +543,8 @@ def phase_compare_int8() -> dict:
     from centroids_reid_tpu_torch.ops import retrieval as R
     from centroids_reid_tpu_torch.ops import retrieval_int8 as R8
 
-    log("== phase 3b: int8 kernels against their plain versions")
+    log("== phase 3b: int8 kernels (through the operators torch.ops.crt.*) "
+        "against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE   # 100352
     errs = {}
@@ -3043,6 +3054,326 @@ def phase_rerank_market(gpu: str) -> None:
     require(err <= 1e-5 and same, "rerank_distmat card vs CPU")
 
 
+# -------------------------------------------------------- phase 11 ------
+
+ARTIFACT_BATCH = 8       # the retriever and int8 artifacts' fixed batch
+
+
+def _rel_err(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| over max |b|."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _interleaved_p50(a, b, imgs) -> tuple:
+    """Host-clock p50 of ``a.query_arrays`` and ``b.query_arrays`` over
+    2 x 30 requests each, in turns a, b, b, a (after 5 of each)."""
+    request_ms(a, imgs, 5)
+    request_ms(b, imgs, 5)
+    a1, b1, b2, a2 = (request_ms(a, imgs, 30), request_ms(b, imgs, 30),
+                      request_ms(b, imgs, 30), request_ms(a, imgs, 30))
+    return float(np.percentile(a1 + a2, 50)), float(np.percentile(b1 + b2,
+                                                                  50))
+
+
+def _request_launches(svc, imgs, n: int) -> dict:
+    """Kernel launches per request of ``n`` requests of ``imgs``."""
+    import torch
+
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(n):
+        svc.query_arrays(imgs)
+    torch.cuda.synchronize()
+    return {k: v / n for k, v in launch_counts().items() if v}
+
+
+def _traced_kernels(svc, imgs) -> dict:
+    """{kernel: launches} of K1, K2 and K3 that torch.profiler sees in one
+    request (a trace that lost launches is taken again)."""
+    tags = (("scores_kernel", "scores"),
+            ("stream_topk_partial_kernel", "stream_topk"),
+            ("kpass_topk_kernel", "kpass_topk"))
+
+    def complete(per, counts):
+        return all(sum(n for k, (_, n) in per.items() if k.startswith(tag))
+                   == counts[c] for tag, c in tags)
+
+    per, _ = kernel_device_us(lambda: svc.query_arrays(imgs),
+                              complete=complete)
+    return {k: n for k, (_, n) in per.items()
+            if k.startswith(("scores", "stream_topk", "kpass_topk"))}
+
+
+def phase_artifacts(state: dict, int8_state: dict, tmp: str) -> None:
+    """Phase 11, serving artifacts (``inference/export.py``) of phase 4's
+    model: the bf16 embedder (symbolic batch; programs for the card and
+    the CPU), bf16 retrievers of the 100,000 x 2048 gallery at k = 100 and
+    k = 10 (batch 8), the int8 embedder of phase 4b's fused engine, each
+    held against the live path it was exported from, and the HTTP front
+    over ``--artifact`` beside phase 9's over ``--gallery_data``."""
+    import copy
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.inference import export as X
+    from centroids_reid_tpu_torch.inference.server import build_from_args
+    from centroids_reid_tpu_torch.inference.service import embed_query
+    from centroids_reid_tpu_torch.ops import int8_conv as C
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 11: serving artifacts (torch.export)")
+    gpu = gpu_line()
+    cfg, model, imgs = state["cfg"], state["model"], state["imgs"]
+    mean, std = cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD
+
+    def save(name, blobs, meta, aux=b""):
+        path = os.path.join(tmp, name)
+        X.save_artifact(path, blobs, meta, aux=aux)
+        log(f"{name}: export seconds by device type "
+            + ", ".join(f"{p} {s:.2f}" for p, s in
+                        meta["export_seconds"].items())
+            + f"; file {os.path.getsize(path)} bytes (programs "
+            + ", ".join(f"{p} {len(b)}" for p, b in blobs.items())
+            + f", aux {len(aux)}) [{gpu}]")
+        return path
+
+    def load(what, *args, **kw):
+        t0 = time.perf_counter()
+        out = what(*args, **kw)
+        torch.cuda.synchronize()
+        log(f"  loaded onto {args[1]} in {time.perf_counter() - t0:.2f} s")
+        return out
+
+    # ---- the bf16 embedder: the card's program, then the CPU's
+    blobs, meta = X.export_embedder(model, cfg)
+    require(meta["platforms"] == ["cuda", "cpu"], f"platforms {meta}")
+    path = save("embedder.crt", blobs, meta)
+    emb = load(X.load_embedder, path, "cuda")
+    got = emb.embed(imgs)
+    with torch.inference_mode():
+        live = embed_query(model, torch.from_numpy(imgs).cuda(), mean, std,
+                           torch.bfloat16, normalize=True).cpu().numpy()
+    err = _rel_err(got, live)
+    log(f"embedder on the card, {N_IMAGES} images: max |diff| / max |live| "
+        f"{err:.3e} against embed_query (tol 1e-5), bit-identical "
+        f"{np.array_equal(got, live)}")
+    require(err <= 1e-5, "the card's artifact embed differs from the live")
+    cpu_model = copy.deepcopy(model).cpu()
+    emb_cpu = load(X.load_embedder, path, "cpu")
+    got = emb_cpu.embed(imgs[:REQUEST])
+    with torch.inference_mode():
+        live = embed_query(cpu_model, torch.from_numpy(imgs[:REQUEST]), mean,
+                           std, torch.bfloat16, normalize=True).numpy()
+    err = _rel_err(got, live)
+    log(f"embedder on the CPU, {REQUEST} images: max |diff| / max |live| "
+        f"{err:.3e} against embed_query on the CPU (tol 1e-5)")
+    require(np.isfinite(got).all() and err <= 1e-5,
+            "the CPU's artifact embed differs from the live")
+    del cpu_model, emb_cpu
+    x = torch.from_numpy(_images(256, SEED + 2)).cuda()
+    with torch.inference_mode():
+        def art():
+            emb.program(x)
+
+        def lv():
+            embed_query(model, x, mean, std, torch.bfloat16, normalize=True)
+
+        l1, a1, a2, l2 = cuda_ms(lv, 10), cuda_ms(art, 10), cuda_ms(art, 10), \
+            cuda_ms(lv, 10)
+    log(f"embed ResNet-50 256x128 bf16, batch 256 (CUDA events, in turns): "
+        f"artifact {a1:.3f}/{a2:.3f} ms = {512e3 / (a1 + a2):.1f} images/s, "
+        f"live embed_query {l1:.3f}/{l2:.3f} ms = {512e3 / (l1 + l2):.1f} "
+        f"images/s [{gpu}]")
+    del emb, x
+
+    # ---- bf16 retrievers: k = 100 (card and CPU programs), k = 10
+    gallery, paths, rows = state["gallery"], state["paths"], state["rows"]
+    blobs, meta, aux = X.export_retriever(model, cfg, gallery, paths, k=100,
+                                          batch_size=ARTIFACT_BATCH)
+    ret_path = save("retriever_k100.crt", blobs, meta, aux)
+    blobs, meta, aux = X.export_retriever(model, cfg, gallery, paths, k=10,
+                                          batch_size=ARTIFACT_BATCH,
+                                          platforms=("cuda",))
+    k10_path = save("retriever_k10.crt", blobs, meta, aux)
+    del blobs, aux
+    live_rr = RetrievalService(cfg, gallery, paths, k=100, device="cuda",
+                               model=model, rerank_window=100)
+    cells = {
+        "artifact-k100": (load(X.load_retriever, ret_path, "cuda"),
+                          state["services"][100]),
+        "artifact-k10": (load(X.load_retriever, k10_path, "cuda"),
+                         state["services"][10]),
+        "artifact-k100-rerank-r100": (
+            load(X.load_retriever, ret_path, "cuda", rerank_window=100),
+            live_rr),
+    }
+    for name, (ret, svc) in cells.items():
+        require(ret._gf.dtype == torch.bfloat16, f"{name}: not bf16")
+        worst = 0.0
+        for r in range(N_IMAGES // REQUEST):
+            q = imgs[r * REQUEST:(r + 1) * REQUEST]
+            d, i, p = ret.query_arrays(q)
+            sd, si, sp = svc.query_arrays(q)
+            require(np.array_equal(i, si) and np.array_equal(p, sp),
+                    f"{name}: indices differ from the live service")
+            require(np.allclose(d, sd, rtol=1e-5, atol=1e-6),
+                    f"{name}: distances differ from the live service")
+            worst = max(worst, float(np.abs(d - sd).max()))
+            if "rerank" not in name:
+                require((i[:, 0] == rows[r * REQUEST:(r + 1) * REQUEST]
+                         ).all(), f"{name}: top-1 is not the own row")
+        q = imgs[:REQUEST]
+        mine, theirs = (_request_launches(ret, q, 4),
+                        _request_launches(svc, q, 4))
+        require(mine == theirs and mine, f"{name}: launches per request "
+                f"{mine}, live {theirs}")
+        traced = (_traced_kernels(ret, q), _traced_kernels(svc, q))
+        require(traced[0] == traced[1], f"{name}: traced {traced}")
+        log(f"{name}: {N_IMAGES // REQUEST} requests x {REQUEST} images "
+            f"equal the live service (indices; distances max |diff| "
+            f"{worst:.3e}, tol 1e-5 relative)"
+            + ("" if "rerank" in name else ", top-1 the own row")
+            + f"; kernel launches per request {mine} (live {theirs}); "
+            f"torch.profiler per request {traced[0]} (live {traced[1]})")
+    for name in ("artifact-k10", "artifact-k100"):
+        ret, svc = cells[name]
+        a, b = _interleaved_p50(ret, svc, imgs[:REQUEST])
+        log(f"{name}: query_arrays p50 {a:.4f} ms, live service {b:.4f} ms "
+            f"({REQUEST} images, host clock, 2 x 30 requests each, in "
+            f"turns) [{gpu}]")
+    ret100 = cells["artifact-k100"][0]
+    del cells, live_rr
+
+    # ---- the int8 embedder of the fused engine (K5 / K6 as operators)
+    qfn = int8_state["qfn"]
+    blobs, meta = X.export_embedder(model, cfg, batch_size=ARTIFACT_BATCH,
+                                    platforms=("cuda",), int8_qfn=qfn)
+    path = save("int8.crt", blobs, meta)
+    emb8 = load(X.load_embedder, path, "cuda")
+    got = emb8.embed(imgs)
+    with torch.inference_mode():
+        # normalised a batch at a time, as the artifact does: the norm's
+        # reduction rounds by the number of rows
+        live = torch.cat([e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
+                          for e in (qfn(imgs[s:s + ARTIFACT_BATCH])
+                                    for s in range(0, N_IMAGES,
+                                                   ARTIFACT_BATCH))])
+        live = live.cpu().numpy()
+    err = _rel_err(got, live)
+    log(f"int8 embedder, {N_IMAGES} images: max |diff| / max |live| "
+        f"{err:.3e} against the live QuantizedEmbed (tol 1e-6), "
+        f"bit-identical {np.array_equal(got, live)}")
+    require(err <= 1e-6, "the int8 artifact differs from the live qfn")
+    q = imgs[:ARTIFACT_BATCH]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    emb8.embed(q)
+    torch.cuda.synchronize()
+    mine = launch_counts()
+    reset_launch_counts()
+    with torch.inference_mode():
+        qfn(q)
+    torch.cuda.synchronize()
+    theirs = launch_counts()
+    pair = ("matmul_requant", "conv3x3_requant")
+    require([mine[k] for k in pair] == [theirs[k] for k in pair] == [36, 14],
+            f"int8 artifact K5/K6 launches {mine}, live {theirs}")
+    log(f"int8 embedder, one call of {ARTIFACT_BATCH} images: K5 "
+        f"{mine['matmul_requant']} and K6 {mine['conv3x3_requant']} "
+        f"launches, as the live engine's ({theirs['matmul_requant']}, "
+        f"{theirs['conv3x3_requant']}); phase 3b held both operators "
+        f"against their plain versions")
+    # the host cost of one launch through the operator, and of the
+    # operator's body called directly (the route before the operator), at
+    # a layer-1 K5 shape and layer 4's K6 shape of a batch-8 call
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x5, w5, s5, b5, _, _ = requant_inputs(gen, 16384, 256, 64)
+    x6, w6, s6, b6, _, _ = requant_inputs(gen, 8 * 16 * 8, 9 * 512, 512)
+    x6 = x6[:, :512].reshape(8, 16, 8, 512).contiguous()
+    w6 = w6.reshape(3, 3, 512, 512)
+    p5, p6 = C.pack_weight(w5), C.pack_weight(w6)
+    routes = {
+        "matmul_requant": (
+            lambda: C.matmul_requant(x5, w5, s5, b5, w_packed=p5),
+            lambda: C._matmul_requant_impl(x5, w5, s5, b5, None, None, True,
+                                           p5)),
+        "conv3x3_requant": (
+            lambda: C.conv3x3_requant(x6, w6, s6, b6, w_packed=p6),
+            lambda: C._conv3x3_requant_impl(x6, w6, s6, b6, None, None,
+                                            True, p6)),
+    }
+    for name, (op, body) in routes.items():
+        with torch.inference_mode():
+            b1, o1, o2, b2 = (host_us_per_launch(body),
+                              host_us_per_launch(op), host_us_per_launch(op),
+                              host_us_per_launch(body))
+        log(f"{name}: host {(o1 + o2) / 2:.2f} us per launch through "
+            f"torch.ops.crt ({o1:.2f}/{o2:.2f}), {(b1 + b2) / 2:.2f} us "
+            f"calling the operator's body directly ({b1:.2f}/{b2:.2f}; the "
+            f"route before the operator), inference mode, 50 calls each "
+            f"[{gpu}]")
+    del emb8
+
+    # ---- the HTTP front over --artifact
+    import base64
+
+    b64 = [_jpeg(im) for im in imgs]
+    n = N_IMAGES // REQUEST
+    reqs = [_request_rows(r) for r in range(n)]
+    payloads = [{"images_b64": [b64[i] for i in rr]} for rr in reqs]
+    blobs = [[base64.b64decode(b64[i]) for i in rr] for rr in reqs]
+    t0 = time.perf_counter()
+    server = build_from_args([
+        "--artifact", ret_path, "--port", "0", "--batch_window_ms", "2",
+        "--max_batch", "64", "--warmup_buckets", "64"]).start_background()
+    log(f"server --artifact: built in {time.perf_counter() - t0:.1f} s "
+        f"(artifact load, gallery on the card, warm-up of the buckets "
+        f"1-64)")
+    try:
+        svc, port = server.service, server.port
+        status, h, _ = _http(port, "GET", "/healthz")
+        require(status == 200 and h["gallery_size"] == GALLERY_ROWS
+                and h["k"] == 100 and h["model"] == cfg.MODEL.NAME,
+                f"/healthz: {h}")
+        bodies = _served(port, payloads)
+        launches = launch_counts()
+        for r, body in enumerate(bodies):
+            _hold("artifact-http", svc, blobs[r], reqs[r], body)
+        require(launches["scores"] > 0 and launches["kpass_topk"] > 0,
+                f"artifact-http did not launch K1 and K3: {launches}")
+        log(f"artifact-http: {n} serial /search requests of {REQUEST} JPEGs, "
+            f"each equal to query_arrays on the same decoded images; kernel "
+            f"launches per request "
+            + ", ".join(f"{k} {v / n:g}" for k, v in launches.items() if v))
+        # serial p50 beside the --gallery_data server of the same model and
+        # gallery (phase 9's index), in turns
+        indexed = _serve_cli(os.path.join(tmp, "http_index"),
+                             cfg.MODEL.PRETRAIN_PATH)
+        try:
+            ports = {"--artifact": port, "--gallery_data": indexed.port}
+            lat = {name: [] for name in ports}
+            for name in ports:
+                _serial(ports[name], payloads, 5)
+            for name in ("--gallery_data", "--artifact", "--artifact",
+                         "--gallery_data"):
+                lat[name] += _serial(ports[name], payloads, 30)
+        finally:
+            indexed.shutdown()
+        log(f"/search p50, serial {REQUEST}-image requests, bf16 k=100 "
+            f"(host clock, 2 x 30 requests each, in turns): "
+            + ", ".join(f"{name} {np.percentile(v, 50):.4f} ms (p90 "
+                        f"{np.percentile(v, 90):.4f})"
+                        for name, v in lat.items()) + f" [{gpu}]")
+    finally:
+        server.shutdown()
+    del server, ret100
+    torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------- phase 10 ------
 
 # eval-stream-market500k: Market-1501's test split (3,368 queries, 15,913
@@ -3342,23 +3673,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_env()
-    phase_build()
-    errs = phase_compare()
-    k2u_err, k2u_launches = phase_compare_k2u()
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        log(f"-- phase {phase}: {seconds[phase]:.1f} s")
+        return out
+
+    timed("1", phase_env)
+    timed("2", phase_build)
+    errs = timed("3", phase_compare)
+    k2u_err, k2u_launches = timed("3a", phase_compare_k2u)
     errs.update(k2u_err)
-    errs.update(phase_compare_int8())
+    errs.update(timed("3b", phase_compare_int8))
     with tempfile.TemporaryDirectory() as tmp:
-        state = phase_serve(tmp)
-        int8_state = phase_serve_int8(state)
+        state = timed("4", phase_serve, tmp)
+        int8_state = timed("4b", phase_serve_int8, state)
         ckpt = state["cfg"].MODEL.PRETRAIN_PATH
-        eval_state = phase_eval(tmp, ckpt)
-        cli_launches = phase_cli(tmp, ckpt, eval_state["root"])
-        times = phase_timing(state, int8_state)
-        trained = phase_train(tmp, ckpt, eval_state["root"])["best"]
-        phase_serve_http(state, tmp, trained, eval_state["root"])
+        eval_state = timed("5", phase_eval, tmp, ckpt)
+        cli_launches = timed("6", phase_cli, tmp, ckpt, eval_state["root"])
+        times = timed("7", phase_timing, state, int8_state)
+        trained = timed("8", phase_train, tmp, ckpt,
+                        eval_state["root"])["best"]
+        timed("9", phase_serve_http, state, tmp, trained, eval_state["root"])
+        timed("11", phase_artifacts, state, int8_state, tmp)
     torch.cuda.empty_cache()
-    phase_eval_stream(gpu_line())
+    timed("10", phase_eval_stream, gpu_line())
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path
@@ -3378,6 +3720,8 @@ def main() -> int:
     log(f"re-ranked evaluation kernel launches (K3 ranks each row of the "
         f"re-ranker's distance matrix): "
         f"{eval_state['runs']['rerank']['launches']}")
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in seconds.items()))
     log(f"all checks passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source,

@@ -10,7 +10,7 @@ so K1, K2, K2u and K4 must equal their plain versions bit for bit; K3 is
 exact by construction; K5 and K6 accumulate exactly in int32 and round
 their epilogue op by op, so they equal their plain versions bit for bit.
 The evaluation metrics and the wide-row selection run on the card against
-the same code on the CPU."""
+the same code on the CPU, the serving artifacts against the live path."""
 
 import numpy as np
 import pytest
@@ -988,3 +988,117 @@ def test_yuv420_unpack_on_card_equals_cpu(cuda, hw):
     np.testing.assert_allclose(
         T.normalize_yuv420_batch(packed.to(cuda), hw, mean, std).cpu(),
         T.normalize_yuv420_batch(packed, hw, mean, std), rtol=0, atol=1e-5)
+
+
+# ----------------------------------------------------- serving artifacts --
+
+@pytest.mark.parametrize("m,k,n,with_res,relu", K5_EMBED)
+def test_matmul_requant_operator_embed_shapes_exact(cuda, m, k, n, with_res,
+                                                    relu):
+    """K5 through the operator ``torch.ops.crt.matmul_requant`` (as an
+    exported program calls it) with a packed weight: bit for bit, one
+    launch."""
+    x, w, scale, bias, res, rs = _requant_inputs(cuda, m, k, n, with_res,
+                                                 k + n + 1)
+    C.reset_launch_counts()
+    got = torch.ops.crt.matmul_requant(x, w, scale, bias, res, rs, relu,
+                                       C.pack_weight(w))
+    assert C.LAUNCHES["matmul_requant"] == 1
+    assert torch.equal(got, C.matmul_requant_plain(
+        x, w, scale, bias, res=res, res_scale=rs, relu=relu))
+
+
+@pytest.mark.parametrize("b,h,w,k", K6_EMBED)
+def test_conv3x3_requant_operator_embed_shapes_exact(cuda, b, h, w, k):
+    x, wt, scale, bias, res, rs = _requant_inputs(
+        cuda, b * h * w, 9 * k, k, True, b + k + 1, res_shape=(b, h, w, k))
+    x = x[:, :k].reshape(b, h, w, k).contiguous()
+    wt = wt.reshape(3, 3, k, k)
+    C.reset_launch_counts()
+    got = torch.ops.crt.conv3x3_requant(x, wt, scale, bias, res, rs, True,
+                                        C.pack_weight(wt))
+    assert C.LAUNCHES["conv3x3_requant"] == 1
+    assert torch.equal(got, C.conv3x3_requant_plain(
+        x, wt, scale, bias, res_nhwc=res, res_scale=rs))
+
+
+def _artifact_model(mixed_precision):
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = mixed_precision
+    cfg.INPUT.SIZE_TEST = [64, 32]
+    model = create_model(cfg).cuda().to(memory_format=torch.channels_last)
+    imgs = np.random.RandomState(14).randint(0, 256, (8, 64, 32, 3)).astype(
+        np.uint8)
+    return cfg, model, imgs
+
+
+def test_int8_artifact_on_card_equals_live_qfn(cuda, tmp_path):
+    """The int8 program on the card runs K5 / K6 through the operators, as
+    often as the live engine, and equals it bit for bit."""
+    from centroids_reid_tpu_torch.inference import export as X
+    from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
+
+    cfg, model, imgs = _artifact_model(False)
+    qfn = quantize_reid_model(model, [imgs], cfg.INPUT.PIXEL_MEAN,
+                              cfg.INPUT.PIXEL_STD, use_pallas=True,
+                              acc_dtype=torch.int32)
+    blobs, meta = X.export_embedder(model, cfg, batch_size=8,
+                                    platforms=("cuda",), int8_qfn=qfn)
+    path = str(tmp_path / "int8.crt")
+    X.save_artifact(path, blobs, meta)
+    emb = X.load_embedder(path, cuda)
+    emb.warmup()
+    with torch.inference_mode():
+        live = qfn(imgs)
+        live = (live / live.norm(dim=1, keepdim=True)).cpu().numpy()
+    torch.cuda.synchronize()
+    C.reset_launch_counts()
+    with torch.inference_mode():
+        qfn(imgs)
+    torch.cuda.synchronize()
+    live_launches = dict(C.LAUNCHES)
+    C.reset_launch_counts()
+    got = emb.embed(imgs)
+    torch.cuda.synchronize()
+    assert dict(C.LAUNCHES) == live_launches
+    assert live_launches["matmul_requant"] > 0
+    assert live_launches["conv3x3_requant"] > 0
+    np.testing.assert_array_equal(got, live)
+
+
+def test_bf16_embedder_artifact_on_card_equals_embed_query(cuda, tmp_path):
+    """A symbolic-batch bf16 program traced on the card (autocast for
+    CUDA) equals the live embed at two batch sizes."""
+    from centroids_reid_tpu_torch.inference import export as X
+    from centroids_reid_tpu_torch.inference.service import embed_query
+
+    cfg, model, imgs = _artifact_model(True)
+    blobs, meta = X.export_embedder(model, cfg, platforms=("cuda", "cpu"))
+    path = str(tmp_path / "bf16.crt")
+    X.save_artifact(path, blobs, meta)
+    emb = X.load_embedder(path, cuda)
+    for n in (3, 8):
+        with torch.inference_mode():
+            live = embed_query(model, torch.from_numpy(imgs[:n]).cuda(),
+                               cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
+                               torch.bfloat16, True).cpu().numpy()
+        np.testing.assert_allclose(emb.embed(imgs[:n]), live, rtol=1e-5,
+                                   atol=1e-6)
+    cpu = X.load_embedder(path, "cpu").embed(imgs[:2])
+    assert cpu.shape == (2, 512) and np.isfinite(cpu).all()
+
+
+def test_cpu_only_artifact_refuses_the_card(cuda, tmp_path):
+    from centroids_reid_tpu_torch.inference import export as X
+
+    cfg, model, _ = _artifact_model(False)
+    blobs, meta = X.export_embedder(model, cfg, platforms=("cpu",))
+    path = str(tmp_path / "cpu.crt")
+    X.save_artifact(path, blobs, meta)
+    with pytest.raises(ValueError, match="no program for device type 'cuda'"):
+        X.load_embedder(path, cuda)

@@ -4,7 +4,9 @@ YUV420) and the int8 path (PTQ embed + int8 gallery), a re-ranked service
 behind the HTTP server answering one /search, a streaming evaluation, an
 ONLY_TEST evaluation through its runner (also re-ranked, fully and in
 windows, and with its rank visualisation), a one-epoch training run and its
-resume, the offline CLIs' flows (``find_similar`` also re-ranked), and
+resume, the offline CLIs' flows (``find_similar`` also re-ranked), the
+serving artifacts (an embedder and a retriever exported, saved, loaded and
+queried, and ``python -m ...inference.export_model`` run), and
 importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
 any module of ``centroids_reid_tpu``; no source file of the port imports
 it; and the service refuses what is not ported."""
@@ -24,7 +26,7 @@ from conftest import cpu_subprocess_env
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent("""
-    import base64, io, json, os, sys, tempfile, urllib.request
+    import base64, io, json, os, runpy, sys, tempfile, urllib.request
     import numpy as np
     import torch
     from PIL import Image
@@ -34,6 +36,9 @@ _SCRIPT = textwrap.dedent("""
     from centroids_reid_tpu_torch.inference import (
         RetrievalService, build_embeddings, find_similar)
     from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.inference.export import (
+        export_embedder, export_retriever, load_embedder, load_retriever,
+        save_artifact)
     from centroids_reid_tpu_torch.inference.server import RetrievalHTTPServer
     from centroids_reid_tpu_torch.metrics import R1mAP
     from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
@@ -106,6 +111,28 @@ _SCRIPT = textwrap.dedent("""
         cfg.MODEL.PRETRAIN_PATH = pth
         cfg.DATASETS.ROOT_DIR = os.path.join(tmp, "data")
         cfg.LOG_DIR = os.path.join(tmp, "logs")
+        art = os.path.join(tmp, "embedder.crt")
+        blobs, meta = export_embedder(model, cfg, platforms=("cpu",))
+        save_artifact(art, blobs, meta)
+        e = load_embedder(art, "cpu").embed(img[None])
+        assert e.shape == (1, 512) and np.isfinite(e).all(), e
+        blobs, meta, aux = export_retriever(
+            model, cfg, gallery, [str(i) for i in range(40)], k=3,
+            batch_size=2, platforms=("cpu",))
+        save_artifact(art, blobs, meta, aux=aux)
+        d, idx, _ = load_retriever(art, "cpu").query_bytes([buf.getvalue()])
+        assert d.shape == (1, 3) and np.isfinite(d).all(), d
+        argv = sys.argv
+        sys.argv = ["export_model", "--output", art, "--platforms", "cpu",
+                    "--device", "cpu", "MODEL.NAME", "resnet18",
+                    "INPUT.SIZE_TEST", "[32,16]", "USE_MIXED_PRECISION",
+                    "False", "MODEL.PRETRAIN_PATH", pth]
+        try:
+            runpy.run_module("centroids_reid_tpu_torch.inference.export_model",
+                             run_name="__main__")
+        finally:
+            sys.argv = argv
+        assert load_embedder(art, "cpu").embed(img[None]).shape == (1, 512)
         out = runner.run_single(cfg, "ctl", "test", device="cpu")
         assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
         cfg.TPU.RERANK = True
@@ -188,6 +215,7 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert len(files) > 20 and not offenders, offenders
     scanned = {os.path.relpath(p, _REPO) for p in files}
     for module in ("ops/rerank.py", "inference/server.py",
+                   "inference/export.py", "inference/export_model.py",
                    "metrics/streaming_eval.py", "metrics/visrank.py",
                    "losses/triplet.py", "losses/centroid.py",
                    "losses/classification.py", "solver/build.py",

@@ -318,7 +318,10 @@ def test_cli_build_serves_the_index_with_an_int8_embed(cli_index):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--artifact", "model.crtpu"], SystemExit, "artifacts"),
+    # --artifact is served (test_torch_server_artifact.py); with
+    # --int8_gallery it is refused, as in the JAX server
+    (["--artifact", "model.crtpu", "--int8_gallery"], SystemExit,
+     "artifacts"),
     (["TPU.SHARDED_RETRIEVAL", "True"], NotImplementedError, "multi-GPU"),
 ])
 def test_cli_refuses_unported_options(cli_index, extra, exc, match):
