@@ -130,17 +130,21 @@ def _prefetched(make_batches, depth: int) -> Iterator[dict]:
 
 
 class TrainLoader:
-    """Per-step host batches of the P x K identity trainer, one group.
+    """Per-step host batches of the P x K identity trainer, group-major
+    (``num_groups`` groups, the sampler's plan split as the JAX package's
+    ``TrainLoader`` splits it).
 
     Batch dict (numpy):
-      images  [P*K, H, W, 3] uint8 (mock slots zero)
-      labels  [P*K] int64
-      camids  [P*K] int64
-      is_real [P*K] bool
+      images  [G, P*K, H, W, 3] uint8 (mock slots zero)
+      labels  [G, P*K] int64
+      camids  [G, P*K] int64
+      is_real [G, P*K] bool
     """
 
-    def __init__(self, dataset: ReidDataset, cfg, prefetch: int = 2):
+    def __init__(self, dataset: ReidDataset, cfg, num_groups: int = 1,
+                 prefetch: int = 2):
         self.dataset = dataset
+        self.num_groups = num_groups
         self.batch_pids = cfg.SOLVER.IMS_PER_BATCH
         self.num_instances = cfg.DATALOADER.NUM_INSTANCE
         self.use_resampling = cfg.DATALOADER.USE_RESAMPLING
@@ -150,22 +154,23 @@ class TrainLoader:
 
     def plan_for_epoch(self, epoch: int) -> EpochPlan:
         return build_epoch_plan(self.dataset.train_dict, self.batch_pids,
-                                self.num_instances, 1, epoch,
+                                self.num_instances, self.num_groups, epoch,
                                 self.use_resampling)
 
     def _assemble(self, plan: EpochPlan, t: int) -> dict:
-        _, p, k = plan.sample_idx.shape[1:]
+        g, p, k = plan.sample_idx.shape[1:]
         h, w = self.store.size_hw
-        images = np.zeros((p * k, h, w, 3), np.uint8)
-        labels = np.zeros((p * k,), np.int64)
-        camids = np.zeros((p * k,), np.int64)
-        is_real = plan.is_real[t, 0].reshape(p * k).copy()
-        for i, idx in enumerate(plan.sample_idx[t, 0].reshape(p * k)):
-            rec = self._records[idx]
-            labels[i] = rec.pid
-            camids[i] = rec.camid
-            if is_real[i]:
-                images[i] = self.store.get(rec.path)
+        images = np.zeros((g, p * k, h, w, 3), np.uint8)
+        labels = np.zeros((g, p * k), np.int64)
+        camids = np.zeros((g, p * k), np.int64)
+        is_real = plan.is_real[t].reshape(g, p * k).copy()
+        for gi in range(g):
+            for i, idx in enumerate(plan.sample_idx[t, gi].reshape(p * k)):
+                rec = self._records[idx]
+                labels[gi, i] = rec.pid
+                camids[gi, i] = rec.camid
+                if is_real[gi, i]:
+                    images[gi, i] = self.store.get(rec.path)
         return {"images": images, "labels": labels, "camids": camids,
                 "is_real": is_real}
 

@@ -16,7 +16,7 @@ its own so that it imports nothing of the JAX package).
 
 The plan is built on the host as static-shape integer arrays, and is the
 JAX package's plan bit for bit for every epoch, G, P, K and resampling
-flag (tests/test_torch_train_data.py). The port trains one group (G = 1).
+flag (tests/test_torch_train_data.py).
 """
 
 from __future__ import annotations

@@ -13,6 +13,10 @@ epoch) and ``config.yml``:
 Saves are synchronous. A save writes into ``<dir>.tmp`` and renames it, so
 a crash never leaves a half-written checkpoint under a checkpoint's name.
 ``inference/api.py::load_inference_model`` reads such a directory.
+
+``restore_state`` also reads the orbax checkpoints of the JAX package
+(``engine/orbax_read``): its params, batch statistics, centers, Adam state
+and step, so ``fit`` resumes a run that the JAX package trained.
 """
 
 from __future__ import annotations
@@ -22,6 +26,13 @@ import shutil
 from typing import Optional
 
 import torch
+
+from ..models.convert import (
+    from_jax_opt_state,
+    from_jax_train_state,
+    load_converted,
+)
+from .orbax_read import is_orbax_checkpoint, read_checkpoint
 
 STATE_FILE = "state.pt"
 
@@ -110,14 +121,36 @@ class CheckpointManager:
 
 def restore_state(path: str, state):
     """Load checkpoint directory ``path`` into ``state`` (its model,
-    centers, optimizers and step), on the devices ``state`` lives on.
-    Returns ``state``."""
+    centers, optimizers and step), on the devices ``state`` lives on: a
+    directory of the port's ``fit`` (``state.pt``) or an orbax checkpoint of
+    the JAX package. Returns ``state``."""
+    if is_orbax_checkpoint(path):
+        return _restore_orbax(path, state)
     sd = load_state_file(path)
     state.model.load_state_dict(sd["model"])
     with torch.no_grad():
         state.centers.copy_(sd["centers"])
     state.optimizers.load_state_dict(sd["optimizers"])
     state.step = int(sd["step"])
+    return state
+
+
+def _restore_orbax(path: str, state):
+    """The JAX package's ``TrainState`` at ``path`` into ``state``: params
+    and batch statistics (``from_jax_params``), centers, the Adam moments
+    and count (``from_jax_opt_state``; the LR and weight decay stay the
+    config's, as ``fit`` sets the LR each epoch), and the step."""
+    tree = read_checkpoint(path)
+    sd, centers = from_jax_train_state(tree["params"], tree["batch_stats"])
+    load_converted(state.model, sd)
+    with torch.no_grad():
+        state.centers.copy_(centers)
+    trainable = [(n, p) for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+    opt = state.optimizers.state_dict()
+    opt["model"]["state"] = from_jax_opt_state(tree["opt_state"], trainable)
+    state.optimizers.load_state_dict(opt)
+    state.step = int(tree["step"])
     return state
 
 

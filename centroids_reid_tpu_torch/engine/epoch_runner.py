@@ -4,9 +4,12 @@ the plan's steps, each of which augments its batch on the card and takes a
 train step. Two batch sources feed it:
 
 * ``resident_batches``: the image bank on the card (``data/device_data``);
-  each step gathers its P x K rows with ``index_select``;
+  each step gathers its G x P x K rows with ``index_select``;
 * ``streamed_batches``: the host ``TrainLoader``'s uint8 batches, copied to
   the card from pinned memory without blocking.
+
+Batches are group-major ([G, P*K, ...], ``TPU.NUM_GROUPS``); augmentation
+draws for the G * P * K images in order, each group's images as its own.
 
 The step metrics are summed on the card; the caller reads their means with
 one host sync per epoch. (The JAX package's ``lax.scan``, step padding and
@@ -50,11 +53,12 @@ def resident_batches(bank: torch.Tensor, idx: torch.Tensor,
                      labels: torch.Tensor, is_real: torch.Tensor
                      ) -> Iterator[Batch]:
     """bank [N, H, W, 3] uint8 and the plan's idx / labels / is_real
-    [S, P*K], all on the card -> each step's (images, labels, is_real)."""
+    [S, G, P*K], all on the card -> each step's (images [G, P*K, H, W, 3],
+    labels, is_real)."""
     for t in range(idx.shape[0]):
         with annotate("gather"):
-            imgs = bank.index_select(0, idx[t])
-        yield imgs, labels[t], is_real[t]
+            imgs = bank.index_select(0, idx[t].flatten())
+        yield imgs.unflatten(0, idx.shape[1:]), labels[t], is_real[t]
 
 
 def streamed_batches(batches: Iterable[dict], device) -> Iterator[Batch]:
@@ -81,7 +85,8 @@ def run_epoch(train_step: Callable, batches: Iterable[Batch],
     n = 0
     for imgs, labels, is_real in batches:
         with annotate("augment"):
-            x = augment(imgs, is_real, generator)
+            x = augment(imgs.flatten(0, 1), is_real.flatten(),
+                        generator).unflatten(0, imgs.shape[:2])
         metrics = train_step(x, labels, is_real)
         for name, v in metrics.items():
             sums[name] = sums[name] + v if name in sums else v

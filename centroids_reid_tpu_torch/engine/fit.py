@@ -1,7 +1,8 @@
 """The training loop (counterpart of ``centroids_reid_tpu/engine/fit.py``,
 one process on one device).
 
-Per epoch: the LR of the schedule, the epoch's P x K identity plan, the
+Per epoch: the LR of the schedule, the epoch's identity plan of G groups of
+P x K images (G = ``num_groups``, as the JAX package's), the
 device-resident epoch (the image bank on the card, ``TPU.DEVICE_RESIDENT_DATA``
 within ``TPU.DEVICE_DATA_BUDGET_MB``) or the host-streamed one, the epoch
 metrics, the preemption stop, validation every ``SOLVER.EVAL_PERIOD``
@@ -59,6 +60,12 @@ def build_model_and_state(cfg, dataset, seed: int = 0,
     return create_train_state(cfg, model, dataset.num_classes, generator)
 
 
+def num_groups(cfg) -> int:
+    """The training group count G: ``TPU.NUM_GROUPS``, or with 0 the process
+    count, which is 1 (the port trains in one process)."""
+    return cfg.TPU.NUM_GROUPS or 1
+
+
 def _epoch_generator(base_seed: int, epoch: int, device) -> torch.Generator:
     seed = int(np.random.SeedSequence([base_seed, epoch]).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(seed)
@@ -100,7 +107,8 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
 
     logger = MetricsLogger(log_dir, "train")
     logger.log_params({"mode": mode, "seed": seed, "config": cfg.dump()})
-    loader = TrainLoader(dataset, cfg, prefetch=cfg.TPU.PREFETCH_DEPTH)
+    loader = TrainLoader(dataset, cfg, num_groups=num_groups(cfg),
+                         prefetch=cfg.TPU.PREFETCH_DEPTH)
     augment = make_augment(cfg)
     base_seed = cfg.REPRODUCIBLE_SEED + 17 * seed
     size_hw = tuple(cfg.INPUT.SIZE_TRAIN)
@@ -128,7 +136,7 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
                                and epoch == start_epoch):
                 if resident:
                     idx, labels, is_real = (
-                        torch.from_numpy(a[:, 0]).to(device)
+                        torch.from_numpy(a).to(device)
                         for a in plan_to_arrays(loader.plan_for_epoch(epoch),
                                                 dataset.train))
                     batches = resident_batches(bank, idx.long(),

@@ -2,10 +2,12 @@
 ``centroids_reid_tpu/engine/runner.py``): log-directory allocation, the
 ``REPRODUCIBLE`` run loop, the training route (``fit``: train, validate,
 checkpoint, then the double test) and the ONLY_TEST route, which loads a
-checkpoint (a reference ``.pth`` / ``.ckpt`` file or a checkpoint directory
-that ``fit`` wrote) and evaluates twice with ``MODEL.USE_CENTROIDS``
-toggled. The CLI of both root scripts, ``train_ctl_model.py`` (``--mode
-ctl``, the default) and ``train_base_model.py`` (``--mode base``):
+checkpoint (a reference ``.pth`` / ``.ckpt`` file, a checkpoint directory
+that ``fit`` wrote, or an orbax checkpoint of the JAX package) and evaluates
+twice with ``MODEL.USE_CENTROIDS`` toggled. ``run_single`` applies
+``TPU.MATMUL_PRECISION`` to the whole run, as the reference does. The CLI
+of both root scripts, ``train_ctl_model.py`` (``--mode ctl``, the default)
+and ``train_base_model.py`` (``--mode base``):
 
     python -m centroids_reid_tpu_torch.engine.runner \\
         --config_file configs/256_resnet50.yml \\
@@ -22,6 +24,7 @@ Runs on the card unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import Dict, Optional, Sequence
 
@@ -38,20 +41,60 @@ from .logging import MetricsLogger, next_version_dir
 
 def load_model_for_test(cfg, device="cuda") -> torch.nn.Module:
     """The eval model with the weights at ``MODEL.PRETRAIN_PATH`` (a
-    reference ``.pth`` / ``.ckpt`` file or a checkpoint directory of
-    ``fit``), on ``device``. An orbax checkpoint directory of the JAX
-    package raises ``NotImplementedError``, as ``load_inference_model``
-    does."""
+    reference ``.pth`` / ``.ckpt`` file, a checkpoint directory of ``fit``
+    or an orbax checkpoint of the JAX package), on ``device``."""
     if not cfg.MODEL.PRETRAIN_PATH:
         raise ValueError("TEST.ONLY_TEST requires MODEL.PRETRAIN_PATH")
     return load_inference_model(cfg, device)
+
+
+# TPU.MATMUL_PRECISION -> whether fp32 matmuls and convolutions may use
+# TF32 (None: leave the switches as they are)
+_TF32 = {"default": None, "highest": False, "float32": False,
+         "tensorfloat32": True}
+
+
+@contextlib.contextmanager
+def matmul_precision(value: str):
+    """``TPU.MATMUL_PRECISION`` for the enclosed work, the switches restored
+    afterwards: ``default`` leaves them; ``highest`` and ``float32`` turn
+    TF32 off for cuBLAS matmuls and cuDNN convolutions (exact fp32),
+    ``tensorfloat32`` turns it on. JAX's other values (``high`` is bf16_3x,
+    ``bfloat16`` one bf16 pass) have no cuBLAS / cuDNN setting that
+    computes the same thing and raise ``ValueError``."""
+    if value not in _TF32:
+        raise ValueError(
+            f"TPU.MATMUL_PRECISION {value!r} cannot be honoured on CUDA for "
+            f"training or evaluation; the port honours "
+            f"{', '.join(sorted(_TF32))}")
+    tf32 = _TF32[value]
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.set_float32_matmul_precision("high" if tf32 else "highest")
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
 
 
 def run_single(cfg, mode: str, logger_save_dir: str,
                device="cuda") -> Dict[str, float]:
     """One run under ``LOG_DIR/<logger_save_dir>/version_N``: ``fit`` in
     ``mode`` ('ctl' or 'base'), or with ``TEST.ONLY_TEST`` the metrics with
-    and without centroids, logged under ``test``."""
+    and without centroids, logged under ``test``; under
+    ``TPU.MATMUL_PRECISION`` (``matmul_precision``)."""
+    with matmul_precision(cfg.TPU.MATMUL_PRECISION):
+        return _run_single(cfg, mode, logger_save_dir, device)
+
+
+def _run_single(cfg, mode: str, logger_save_dir: str,
+                device) -> Dict[str, float]:
     log_dir = next_version_dir(cfg.LOG_DIR, logger_save_dir)
     print(f"Logging to {log_dir}")
     with open(os.path.join(log_dir, "config.yml"), "w") as f:

@@ -17,9 +17,24 @@ backward, the Adam step and the center SGD step.
   reference does. The JAX package's Flax ``BatchNorm`` uses the biased one:
   the two running variances differ by n / (n - 1) per layer, n = rows x H x
   W (ROADMAP.md queue 3).
-* One group: ``TPU.NUM_GROUPS`` > 1 raises ``NotImplementedError``. A trunk
-  forward over G * P * K rows would mix the groups' BN statistics, which
-  the JAX step's ``vmap`` keeps apart; at G = 1 the two agree.
+* Groups (``TPU.NUM_GROUPS``, the batch's leading axis): each group's
+  forward sees only its own P * K rows, so mining, centroids, the masked
+  BNNeck and the trunk's BN batch statistics are per group, as in the JAX
+  step's ``vmap``. The loss and the gradient are the mean over groups; the
+  trunk's and the BNNeck's running statistics become the mean of the
+  per-group updates from the shared starting value, the JAX package's
+  documented cross-group policy (``centroids_reid_tpu/engine/steps.py``).
+  The step loops over the groups: each group's forward and backward start
+  from the same parameters and running statistics (restored between
+  groups), and the gradients accumulate scaled by 1 / G. A loop rather
+  than one forward over G * P * K rows with a grouped BN, because it keeps
+  ``nn.BatchNorm2d`` and cuDNN's kernels as they are, holds one group's
+  activations at a time, and at G = 1 is the one-group step unchanged; at
+  full width one group (64 x 4 images) already fills the card.
+* ``TPU.DEBUG_NANS``: after the backward the step checks that every loss
+  term and every gradient is finite and raises ``FloatingPointError``
+  naming the first that is not, before the optimizers step (the JAX
+  package's ``jax_debug_nans`` for the step). Off, it adds no host sync.
 """
 
 from __future__ import annotations
@@ -63,14 +78,10 @@ def masked_bnneck(feat, is_real, weight, bias, running_mean, running_var
 def make_loss_fn(model, centers, cfg, num_classes: int, mode: str
                  ) -> Callable:
     """``loss_fn(images, labels, is_real) -> (total, metrics, bnneck
-    stats)``: the step's forward, on a model in ``train()`` mode. images
+    stats)``: one group's forward, on a model in ``train()`` mode. images
     [P*K, H, W, 3] (augmented, normalised), labels [P*K], is_real [P*K]."""
     if mode not in ("ctl", "base"):
         raise ValueError(f"mode must be 'ctl' or 'base', not {mode!r}")
-    if cfg.TPU.NUM_GROUPS > 1:
-        raise NotImplementedError(
-            f"training with TPU.NUM_GROUPS={cfg.TPU.NUM_GROUPS} groups is not "
-            "ported yet; see ROADMAP.md queue 1 item 6.4 (multi-GPU)")
     s = cfg.SOLVER
     k = cfg.DATALOADER.NUM_INSTANCE
     margin, dist = s.MARGIN, s.DISTANCE_FUNC
@@ -124,26 +135,95 @@ def make_loss_fn(model, centers, cfg, num_classes: int, mode: str
     return loss_fn
 
 
+def _running_stats(model) -> list:
+    """The trunk's BN layers that keep running statistics."""
+    return [m for m in model.backbone.modules()
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            and m.track_running_stats]
+
+
+def _check_finite(metrics: Dict[str, torch.Tensor], model, centers) -> None:
+    """Raise ``FloatingPointError`` naming the first loss term or gradient
+    that holds a NaN or an infinity (one host sync)."""
+    named = [(f"loss term {k}", v) for k, v in metrics.items()]
+    named += [(f"the gradient of {n}", p.grad)
+              for n, p in model.named_parameters() if p.grad is not None]
+    named.append(("the gradient of the centers", centers.grad))
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named]).cpu()
+    if not bool(finite.all()):
+        bad = named[int((~finite).nonzero()[0])][0]
+        raise FloatingPointError(f"TPU.DEBUG_NANS: {bad} is not finite in "
+                                 f"the train step")
+
+
 def make_train_step(state, cfg, num_classes: int, mode: str) -> Callable:
     """``step(images, labels, is_real) -> metrics``: one optimizer step of
-    the ``TrainState``'s model and centers. Puts the model in ``train()``
-    mode; the metrics are detached tensors on the model's device (no host
-    sync). mode: 'ctl' (centroid loss, mocks masked) or 'base'."""
-    model, optimizers = state.model, state.optimizers
-    loss_fn = make_loss_fn(model, state.centers, cfg, num_classes, mode)
+    the ``TrainState``'s model and centers over a group-major batch: images
+    [G, P*K, H, W, 3], labels and is_real [G, P*K]. Puts the model in
+    ``train()`` mode; the metrics (means over groups) are detached tensors
+    on the model's device (no host sync unless ``TPU.DEBUG_NANS``). mode:
+    'ctl' (centroid loss, mocks masked) or 'base'."""
+    model, optimizers, centers = state.model, state.optimizers, state.centers
+    loss_fn = make_loss_fn(model, centers, cfg, num_classes, mode)
+    debug_nans = bool(cfg.TPU.DEBUG_NANS)
+    bns = _running_stats(model)
 
     def step(images, labels, is_real):
+        if (images.dim() != 5 or labels.shape != images.shape[:2]
+                or is_real.shape != images.shape[:2]):
+            raise ValueError(
+                f"a train step takes a group-major batch: images [G, P*K, H, "
+                f"W, 3], labels and is_real [G, P*K]; got "
+                f"{tuple(images.shape)}, {tuple(labels.shape)}, "
+                f"{tuple(is_real.shape)}")
         model.train()
         optimizers.zero_grad()
-        with annotate("forward"):
-            total, metrics, (mean, var) = loss_fn(images, labels, is_real)
-        with annotate("backward"):
-            total.backward()
+        g = images.shape[0]
+        if g > 1:   # the shared starting statistics and their group sums
+            start = [[b.clone() for b in (m.running_mean, m.running_var,
+                                          m.num_batches_tracked)]
+                     for m in bns]
+            sums = [[torch.zeros_like(b) for b in st[:2]] for st in start]
+        metrics: Dict[str, torch.Tensor] = {}
+        neck = None
+        for i in range(g):
+            if i:
+                with torch.no_grad():
+                    for m, st in zip(bns, start):
+                        m.running_mean.copy_(st[0])
+                        m.running_var.copy_(st[1])
+                        m.num_batches_tracked.copy_(st[2])
+            with annotate("forward"):
+                total, group_metrics, stats = loss_fn(images[i], labels[i],
+                                                      is_real[i])
+            with annotate("backward"):
+                (total / g if g > 1 else total).backward()
+            if g == 1:
+                metrics, neck = group_metrics, stats
+                break
+            with torch.no_grad():
+                for m, acc in zip(bns, sums):
+                    acc[0] += m.running_mean
+                    acc[1] += m.running_var
+                metrics = {k: metrics.get(k, 0) + v.detach()
+                           for k, v in group_metrics.items()}
+                neck = stats if neck is None else (neck[0] + stats[0],
+                                                   neck[1] + stats[1])
+        if g > 1:
+            with torch.no_grad():
+                for m, acc, st in zip(bns, sums, start):
+                    m.running_mean.copy_(acc[0] / g)
+                    m.running_var.copy_(acc[1] / g)
+                    m.num_batches_tracked.copy_(st[2] + 1)
+            metrics = {k: v / g for k, v in metrics.items()}
+            neck = (neck[0] / g, neck[1] / g)
+        if debug_nans:
+            _check_finite(metrics, model, centers)
         with annotate("optimizer"):
             optimizers.step()
             with torch.no_grad():
-                model.bn.running_mean.copy_(mean)
-                model.bn.running_var.copy_(var)
+                model.bn.running_mean.copy_(neck[0])
+                model.bn.running_var.copy_(neck[1])
         return {name: v.detach() for name, v in metrics.items()}
 
     return step

@@ -17,8 +17,14 @@ import numpy as np
 import torch
 
 from ..engine.checkpoint import STATE_FILE, load_state_file
+from ..engine.orbax_read import is_orbax_checkpoint, read_checkpoint
 from ..models import create_model
-from ..models.convert import full_state_dict, load_torch_file
+from ..models.convert import (
+    from_jax_params,
+    full_state_dict,
+    load_converted,
+    load_torch_file,
+)
 
 log = logging.getLogger(__name__)
 
@@ -26,8 +32,10 @@ log = logging.getLogger(__name__)
 def load_inference_model(cfg, device="cuda") -> torch.nn.Module:
     """The inference model (no classifier) with the weights at
     ``MODEL.PRETRAIN_PATH``, in eval mode on ``device`` (the card unless the
-    caller asks for the CPU): a reference ``.pth`` / ``.ckpt`` file, or a
-    checkpoint directory that the port's ``fit`` wrote (``state.pt``).
+    caller asks for the CPU): a reference ``.pth`` / ``.ckpt`` file, a
+    checkpoint directory that the port's ``fit`` wrote (``state.pt``), or an
+    orbax checkpoint of the JAX package (its ``params.model`` but
+    ``fc_query``, and ``batch_stats``; the optimizer state is not decoded).
     Keys a reference file lacks keep their seed-0 init, as the reference
     ``load_param`` copies key by key. Channels-last memory format, which
     cuDNN's convolutions prefer."""
@@ -35,14 +43,19 @@ def load_inference_model(cfg, device="cuda") -> torch.nn.Module:
     if not path:
         raise ValueError("MODEL.PRETRAIN_PATH must point to a checkpoint")
     model = create_model(cfg, num_classes=0)
-    if os.path.isdir(path):
+    if is_orbax_checkpoint(path):
+        tree = read_checkpoint(path, subtrees=[("params", "model"),
+                                               ("batch_stats",)])
+        params = {k: v for k, v in tree["params"]["model"].items()
+                  if k != "fc_query"}
+        load_converted(model, from_jax_params(params, tree["batch_stats"]))
+    elif os.path.isdir(path):
         if not os.path.isfile(os.path.join(path, STATE_FILE)):
-            raise NotImplementedError(
-                f"{path} holds no {STATE_FILE}: if it is an orbax checkpoint "
-                "of the JAX package, loading one is not ported yet, see "
-                "ROADMAP.md queue 1 item 7 (orbax checkpoints). Use a "
-                "checkpoint directory of the port's fit or a reference "
-                ".pth/.ckpt file.")
+            raise FileNotFoundError(
+                f"{path} is neither a checkpoint directory of the port's fit "
+                f"({STATE_FILE}) nor a committed orbax checkpoint of the JAX "
+                f"package (_METADATA and an OCDBT manifest; an unfinished "
+                f"save, *.orbax-checkpoint-tmp-*, is none)")
         sd = dict(load_state_file(path)["model"])
         sd.pop("fc_query.weight", None)
         model.load_state_dict(sd)

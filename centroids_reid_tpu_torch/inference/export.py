@@ -478,6 +478,14 @@ class LoadedRetriever(_Loaded):
         self.rerank_window = (min(max(int(rerank_window), self.k), g)
                               if rerank_window and g else 0)
         self._rerank = (int(rerank_k1), int(rerank_k2), float(rerank_lambda))
+        if "distance" not in meta:
+            if self.rerank_window:
+                raise ValueError(
+                    "rerank_window on an artifact whose meta lacks "
+                    "'distance': the re-rank's local distance is unknown; "
+                    "re-export it (every artifact the port writes states it)")
+            log.warning("artifact meta lacks 'distance'; assuming "
+                        "euclidean (it is read only by re-ranking)")
         self._dist = str(meta.get("distance", "euclidean"))
         if (self.rerank_window and self._dist == "cosine"
                 and not meta.get("normalized", True)):

@@ -30,8 +30,10 @@ bf16 autocast) and seeded random weights:
   with validation and checkpoints from a torchvision-layout backbone file,
   a resume from ``checkpoint_epoch1``, ONLY_TEST of the best checkpoint;
   the step's time, rate, memory, idle share, profiler split and share of
-  the bf16 peak; one full-width step on the card against the CPU. No
-  hand-written kernel runs there;
+  the bf16 peak; one full-width step on the card against the CPU. Then
+  ``TPU.NUM_GROUPS 2`` (two groups of 64 x 4 a step): one epoch through
+  the runner, the step's time, rate, memory, idle share and profiler
+  split, and one step of two groups on the card against the CPU. No hand-written kernel runs there;
 * online serving (phase 9): the HTTP front built by
   ``inference.server.build_from_args`` over phase 4's gallery written as
   an index (k=100, dynamic batching, warm-up of the buckets 1-64), plain,
@@ -53,7 +55,13 @@ bf16 autocast) and seeded random weights:
   4's gallery at k=100 (also re-ranked at load, r=100) and k=10, and the
   int8 embedder of the fused engine (K5 and K6 as the operators
   ``torch.ops.crt.*``), each held against the live path it came from, with
-  the same kernel launches per call; the HTTP front over ``--artifact``.
+  the same kernel launches per call; the HTTP front over ``--artifact``;
+* orbax checkpoints of the JAX package (phase 12): the committed fixture
+  ``tests/fixtures/orbax_small`` read without jax, orbax, tensorstore or
+  zstandard (the system's libzstd through ctypes), every leaf held bit for
+  bit against its ``arrays.npz``, its Adam state mapped through
+  ``from_jax_opt_state``; the zstd decode and encode rates on 100 MB of
+  fp32 at level 1.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -1641,6 +1649,7 @@ TRAIN_COUNT_RANGE = (2, 30)
 TRAIN_P, TRAIN_K = 64, 4  # SOLVER.IMS_PER_BATCH x DATALOADER.NUM_INSTANCE
 PARITY_P = 8             # the card-vs-CPU step: 8 pids x 4 at 256x128, fp32
 PROFILED_STEPS = 5
+TRAIN_GROUPS = 2         # TPU.NUM_GROUPS of the multi-group run
 TRAIN_PHASES = ("gather", "augment", "forward", "backward", "optimizer")
 
 
@@ -1891,6 +1900,13 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
             pth, "DATALOADER.USE_RESAMPLING", "True", "SOLVER.MAX_EPOCHS",
             "1", "SOLVER.EVAL_PERIOD", "100")])
         base_s = time.perf_counter() - t0
+        logs_g2 = os.path.join(tmp, "logs_train_g2")
+        t0 = time.perf_counter()
+        g2_out = runner.main(["--mode", "ctl", *_train_opts(
+            root, logs_g2, "MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH",
+            pth, "TPU.NUM_GROUPS", str(TRAIN_GROUPS), "SOLVER.MAX_EPOCHS",
+            "1", "SOLVER.EVAL_PERIOD", "100")])
+        g2_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = launch_counts()
     finally:
@@ -1902,11 +1918,15 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
                                              "version_1")))
     base_records = _epoch_records(os.path.join(logs, "train_base_model",
                                                "version_0"))
+    g2_records = _epoch_records(os.path.join(logs_g2, "train_ctl_model",
+                                             "version_0"))
     loss_keys = ("epoch_train_loss", "query_triplet", "query_xent",
                  "query_center", "epoch_dist_ap", "epoch_dist_an")
     ctl_keys = ("centroid_triplet", "l2_mean_centroid")
     for mode, recs, keys in (("ctl", records, loss_keys + ctl_keys),
-                             ("base", base_records, loss_keys)):
+                             ("base", base_records, loss_keys),
+                             (f"ctl G={TRAIN_GROUPS}", g2_records,
+                              loss_keys + ctl_keys)):
         for r in recs:
             require(all(np.isfinite(r[k]) for k in keys),
                     f"{mode} epoch {r['step']}: a loss is not finite: {r}")
@@ -1918,6 +1938,9 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
             f"run must start at epoch 2)")
     require([r["step"] for r in base_records] == [0],
             f"base epochs trained: {[r['step'] for r in base_records]}")
+    require([r["step"] for r in g2_records] == [0],
+            f"G={TRAIN_GROUPS} epochs trained: "
+            f"{[r['step'] for r in g2_records]}")
     require(os.path.isdir(ring) and sorted(os.listdir(ring)) == [
         "config.yml", "state.pt"], f"ring checkpoint {ring} missing")
     require(ring in snapshots, "checkpoint_epoch1 was not saved")
@@ -1928,7 +1951,8 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
              for m in ("mAP", "Top-1", "Top-5", "Top-10", "Top-20",
                        "Top-50")]
     for what, res in (("train", out), ("resume", resumed),
-                      ("ONLY_TEST", tested), ("base", base_out)):
+                      ("ONLY_TEST", tested), ("base", base_out),
+                      (f"train G={TRAIN_GROUPS}", g2_out)):
         require(all(n in res and np.isfinite(res[n]) for n in names),
                 f"{what}: metrics missing from {sorted(res)}")
         log(f"{what} double test: " + ", ".join(
@@ -1937,8 +1961,11 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
             f"hand-written kernels launched while training: {launches}")
     log(f"runner: ctl 2 epochs + validation + double test {train_s:.1f} s, "
         f"resume at epoch 2 {resume_s:.1f} s, ONLY_TEST of {best} "
-        f"{test_s:.1f} s, base 1 epoch + double test {base_s:.1f} s (host "
-        f"clock, image bank decode included); state.pt of checkpoint_epoch1 "
+        f"{test_s:.1f} s, base 1 epoch + double test {base_s:.1f} s, "
+        f"TPU.NUM_GROUPS {TRAIN_GROUPS} 1 epoch ({g2_records[0]['steps']} "
+        f"steps of {TRAIN_GROUPS} x {TRAIN_P} x {TRAIN_K}) + double test "
+        f"{g2_s:.1f} s (host clock, image bank decode included); state.pt "
+        f"of checkpoint_epoch1 "
         f"equals the saved state tensor for tensor; kernel launches while "
         f"training: {launches} (none: the slice has no hand-written kernel)")
 
@@ -1958,15 +1985,26 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
         "saved state tensor for tensor")
     timing = time_train_step(cfg, dataset, restored, banks[0])
     timing.update(train_parity(cfg, dataset, banks[0]))
+    cfg_g2 = cfg.clone()
+    cfg_g2.TPU.NUM_GROUPS = TRAIN_GROUPS
+    state_g2 = FIT.build_model_and_state(cfg_g2, dataset, seed=1,
+                                         device="cuda")
+    CK.restore_state(ring, state_g2)
+    del restored
+    torch.cuda.empty_cache()
+    timing["groups"] = time_train_step(cfg_g2, dataset, state_g2, banks[0])
+    del state_g2
+    timing["groups"].update(train_parity(cfg_g2, dataset, banks[0]))
     timing["best"] = best
     return timing
 
 
 def time_train_step(cfg, dataset, state, bank_np) -> dict:
-    """The bf16 train step at 64 x 4 images over one epoch of the resident
-    path: per-step CUDA-event times, the epoch's wall time and its device
-    busy time, peak memory, the profiler's split of 5 steps, and the step's
-    share of the bf16 dense peak."""
+    """The bf16 train step of ``TPU.NUM_GROUPS`` groups (G) of 64 x 4
+    images over one epoch of the resident path: per-step CUDA-event times,
+    the epoch's wall time, peak memory, its device busy time, the
+    profiler's split of 5 steps, and the step's share of the bf16 dense
+    peak."""
     import tempfile
 
     import torch
@@ -1976,24 +2014,31 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     from centroids_reid_tpu_torch.data import TrainLoader
     from centroids_reid_tpu_torch.data.device_data import plan_to_arrays
     from centroids_reid_tpu_torch.engine.epoch_runner import make_augment
+    from centroids_reid_tpu_torch.engine.fit import num_groups
     from centroids_reid_tpu_torch.engine.steps import make_train_step
 
     model = state.model
     step = make_train_step(state, cfg, dataset.num_classes, "ctl")
     augment = make_augment(cfg)
     bank = torch.from_numpy(bank_np).to("cuda")
-    plan = TrainLoader(dataset, cfg).plan_for_epoch(5)
-    idx, labels, is_real = (torch.from_numpy(a[:, 0]).to(
+    groups = num_groups(cfg)
+    plan = TrainLoader(dataset, cfg, num_groups=groups).plan_for_epoch(5)
+    idx, labels, is_real = (torch.from_numpy(a).to(
         "cuda", torch.int64 if a.dtype != bool else torch.bool)
         for a in plan_to_arrays(plan, dataset.train))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    n_steps, pk = idx.shape
+    n_steps, _, pk = idx.shape
+    images = groups * pk
+
+    def batch(t):
+        with torch.profiler.record_function("gather"):
+            imgs = bank.index_select(0, idx[t].flatten())
+        with torch.profiler.record_function("augment"):
+            x = augment(imgs, is_real[t].flatten(), gen)
+        return x.unflatten(0, (groups, pk)), labels[t], is_real[t]
 
     def one(t):
-        imgs = bank.index_select(0, idx[t])
-        with torch.profiler.record_function("augment"):
-            x = augment(imgs, is_real[t], gen)
-        return step(x, labels[t], is_real[t])
+        return step(*batch(t))
 
     for t in range(2):   # warm-up: cuDNN's algorithm choice, allocator
         one(t)
@@ -2012,6 +2057,18 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     step_ms = [s.elapsed_time(e) for s, e in events]
     med = float(np.median(step_ms[1:]))
     require(np.isfinite(m["loss"].item()), "timed epoch: loss not finite")
+    gpu = gpu_line()
+    log(f"train step, ResNet-50 256x128 bf16, {images} images ({groups} "
+        f"group{'s' if groups > 1 else ''} of {TRAIN_P} x {TRAIN_K}), "
+        f"resident epoch of {n_steps} steps, {gpu}: median {med:.2f} ms a "
+        f"step (CUDA events, first step excluded; min "
+        f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) = "
+        f"{images / med * 1e3:.1f} images/s; epoch wall {wall:.3f} s = "
+        f"{n_steps * images / wall:.1f} images/s (host clock); peak memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated, the "
+        f"{bank.numel() / 2**30:.2f} GiB image bank included)")
+    out = {"step_ms": med, "images_per_s": images / med * 1e3,
+           "epoch_wall_s": wall, "peak_bytes": peak, "steps": n_steps}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2030,32 +2087,19 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof5:
             for t in range(PROFILED_STEPS):
-                with torch.profiler.record_function("gather"):
-                    imgs = bank.index_select(0, idx[t])
-                with torch.profiler.record_function("augment"):
-                    x = augment(imgs, is_real[t], gen)
-                step(x, labels[t], is_real[t])
+                one(t)
             torch.cuda.synchronize()
         prof5.export_chrome_trace(trace)
         split = _phase_device_us(trace)
 
     flops, fwd = step_flops(model, torch.zeros(
-        (pk, 3) + tuple(cfg.INPUT.SIZE_TRAIN), device="cuda").to(
+        (images, 3) + tuple(cfg.INPUT.SIZE_TRAIN), device="cuda").to(
         memory_format=torch.channels_last))
     share = flops / (med / 1e3) / PEAK_OPS["bf16"]
-    gpu = gpu_line()
-    log(f"train step, ResNet-50 256x128 bf16, {pk} images ({TRAIN_P} x "
-        f"{TRAIN_K}), resident epoch of {n_steps} steps, {gpu}: median "
-        f"{med:.2f} ms a step (CUDA events, first step excluded; min "
-        f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) = "
-        f"{pk / med * 1e3:.1f} images/s; epoch wall {wall:.3f} s = "
-        f"{n_steps * pk / wall:.1f} images/s (host clock)")
     log(f"train epoch under torch.profiler, {gpu}: wall {wall_prof:.3f} s, "
         f"device busy {busy:.3f} s (kernels, copies and sets), idle share "
         f"{1 - busy / wall_prof:.4f}; against the unprofiled epoch's wall "
-        f"{wall:.3f} s: {1 - busy / wall:.4f}; peak memory "
-        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated, the "
-        f"{bank.numel() / 2**30:.2f} GiB image bank included)")
+        f"{wall:.3f} s: {1 - busy / wall:.4f}")
     total = sum(split.values()) or 1.0
     log(f"device time of {PROFILED_STEPS} steps by phase (torch.profiler, "
         f"{gpu}, {total / 1e3:.1f} ms in all): " + ", ".join(
@@ -2065,16 +2109,16 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
         f"(convs and classifier), step {flops / 1e12:.3f} TFLOP; at "
         f"{med:.2f} ms: {flops / (med / 1e3) / 1e12:.1f} TFLOP/s, {share:.4f}"
         f" of the bf16 dense peak (989 TFLOP/s; {gpu})")
-    return {"step_ms": med, "images_per_s": pk / med * 1e3,
-            "epoch_wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1 - busy / wall, "peak_bytes": peak,
-            "split_us": split, "step_flops": flops, "peak_share": share}
+    out.update(device_busy_s=busy, idle_share=1 - busy / wall, split_us=split,
+               step_flops=flops, peak_share=share)
+    return out
 
 
 def train_parity(cfg, dataset, bank_np) -> dict:
     """One ctl step of ResNet-50 at full width (P=8 x K=4 at 256x128, one
-    mock, already augmented) from one state, on the card and on the CPU,
-    in fp32 with TF32 off and in float64.
+    mock a group, already augmented; with ``TPU.NUM_GROUPS`` G the 8 pids
+    split into G groups) from one state, on the card and on the CPU, in
+    fp32 with TF32 off and in float64.
 
     * fp32: every loss term, card against CPU, to rtol 1e-4.
     * float64: every parameter's gradient, card against CPU, to a relative
@@ -2102,21 +2146,23 @@ def train_parity(cfg, dataset, bank_np) -> dict:
     from centroids_reid_tpu_torch.engine.steps import make_train_step
 
     cfg = cfg.clone()
+    groups = FIT.num_groups(cfg)
     cfg.USE_MIXED_PRECISION = False
-    cfg.SOLVER.IMS_PER_BATCH = PARITY_P
+    cfg.SOLVER.IMS_PER_BATCH = PARITY_P // groups
     pids = [pid for pid, recs in sorted(dataset.train_dict.items())
             if len(recs) >= TRAIN_K][:PARITY_P]
     rows = [r.idx for pid in pids for r in dataset.train_dict[pid][:TRAIN_K]]
-    labels = torch.tensor([dataset.train[i].pid for i in rows])
-    is_real = torch.ones(len(rows), dtype=torch.bool)
-    is_real[2 * TRAIN_K - 1] = False
+    labels = torch.tensor([dataset.train[i].pid for i in rows]).view(
+        groups, -1)
+    is_real = torch.ones(labels.shape, dtype=torch.bool)
+    is_real[:, 2 * TRAIN_K - 1] = False
     params = draw_augment_params(len(rows), torch.Generator().manual_seed(4),
                                  tuple(cfg.INPUT.SIZE_TRAIN),
                                  cfg.INPUT.PADDING, cfg.INPUT.PROB,
                                  cfg.INPUT.RE_PROB)
-    x = apply_augment(torch.from_numpy(bank_np[rows]), is_real, params,
-                      cfg.INPUT.PADDING, cfg.INPUT.PIXEL_MEAN,
-                      cfg.INPUT.PIXEL_STD)
+    x = apply_augment(torch.from_numpy(bank_np[rows]), is_real.flatten(),
+                      params, cfg.INPUT.PADDING, cfg.INPUT.PIXEL_MEAN,
+                      cfg.INPUT.PIXEL_STD).unflatten(0, labels.shape)
     base = FIT.build_model_and_state(cfg, dataset, seed=2, device="cpu")
     torch.set_num_threads(os.cpu_count() or 1)
     results = {}
@@ -2189,8 +2235,9 @@ def train_parity(cfg, dataset, bank_np) -> dict:
 
     bf16_rel = abs(mb["loss"] - mc["loss"]) / abs(mc["loss"])
     require(bf16_rel <= 2e-2, f"bf16 loss {mb['loss']} vs fp32 {mc['loss']}")
-    log(f"full-width step parity ({PARITY_P} x {TRAIN_K} at 256x128, one "
-        f"mock, TF32 off, {gpu_line()}): fp32 loss terms within "
+    log(f"full-width step parity ({groups} group{'s' if groups > 1 else ''}"
+        f" of {PARITY_P // groups} x {TRAIN_K} at 256x128, one mock a group, "
+        f"TF32 off, {gpu_line()}): fp32 loss terms within "
         f"{worst_loss:.2e} relative of the CPU's (loss {mc['loss']:.6f} vs "
         f"{mp['loss']:.6f}; tol 1e-4); float64 gradients, card vs CPU, "
         f"relative L2: worst {err64[worst64]:.2e} ({worst64}), median "
@@ -3661,6 +3708,129 @@ def phase_eval_stream(gpu: str) -> None:
             f"[{gpu}]")
 
 
+# -------------------------------------------------------- phase 12 ------
+
+ZSTD_BENCH_FLOATS = 25_000_000     # 100 MB of fp32 for the zstd rates
+BLOCKED_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+                   "zstandard", "centroids_reid_tpu")
+
+
+def _dotted(tree, prefix=()) -> dict:
+    """{dotted tree path: array} of the reader's nested dicts and lists."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_dotted(v, prefix + (str(k),)))
+        return out
+    return {".".join(prefix): tree} if isinstance(tree, np.ndarray) else {}
+
+
+def _nested(flat: dict, prefix: str) -> dict:
+    """The arrays of ``flat`` under ``prefix`` as a nested dict."""
+    out: dict = {}
+    for key, v in flat.items():
+        if key.startswith(prefix):
+            node = out
+            *parents, leaf = key[len(prefix):].split(".")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = v
+    return out
+
+
+def phase_orbax(gpu: str) -> dict:
+    """Phase 12: the committed orbax checkpoint of the JAX package
+    (``tests/fixtures/orbax_small``, a train state's node kinds) read by
+    ``engine/orbax_read`` without jax, orbax, tensorstore or zstandard;
+    every leaf held bit for bit against ``arrays.npz``; the Adam state
+    mapped by ``from_jax_opt_state`` held against the npz's ``mu`` / ``nu``
+    / ``count``; then the zstd route's decode and encode rates on 100 MB of
+    fp32 (level 1, as orbax writes zarr chunks) and the decode time of a
+    full-width ResNet-50 train state reckoned from them."""
+    import os
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine import orbax_read
+    from centroids_reid_tpu_torch.models import (
+        create_model,
+        from_jax_opt_state,
+        from_jax_params,
+    )
+    from centroids_reid_tpu_torch.utils import zstd
+
+    log("== phase 12: orbax checkpoints of the JAX package")
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "orbax_small")
+    path = os.path.join(fixture, "checkpoint_epoch1")
+    require(orbax_read.is_orbax_checkpoint(path), f"{path}: no checkpoint")
+    t0 = time.perf_counter()
+    tree = orbax_read.read_checkpoint(path)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    with np.load(os.path.join(fixture, "arrays.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    got = _dotted(tree)
+    require(got.keys() == ref.keys(), "fixture leaves: "
+            f"{sorted(set(got) ^ set(ref))}")
+    differ = [k for k in ref if got[k].dtype != ref[k].dtype
+              or got[k].shape != ref[k].shape
+              or not np.array_equal(got[k], ref[k])]
+    require(not differ, f"fixture leaves differ from arrays.npz: {differ}")
+
+    sd = from_jax_params(tree["params"]["model"], {})
+    named = [(n, t) for n, t in sd.items() if n != "bn.bias"]
+    adam = from_jax_opt_state(tree["opt_state"], named)
+    pre = "opt_state.inner_states.model.inner_state.inner_state.1."
+    moments = {k: from_jax_params(_nested(ref, f"{pre}{m}.model."), {})
+               for k, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}
+    for i, (name, _) in enumerate(named):
+        for k, want in moments.items():
+            require(np.array_equal(adam[i][k].numpy(), want[name].numpy()),
+                    f"{name} {k} differs from arrays.npz")
+        require(adam[i]["step"].item() == int(ref[f"{pre}count"]),
+                f"{name}: Adam step")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED_MODULES)
+    require(not bad, f"modules imported by the orbax path: {bad}")
+    log(f"fixture {os.path.relpath(path)}: {len(ref)} array leaves read in "
+        f"{read_ms:.1f} ms (host clock), each equal to arrays.npz bit for "
+        f"bit; Adam state of {len(named)} parameters mapped by name "
+        f"(exp_avg, exp_avg_sq, step {int(ref[pre + 'count'])}) equal to "
+        f"the npz's mu, nu and count; none of {', '.join(BLOCKED_MODULES)} "
+        f"imported")
+
+    data = np.random.default_rng(SEED + 14).standard_normal(
+        ZSTD_BENCH_FLOATS, dtype=np.float32)
+    mb = data.nbytes / 1e6
+    t0 = time.perf_counter()
+    frame = zstd.compress(data, level=1)
+    enc_s = time.perf_counter() - t0
+    dec = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = zstd.decompress(frame)
+        dec.append(time.perf_counter() - t0)
+    require(bytes(out) == data.tobytes(), "zstd round trip differs")
+    dec_s = float(np.median(dec))
+    cfg = get_default_cfg()
+    model = create_model(cfg, num_classes=751)
+    trained = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    total = sum(t.numel() for t in model.state_dict().values())
+    state_mb = 4 * (total + 2 * trained + 751 * model.bn.num_features) / 1e6
+    log(f"zstd route: the system's libzstd {zstd.version()} through ctypes "
+        f"(centroids_reid_tpu_torch/utils/zstd.py); {mb:.0f} MB of random "
+        f"fp32 at level 1: ratio {len(frame) / data.nbytes:.4f}, encode "
+        f"{mb / enc_s:.1f} MB/s, decode {mb / dec_s:.1f} MB/s (median of 3; "
+        f"{', '.join(f'{mb / d:.1f}' for d in dec)}; host clock, one "
+        f"thread) [{gpu}]")
+    log(f"a full-width ResNet-50 train state of the JAX package (751 "
+        f"classes: params and BN statistics, Adam mu and nu, centers) holds "
+        f"{state_mb:.1f} MB of fp32: about {state_mb / (mb / dec_s):.2f} s "
+        f"of zstd decode at that rate (not measured: no such checkpoint is "
+        f"in the repository)")
+    return {"decode_mb_s": mb / dec_s, "encode_mb_s": mb / enc_s,
+            "read_ms": read_ms}
+
+
 def main() -> int:
     import torch
 
@@ -3701,6 +3871,7 @@ def main() -> int:
         timed("11", phase_artifacts, state, int8_state, tmp)
     torch.cuda.empty_cache()
     timed("10", phase_eval_stream, gpu_line())
+    timed("12", phase_orbax, gpu_line())
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path

@@ -50,6 +50,6 @@ def test_loader_rejects_what_it_cannot_load(tmp_path):
     cfg = get_default_cfg()
     with pytest.raises(ValueError, match="PRETRAIN_PATH"):
         load_inference_model(cfg, "cpu")
-    cfg.MODEL.PRETRAIN_PATH = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    cfg.MODEL.PRETRAIN_PATH = str(tmp_path)   # neither state.pt nor orbax
+    with pytest.raises(FileNotFoundError, match="orbax"):
         load_inference_model(cfg, "cpu")

@@ -236,8 +236,10 @@ def test_runner_refuses_unported_routes(eval_setup, opt, value, match):
     setattr(getattr(cfg, section), key, value)
     error = NotImplementedError
     if opt == "TEST.ONLY_TEST":
-        # training is ported; its multi-group form is not
-        cfg.TPU.NUM_GROUPS = 2
+        # training is ported at any TPU.NUM_GROUPS; a matmul precision
+        # that cuBLAS / cuDNN cannot compute (bf16_3x) is refused
+        cfg.TPU.MATMUL_PRECISION = "high"
+        error = ValueError
     else:
         # full and windowed re-ranking are ported; windowed re-ranking
         # with rank visualisation is the reference's startup ValueError

@@ -734,11 +734,12 @@ def test_masked_bnneck_on_gpu_equals_cpu(cuda):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_train_step_on_gpu_equals_cpu(cuda):
-    """One resnet18 ctl step (32 images at 64x32, one mock) from one state
-    on the card and on the CPU, fp32 with TF32 off: every metric to rtol
-    1e-4, every gradient to a relative L2 error of 1e-4, the BNNeck
-    running statistics to 1e-5."""
+def _step_on_gpu_and_cpu(cuda, groups: int, dtype, tol: float):
+    """One resnet18 ctl step of ``groups`` groups of 32 images at 64x32
+    (one mock a group) from one state on the card and on the CPU, in
+    ``dtype`` (TF32 off): every metric to rtol ``tol``, every gradient to a
+    relative L2 error of ``tol``, the BNNeck and trunk running statistics
+    to ``tol / 10``."""
     import copy
 
     from centroids_reid_tpu_torch.config import get_default_cfg
@@ -751,40 +752,60 @@ def test_train_step_on_gpu_equals_cpu(cuda):
     cfg.MODEL.NAME = "resnet18"
     cfg.USE_MIXED_PRECISION = False
     cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE = 8, 4
+    cfg.TPU.NUM_GROUPS = groups
     model = create_model(cfg, num_classes=10,
                          generator=torch.Generator().manual_seed(0))
     base = create_train_state(cfg, model, 10, torch.Generator().manual_seed(1))
     rng = np.random.RandomState(3)
-    imgs = rng.randn(32, 64, 32, 3).astype(np.float32)
-    labels = np.repeat(rng.choice(10, 8, replace=False), 4)
-    is_real = np.ones(32, bool)
-    is_real[7] = False
-    imgs[7] = 0
+    imgs = rng.randn(groups, 32, 64, 32, 3)
+    labels = np.stack([np.repeat(rng.choice(10, 8, replace=False), 4)
+                       for _ in range(groups)])
+    is_real = np.ones((groups, 32), bool)
+    is_real[:, 7] = False
+    imgs[:, 7] = 0
     results = []
     for dev in ("cpu", cuda):
-        m = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+        m = copy.deepcopy(model).to(dev, dtype,
+                                    memory_format=torch.channels_last)
         state = create_train_state(cfg, m, 10, torch.Generator())
         with torch.no_grad():
             state.centers.copy_(base.centers)
         step = make_train_step(state, cfg, 10, "ctl")
-        metrics = step(torch.from_numpy(imgs).to(dev),
+        metrics = step(torch.from_numpy(imgs).to(dev, dtype),
                        torch.from_numpy(labels).to(dev),
                        torch.from_numpy(is_real).to(dev))
         grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
                  if p.grad is not None}
         grads["centers"] = state.centers.grad.cpu()
-        results.append((metrics, grads, m.bn.running_mean.cpu(),
-                        m.bn.running_var.cpu()))
-    (m_cpu, g_cpu, rm_cpu, rv_cpu), (m_gpu, g_gpu, rm_gpu, rv_gpu) = results
-    for name in m_cpu:
-        torch.testing.assert_close(m_gpu[name].cpu(), m_cpu[name], rtol=1e-4,
-                                   atol=1e-7)
+        stats = {k: v.cpu() for k, v in m.state_dict().items()
+                 if "running" in k}
+        results.append((metrics, grads, stats))
+    (m_cpu, g_cpu, s_cpu), (m_gpu, g_gpu, s_gpu) = results
+    bad = [f"metric {n}: {float(m_gpu[n].cpu())} vs {float(m_cpu[n])}"
+           for n in m_cpu if not torch.allclose(
+               m_gpu[n].cpu(), m_cpu[n], rtol=tol, atol=1e-7 * tol / 1e-4)]
     assert g_cpu.keys() == g_gpu.keys()
-    for name in g_cpu:
-        err = (g_gpu[name] - g_cpu[name]).norm() / g_cpu[name].norm()
-        assert err <= 1e-4, (name, float(err))
-    torch.testing.assert_close(rm_gpu, rm_cpu, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(rv_gpu, rv_cpu, rtol=1e-5, atol=1e-5)
+    errs = {n: float((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm())
+            for n in g_cpu}
+    bad += [f"gradient {n}: {e:.3e}" for n, e in errs.items() if e > tol]
+    assert s_cpu.keys() == s_gpu.keys()
+    bad += [f"statistic {n}: {float((s_gpu[n] - s_cpu[n]).abs().max()):.3e}"
+            for n in s_cpu if not torch.allclose(s_gpu[n], s_cpu[n],
+                                                 rtol=tol / 10,
+                                                 atol=tol / 10)]
+    assert not bad, bad
+
+
+def test_train_step_on_gpu_equals_cpu(cuda):
+    _step_on_gpu_and_cpu(cuda, 1, torch.float32, 1e-4)
+
+
+def test_train_step_of_two_groups_on_gpu_equals_cpu(cuda):
+    """``TPU.NUM_GROUPS`` 2: the group loop on the card as on the CPU, in
+    float64 (the step keeps it end to end). In fp32 this random trunk's
+    early gradients differ by 3-4e-4 between card and CPU at G = 2, the
+    rounding of the two groups' sum; float64 tests the implementations."""
+    _step_on_gpu_and_cpu(cuda, 2, torch.float64, 1e-9)
 
 
 # ------------------------------------------------------------ re-ranking ----
@@ -1102,3 +1123,42 @@ def test_cpu_only_artifact_refuses_the_card(cuda, tmp_path):
     X.save_artifact(path, blobs, meta)
     with pytest.raises(ValueError, match="no program for device type 'cuda'"):
         X.load_embedder(path, cuda)
+
+
+# ------------------------------------------------------ orbax checkpoints ----
+
+def test_orbax_fixture_reads_on_the_card_machine(cuda):
+    """The committed orbax checkpoint of the JAX package reads on this
+    machine's interpreter (no jax, orbax, tensorstore or zstandard; the
+    system's libzstd): every leaf equals ``arrays.npz`` bit for bit, also
+    after a round trip through the card, and its Adam state maps by name."""
+    import os
+    import sys
+
+    from centroids_reid_tpu_torch.engine.orbax_read import read_checkpoint
+    from centroids_reid_tpu_torch.models import (
+        from_jax_opt_state,
+        from_jax_params,
+    )
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "orbax_small")
+    tree = read_checkpoint(os.path.join(fixture, "checkpoint_epoch1"))
+    with np.load(os.path.join(fixture, "arrays.npz")) as z:
+        for key in z.files:
+            node = tree
+            for part in key.split("."):
+                node = node[int(part)] if isinstance(node, list) else node[
+                    part]
+            assert node.dtype == z[key].dtype and np.array_equal(node,
+                                                                 z[key]), key
+            back = torch.from_numpy(node.copy()).to(cuda).cpu()
+            assert np.array_equal(back.numpy(), z[key]), key
+    sd = from_jax_params(tree["params"]["model"], {})
+    named = [(n, t) for n, t in sd.items() if n != "bn.bias"]
+    state = from_jax_opt_state(tree["opt_state"], named)
+    assert len(state) == len(named) and all(
+        s["exp_avg"].shape == t.shape and s["step"].item() == 2
+        for s, (_, t) in zip(state.values(), named))
+    assert not [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "orbax", "tensorstore", "zstandard")]

@@ -8,8 +8,10 @@ resume, the offline CLIs' flows (``find_similar`` also re-ranked), the
 serving artifacts (an embedder and a retriever exported, saved, loaded and
 queried, and ``python -m ...inference.export_model`` run), and
 importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
-any module of ``centroids_reid_tpu``; no source file of the port imports
-it; and the service refuses what is not ported."""
+any module of ``centroids_reid_tpu``; an orbax checkpoint of the JAX
+package loads, serves and resumes while jax, orbax and tensorstore are
+blocked from import; no source file of the port imports the JAX package;
+and the service refuses what is not ported."""
 
 import os
 import re
@@ -192,6 +194,74 @@ def test_port_imports_and_serves_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT],
                           env=cpu_subprocess_env(), capture_output=True,
                           text=True, timeout=300, cwd=_REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+_ORBAX_SCRIPT = textwrap.dedent("""
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+               "zstandard", "centroids_reid_tpu")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine.checkpoint import restore_state
+    from centroids_reid_tpu_torch.engine.orbax_read import read_checkpoint
+    from centroids_reid_tpu_torch.engine.state import create_train_state
+    from centroids_reid_tpu_torch.inference import load_inference_model
+    from centroids_reid_tpu_torch.models import create_model
+
+    fixture, ckpt = sys.argv[1:3]
+    tree = read_checkpoint(fixture + "/checkpoint_epoch1")
+    with np.load(fixture + "/arrays.npz") as z:
+        for key in z.files:
+            node = tree
+            for part in key.split("."):
+                node = node[int(part)] if isinstance(node, list) else node[
+                    part]
+            assert np.array_equal(node, z[key]), key
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.INPUT.SIZE_TEST = [32, 16]
+    cfg.MODEL.PRETRAIN_PATH = ckpt
+    model = load_inference_model(cfg, "cpu")
+    with torch.no_grad():
+        e = model.embed(torch.zeros(2, 3, 32, 16))
+    assert e.shape == (2, 512) and torch.isfinite(e).all()
+    train = create_model(cfg, num_classes=6,
+                         generator=torch.Generator().manual_seed(0))
+    state = restore_state(ckpt, create_train_state(cfg, train, 6,
+                                                   torch.Generator()))
+    assert state.step == 1 and len(state.optimizers.model.state) > 0
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not bad, bad
+    print("OK")
+""")
+
+
+def test_orbax_checkpoints_load_with_jax_orbax_and_tensorstore_blocked(
+        tmp_path):
+    """The committed fixture and a JAX-written resnet18 checkpoint read,
+    serve (``load_inference_model``) and resume (``restore_state``) in a
+    process where importing jax, flax, optax, orbax, tensorstore, zstandard
+    or the JAX package raises."""
+    from test_torch_orbax import FIXTURE, write_jax_checkpoint
+
+    ckpt, _ = write_jax_checkpoint(tmp_path, 6)
+    proc = subprocess.run(
+        [sys.executable, "-c", _ORBAX_SCRIPT, FIXTURE, ckpt],
+        env=cpu_subprocess_env(), capture_output=True, text=True,
+        timeout=300, cwd=_REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
 

@@ -113,7 +113,7 @@ def test_train_loader_and_plan_arrays_equal_jax(market, resampling):
         assert len(got) == len(ref) == tl.plan_for_epoch(epoch).num_steps > 0
         for g, r in zip(got, ref):
             for name in ("images", "labels", "camids", "is_real"):
-                assert np.array_equal(g[name], r[name][0]), name
+                assert np.array_equal(g[name], r[name]), name
             assert not g["images"][~g["is_real"]].any()
         plan = tl.plan_for_epoch(epoch)
         for a, b in zip(TDD.plan_to_arrays(plan, tds.train),

@@ -225,5 +225,8 @@ def test_checkpoint_manager_ring_best_and_restore(data_root, tmp_path):
 
 
 def test_groups_are_refused(data_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="NUM_GROUPS"):
-        _fit(_cfg(data_root, tmp_path, TPU__NUM_GROUPS=2), data_root)
+    """``TPU.NUM_GROUPS`` > 1 trains (tests/test_torch_train_groups.py); a
+    group count that the train set cannot fill with one step of whole
+    P x K batches is refused, as the sampler refuses it."""
+    with pytest.raises(AssertionError, match="too small for P=4 x G=64"):
+        _fit(_cfg(data_root, tmp_path, TPU__NUM_GROUPS=64), data_root)

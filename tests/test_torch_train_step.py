@@ -180,7 +180,8 @@ def _check_step(mode, jstate, batch, jfeatures=None):
     old = {k: v.clone() for k, v in model.state_dict().items()}
 
     step = TSTEPS.make_train_step(state, cfg, C, mode)
-    metrics = step(x, torch.from_numpy(labels), torch.from_numpy(is_real))
+    metrics = step(x[None], torch.from_numpy(labels)[None],
+                   torch.from_numpy(is_real)[None])
     assert set(metrics) == set(jmetrics)
     for name, ref in jmetrics.items():
         np.testing.assert_allclose(metrics[name].item(), float(ref),
@@ -266,15 +267,21 @@ def test_masked_bnneck_matches_jax():
 
 
 def test_step_refuses_groups_and_unknown_modes():
+    """Unknown modes, and a batch without its group axis (the step takes
+    [G, P*K, ...] batches at every ``TPU.NUM_GROUPS``)."""
     _, cfg = _cfgs("ctl")
     model, centers, _ = _port_model_and_centers()[:3]
+    model = copy.deepcopy(model)
     centers = torch.nn.Parameter(centers.clone())
     state = TrainState(model, centers, build_optimizers(model, centers, cfg))
     with pytest.raises(ValueError, match="mode"):
         TSTEPS.make_train_step(state, cfg, C, "triplet")
-    cfg.TPU.NUM_GROUPS = 2
-    with pytest.raises(NotImplementedError, match="NUM_GROUPS"):
-        TSTEPS.make_train_step(state, cfg, C, "ctl")
+    imgs, labels, is_real = (torch.from_numpy(a) for a in _batch(0))
+    step = TSTEPS.make_train_step(state, cfg, C, "ctl")
+    with pytest.raises(ValueError, match="group-major"):
+        step(imgs, labels, is_real)
+    with pytest.raises(ValueError, match="group-major"):
+        step(imgs[None], labels, is_real[None])
 
 
 @pytest.mark.parametrize("mode", ["ctl", "base"])
@@ -293,8 +300,8 @@ def test_float64_step_stays_float64(mode):
         state = TrainState(model, centers, build_optimizers(model, centers,
                                                             cfg))
         metrics = TSTEPS.make_train_step(state, cfg, C, mode)(
-            torch.from_numpy(imgs).to(dtype), torch.from_numpy(labels),
-            torch.from_numpy(is_real))
+            torch.from_numpy(imgs).to(dtype)[None],
+            torch.from_numpy(labels)[None], torch.from_numpy(is_real)[None])
         grads = {n: p.grad for n, p in model.named_parameters()
                  if p.grad is not None}
         grads["centers"] = centers.grad
