@@ -208,7 +208,7 @@ def run_validation(cfg, model, dataset, use_centroids: bool
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
             "multi-process extraction is not ported yet; see ROADMAP.md "
-            "queue 1 item 6.3 (with item 6.4, multi-GPU)")
+            "queue 1 item 6.3 (processes over torch.distributed)")
     store = _shared_store(dataset, cfg)
     # one quantization per dataset object covers the double evaluation; the
     # key holds everything the quantized embed depends on

@@ -146,6 +146,11 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
     * ``TPU.RERANK`` otherwise: the fully re-ranked distance matrix
       (``ops.rerank.rerank_distmat``, at most ``DEFAULT_MAX_N`` rows in
       all) and a stable argsort;
+    * ``TPU.SHARDED_RETRIEVAL`` with ``topk`` > 0: ``parallel.retrieval.
+      sharded_topk`` over a mesh of every visible card (of the CPU for
+      ``device="cpu"``), with a warning when fewer than two are visible
+      (the mesh then has one device); at ``topk`` 0 a warning, and the
+      routes below;
     * ``ops.retrieval.topk_retrieval`` (exact fp32, hierarchical top-k on
       K3) when ``TPU.USE_PALLAS_RETRIEVAL`` and ``topk`` > 0;
     * else the full distance matrix and a stable argsort (the reference's
@@ -153,16 +158,14 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
       differently there).
 
     The re-rankers' local distance is ``SOLVER.DISTANCE_FUNC``.
-    ``TPU.SHARDED_RETRIEVAL`` (without ``TPU.RERANK``, which the reference
-    routes first) is not ported yet and raises ``NotImplementedError``."""
+    ``TPU.RERANK`` is routed before ``TPU.SHARDED_RETRIEVAL``, as in the
+    reference."""
     from ..metrics.r1_map import compute_distmat_device, l2_normalize_rows
     from ..ops.rerank import rerank_distmat, rerank_topk
     from ..ops.retrieval import topk_retrieval
+    from ..parallel import mesh as pmesh
+    from ..parallel.retrieval import sharded_topk
 
-    if cfg.TPU.SHARDED_RETRIEVAL and not cfg.TPU.RERANK:
-        raise NotImplementedError(
-            "TPU.SHARDED_RETRIEVAL is not ported yet; see ROADMAP.md queue 1 "
-            "item 6.4 (multi-GPU)")
     embeddings, paths = _embed_folder(cfg, images_in_subfolders, print_freq,
                                       device)
     load_path = Path(gallery_data)
@@ -181,6 +184,13 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
     rerank_kw = dict(k1=int(tpu.RERANK_K1), k2=int(tpu.RERANK_K2),
                      lambda_value=float(tpu.RERANK_LAMBDA), dist=dist,
                      device=device)
+    sharded = tpu.SHARDED_RETRIEVAL and not tpu.RERANK
+    if sharded and not topk:
+        # --topk 0 ranks every gallery entry: the full [Q, G] matrix
+        log.warning(
+            "TPU.SHARDED_RETRIEVAL requires --topk > 0 (ranking ALL gallery "
+            "entries materialises the full distance matrix on one device); "
+            "proceeding with the materialising path")
     if tpu.RERANK and topk and tpu.RERANK_WINDOW > 0:
         r = max(int(tpu.RERANK_WINDOW), topk)
         log.info("Windowed re-ranking with k-reciprocal encoding (r=%d, "
@@ -190,6 +200,13 @@ def find_similar(cfg, gallery_data: str, images_in_subfolders: bool,
                                      **rerank_kw)
         dists = dists[:, :topk].cpu().numpy()
         indices = indices[:, :topk].cpu().numpy()
+    elif sharded and topk:
+        devices = pmesh.local_devices(device)
+        if len(devices) < 2:
+            log.warning("TPU.SHARDED_RETRIEVAL needs >= 2 devices; using one")
+        dists, indices = sharded_topk(
+            embeddings, embeddings_gallery, topk,
+            pmesh.make_retrieval_mesh(devices=devices), dist=dist)
     elif use_pallas and topk and not tpu.RERANK:
         dists, indices = topk_retrieval(
             torch.from_numpy(np.asarray(embeddings, np.float32)).to(device),

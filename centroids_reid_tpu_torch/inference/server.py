@@ -43,8 +43,8 @@ waiting behind it, and /healthz reports it.
 
 ``--artifact`` serves a retriever artifact (``inference/export.py``):
 program, weights, gallery and paths come from the file, no checkpoint or
-index. Not ported: ``TPU.SHARDED_RETRIEVAL`` (ROADMAP.md queue 1 item 6.4,
-multi-GPU).
+index. ``TPU.SHARDED_RETRIEVAL`` shards the gallery over the visible cards
+(``RetrievalService(mesh=)``) when there are at least two.
 Divergence from the JAX server: a 0-row batch dispatches nothing and gets
 an empty result (the reference's ``_dispatch_sliced`` raises on it).
 """
@@ -650,10 +650,15 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
+    mesh = None
     if cfg.TPU.SHARDED_RETRIEVAL:
-        raise NotImplementedError(
-            "TPU.SHARDED_RETRIEVAL is not ported yet; see ROADMAP.md queue 1 "
-            "item 6.4 (multi-GPU)")
+        # a mesh over the cards when at least two are visible, as the
+        # reference's front does
+        from ..parallel import mesh as pmesh
+
+        devices = pmesh.local_devices(args.device)
+        if len(devices) >= 2:
+            mesh = pmesh.make_retrieval_mesh(devices=devices)
 
     load_path = Path(args.gallery_data)
     emb = np.load(load_path / "embeddings.npy", allow_pickle=True)
@@ -683,6 +688,7 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
         cfg, emb, paths, k=args.topk, normalize=args.normalize_features,
         use_bf16_kernel=not args.fp32_exact, device=args.device, model=model,
         int8_qfn=qfn, use_int8_gallery=args.int8_gallery, rerank_window=rr,
+        mesh=mesh,
         rerank_k1=(cfg.TPU.RERANK_K1 if args.rerank_k1 is None
                    else args.rerank_k1),
         rerank_k2=(cfg.TPU.RERANK_K2 if args.rerank_k2 is None

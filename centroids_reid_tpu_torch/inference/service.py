@@ -1,14 +1,14 @@
 """Serving: image -> top-k retrieval against a device-resident gallery.
 
-Counterpart of ``centroids_reid_tpu/inference/service.py`` on one device:
-decode on the host (to RGB, or with ``TPU.FAST_DECODE`` to packed YUV420,
-half the bytes to the card), then unpack and normalise -> backbone ->
-BNNeck (or the int8 PTQ embed, which takes the uint8 RGB image itself) ->
-(optional) L2 -> top-k
+Counterpart of ``centroids_reid_tpu/inference/service.py``: decode on the
+host (to RGB, or with ``TPU.FAST_DECODE`` to packed YUV420, half the bytes
+to the card), then unpack and normalise -> backbone -> BNNeck (or the int8
+PTQ embed, which takes the uint8 RGB image itself) -> (optional) L2 -> top-k
 selection on the bf16 / fp32 gallery or on the int8 gallery index -> exact
 fp32 re-score and sort -> (optional) windowed k-reciprocal re-ranking of
 each query's top-r window. Only the uint8 query batch and the k results
-cross the host boundary.
+cross the host boundary. With a ``mesh`` the gallery is sharded over its
+devices (``parallel/``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ..data.transforms import (
     normalize_batch,
     normalize_yuv420_batch,
 )
-from ..ops.rerank import _WIN_CHUNK, _windowed
+from ..ops.rerank import _WIN_CHUNK, _windowed, _windowed_feats
 from ..ops.retrieval import (
     _G_TILE,
     _Q_TILE,
@@ -36,6 +36,12 @@ from ..ops.retrieval_int8 import (
     default_margin,
     quantize_gallery,
     topk_select_int8,
+)
+from ..parallel.mesh import GALLERY_AXIS, on_device, shard_width, split_rows
+from ..parallel.retrieval import (
+    SHARD_ALIGN,
+    make_sharded_row_gather,
+    shard_select_merge,
 )
 from .api import load_inference_model
 
@@ -74,12 +80,20 @@ def _rerank_tail(e, gf32, idx0, k: int, r: int, k1: int, k2: int,
                  lam: float, dist: str):
     """Re-rank the selected windows ``idx0 [B, r]`` (the shared back half of
     ``reranked_query`` and ``reranked_query_int8``)."""
+    return _rerank_windows(
+        e, idx0, lambda *a: _windowed(e.float(), gf32, idx0, *a), k, r, k1,
+        k2, lam, dist)
+
+
+def _rerank_windows(e, idx0, windowed, k: int, r: int, k1: int, k2: int,
+                    lam: float, dist: str):
+    """The re-rank of ``_rerank_tail`` with the windowed core as
+    ``windowed(lam, kk, hk, k2, chunk, dist)``; keeps the first ``k``."""
     # the clamps of ops.rerank.rerank_topk: r + 1 rows a set, k1 + 1 ranks
     k1c = max(1, min(int(k1), r))
     k2c = max(1, min(int(k2), k1c + 1))
-    vals = _windowed(e.float(), gf32, idx0, float(lam), k1c + 1,
-                     k1c // 2 + 1, k2c, max(1, min(_WIN_CHUNK, e.shape[0])),
-                     dist)
+    vals = windowed(float(lam), k1c + 1, k1c // 2 + 1, k2c,
+                    max(1, min(_WIN_CHUNK, e.shape[0])), dist)
     vals, order = torch.sort(vals, dim=1, stable=True)
     return vals[:, :k], torch.gather(idx0, 1, order[:, :k])
 
@@ -175,14 +189,32 @@ class RetrievalService:
 
     ``TPU.FAST_DECODE`` (``ingest_format`` "yuv420"): ``ingest_bytes``
     packs planar YUV420 and the embed unpacks it on the card; an int8 embed
-    takes RGB, so with one the service ingests RGB. ``mesh`` is not ported
-    yet and raises ``NotImplementedError``. The service runs on the card
-    unless ``device`` says otherwise; ``query_arrays`` makes ``device``
-    current while it runs, so a service on ``cuda:1`` launches there from
-    any thread. An empty gallery, and the reference's refused combinations
-    (``mesh`` or, in capacity mode, ``rerank_window`` with the int8
-    gallery; cosine re-ranking without ``normalize``), raise
-    ``ValueError``.
+    takes RGB, so with one the service ingests RGB.
+
+    ``mesh`` (a ``parallel.Mesh`` of two or more devices; one device is
+    the unsharded service, as in the JAX package) shards the gallery rows
+    over its devices, padded to a multiple of 128 rows a shard (pad rows
+    at ``gn = +inf``). The model, the embed and the merge run on the
+    mesh's first device, which replaces ``device``. Each shard selects at
+    kernel dtype (K1 + the hierarchical top-k on K3 for bf16, whatever
+    k), re-scores its winners in exact fp32 against its own rows, and one
+    exact top-k merges the shards' candidates
+    (``parallel.retrieval.shard_select_merge``). With ``rerank_window``
+    the window's rows come from the cross-shard gather and are re-ranked
+    by ``ops.rerank._windowed_feats``. The sharded selection always
+    materialises [B, shard rows] scores (and [B, r, D] rows when
+    re-ranking), so ``max_query_batch`` is clamped on both. bf16 results
+    can differ from the unsharded service's where bf16 scores tie: the
+    sharded path picks each shard's candidates at bf16 resolution and
+    merges them by exact distance, so it chooses from a superset; the
+    fp32 route gives the same indices.
+
+    The service runs on the card unless ``device`` says otherwise;
+    ``query_arrays`` makes ``device`` current while it runs, so a service
+    on ``cuda:1`` launches there from any thread. An empty gallery, and
+    the reference's refused combinations (``mesh`` or, in capacity mode,
+    ``rerank_window`` with the int8 gallery; cosine re-ranking without
+    ``normalize``), raise ``ValueError``.
     """
 
     def __init__(self, cfg, gallery_embeddings: np.ndarray,
@@ -193,6 +225,8 @@ class RetrievalService:
                  rerank_window: int = 0, rerank_k1: int = 20,
                  rerank_k2: int = 6, rerank_lambda: float = 0.3,
                  int8_calib_imgs=None, int8_qfn=None):
+        if mesh is not None and mesh.shape[GALLERY_AXIS] < 2:
+            mesh = None
         if use_int8_gallery and mesh is not None:
             raise ValueError(
                 "use_int8_gallery is the single-device capacity lever; a "
@@ -202,15 +236,13 @@ class RetrievalService:
                 "use_int8_gallery with exact_rescore=False (capacity mode) "
                 "cannot re-rank: the windowed k-reciprocal core needs the "
                 "full-precision rows")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported yet; see ROADMAP.md queue 1 item 6.4 "
-                "(multi-GPU)")
         g = len(gallery_paths)
         if g == 0:
             raise ValueError("empty gallery")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else torch.device(device))
         self.k = int(min(k, g))
         self.rerank_window = (min(max(int(rerank_window), self.k), g)
                               if rerank_window else 0)
@@ -236,13 +268,26 @@ class RetrievalService:
         if normalize:
             gf = gf / np.maximum(np.linalg.norm(gf, axis=1, keepdims=True),
                                  1e-12)
-        gf, gn = _pad_gallery(gf, _G_TILE)
-        gf_t = torch.from_numpy(gf).to(self.device)
         self.use_int8_gallery = bool(use_int8_gallery)
-        if self.use_int8_gallery:
+        kernel_dtype = torch.bfloat16 if use_bf16_kernel else torch.float32
+        if mesh is not None:
+            # shard s: rows s * width .. (s + 1) * width on mesh.devices[s]
+            width = shard_width(g, len(mesh.devices), SHARD_ALIGN)
+            gf, gn = _pad_gallery(gf, width * len(mesh.devices))
+            f32 = split_rows(torch.from_numpy(gf), mesh, width)
+            self._shard_rows = width
+            self._gf = [x.to(kernel_dtype) for x in f32]
+            self._gf32 = f32 if exact_rescore else self._gf
+            self._gn = [x[None, :] for x in
+                        split_rows(torch.from_numpy(gn), mesh, width)]
+            self._gather_rows = make_sharded_row_gather(mesh, width)
+            del f32
+        elif self.use_int8_gallery:
             # the margin is clamped to the REAL row count, so +inf pad rows
             # never become candidates
             self._int8_sel = min(g, default_margin(k_sel))
+            gf, gn = _pad_gallery(gf, _G_TILE)
+            gf_t = torch.from_numpy(gf).to(self.device)
             gal = quantize_gallery(gf_t)  # zero pad rows -> zero codes
             gn_i8 = gal.gn.clone()
             gn_i8[g:] = float("inf")      # pads never win selection
@@ -250,16 +295,24 @@ class RetrievalService:
             # capacity mode: the codes are the only resident gallery state
             self._gf32 = gf_t[:g].contiguous() if exact_rescore else None
         else:
-            kernel_dtype = torch.bfloat16 if use_bf16_kernel else torch.float32
+            gf, gn = _pad_gallery(gf, _G_TILE)
+            gf_t = torch.from_numpy(gf).to(self.device)
             self._gf = gf_t.to(kernel_dtype)
             self._gf32 = gf_t[:g].contiguous() if exact_rescore else self._gf
             self._gn = torch.from_numpy(gn).to(self.device)[None, :]
 
         self.max_query_batch = int(max_query_batch)
-        if self.use_int8_gallery or not (use_bf16_kernel and k_sel <= 32):
-            # the [B, Gp] fp32 score matrix stays within the score budget
-            cap = max(128, (_SCORE_BUDGET_BYTES // (gf.shape[0] * 4))
-                      // 128 * 128)
+        if (mesh is not None or self.use_int8_gallery
+                or not (use_bf16_kernel and k_sel <= 32)):
+            # the [B, width] fp32 scores (of a shard, on a mesh) stay within
+            # the score budget
+            width = self._shard_rows if mesh is not None else gf.shape[0]
+            cap = max(128, (_SCORE_BUDGET_BYTES // (width * 4)) // 128 * 128)
+            self.max_query_batch = min(self.max_query_batch, cap)
+        if mesh is not None and self.rerank_window:
+            # so do the window's gathered [B, r, D] fp32 rows
+            cap = max(8, _SCORE_BUDGET_BYTES
+                      // (self.rerank_window * gf.shape[1] * 4))
             self.max_query_batch = min(self.max_query_batch, cap)
         self._mean = tuple(cfg.INPUT.PIXEL_MEAN)
         self._std = tuple(cfg.INPUT.PIXEL_STD)
@@ -278,11 +331,9 @@ class RetrievalService:
                 self._std, calib_percentile=cfg.TPU.INT8_CALIB_PCT)
 
     def _run(self, imgs_u8: np.ndarray):
-        if self.device.type != "cuda":
-            return self._query(imgs_u8)
         # threads start with cuda:0 current, and the kernels launch on the
         # current device's stream
-        with torch.cuda.device(self.device):
+        with on_device(self.device):
             return self._query(imgs_u8)
 
     @torch.inference_mode()
@@ -296,7 +347,9 @@ class RetrievalService:
             if self.normalize:
                 e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
         rr = self.rerank_window
-        if self.use_int8_gallery and rr:
+        if self.mesh is not None:
+            d, idx = self._sharded_query(e)
+        elif self.use_int8_gallery and rr:
             d, idx = reranked_query_int8(
                 e, self._gf, self._gf32, self.k, rr, *self._rerank_params,
                 dist=self._rerank_dist, sel=self._int8_sel)
@@ -310,6 +363,34 @@ class RetrievalService:
         else:
             d, idx = ranked_query(e, self._gf, self._gf32, self._gn, self.k)
         return d.cpu().numpy(), idx.cpu().numpy()
+
+    def _sharded_query(self, e):
+        """Ranking on the sharded gallery (the JAX package's sharded run):
+        per-shard selection at kernel dtype, an exact fp32 re-score of each
+        shard's winners against its own fp32 rows, the merge, then with
+        ``rerank_window`` the window's rows gathered across shards and
+        re-ranked. Returns exact distances (or re-rank scores) ascending,
+        and global indices."""
+        e32 = e.float()
+
+        def rescore(s, val, idx):
+            g_sel = self._gf32[s][idx].float()
+            es = e32.to(g_sel.device)
+            d = ((es * es).sum(dim=1)[:, None] + (g_sel * g_sel).sum(dim=2)
+                 - 2.0 * torch.einsum("qd,qkd->qk", es, g_sel))
+            # pad rows (zero vectors at +inf score) must stay at +inf
+            return torch.where(torch.isinf(val), val, d)
+
+        rr = self.rerank_window
+        d0, idx0 = shard_select_merge(
+            self.mesh, e.to(self._gf[0].dtype), self._gf, self._gn,
+            rr or self.k, self._shard_rows, rescore=rescore)
+        if not rr:
+            return d0, idx0
+        cand = self._gather_rows(idx0, self._gf32)
+        return _rerank_windows(
+            e, idx0, lambda *a: _windowed_feats(e32, cand, *a), self.k, rr,
+            *self._rerank_params, self._rerank_dist)
 
     def query_arrays(self, imgs_u8: np.ndarray):
         """uint8 [B, H, W, 3], or packed YUV420 [B, 1.5 * H * W] on the fast

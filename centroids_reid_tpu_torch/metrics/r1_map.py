@@ -18,11 +18,7 @@ import torch
 
 from ..losses.distances import get_dist_func
 from .eval_reid import ReidMetrics, eval_func
-from .streaming_eval import (
-    _MESH_ITEM,
-    eval_func_streaming,
-    eval_func_streaming_reranked,
-)
+from .streaming_eval import eval_func_streaming, eval_func_streaming_reranked
 
 # Max fp32 elements of the distance matrix per gallery chunk (~256 MB).
 _CHUNK_ELEMS = 64 * 1024 * 1024
@@ -81,8 +77,10 @@ class R1mAP:
 
     ``compute`` takes the features as an array or as a tensor; a tensor
     stays on its own device (a gallery on the card is never copied to the
-    host). ``mesh`` (the gallery sharded over several cards) is not ported
-    yet and raises ``NotImplementedError``."""
+    host). ``mesh`` (a ``parallel.Mesh``) shards the gallery rows of the
+    streaming evaluations over its devices, plain and re-ranked, as the
+    JAX package does; features go to its first device, which replaces
+    ``device``. The materialising path ignores it."""
 
     def __init__(self, num_query: int, max_rank: int = 50,
                  feat_norm: bool = True, dist_name: str = "euclidean",
@@ -97,9 +95,6 @@ class R1mAP:
                 "re-ranking at any gallery scale), run with "
                 "streaming=False (small/centroid galleries), or disable "
                 "TPU.RERANK")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"R1mAP mesh is not ported yet; see {_MESH_ITEM}")
         self.num_query = num_query
         self.max_rank = max_rank
         self.feat_norm = feat_norm
@@ -110,7 +105,9 @@ class R1mAP:
         self.rerank_k2 = rerank_k2
         self.rerank_lambda = rerank_lambda
         self.rerank_window = int(rerank_window)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else torch.device(device))
         self._last_distmat_device = None
 
     def compute(self, feats, pids, camids,
@@ -135,7 +132,8 @@ class R1mAP:
                 qf, gf, q_pids, g_pids, q_camids, g_camids,
                 r=self.rerank_window, k1=self.rerank_k1, k2=self.rerank_k2,
                 lambda_value=self.rerank_lambda, max_rank=self.max_rank,
-                respect_camids=respect_camids, dist=self.dist_name)
+                respect_camids=respect_camids, dist=self.dist_name,
+                mesh=self.mesh)
         stream = self.streaming
         if stream is None:
             stream = (not self.rerank
@@ -144,7 +142,7 @@ class R1mAP:
             return eval_func_streaming(
                 qf, gf, q_pids, g_pids, q_camids, g_camids,
                 max_rank=self.max_rank, respect_camids=respect_camids,
-                dist=self.dist_name)
+                dist=self.dist_name, mesh=self.mesh)
 
         if self.rerank:
             from ..ops.rerank import rerank_distmat

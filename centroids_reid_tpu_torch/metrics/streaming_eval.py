@@ -33,8 +33,15 @@ query's hits; AP is their mean over the hits.
 Camid bitmasks stay one int64 word (torch shifts int64 on every device);
 the reference splits them into two int32 words only because JAX without
 x64 truncates int64. Ranks are int32, as in the reference, so galleries of
-2^31 rows or more are out of scope. ``mesh`` (gallery rows sharded over
-several cards) is not ported yet and raises ``NotImplementedError``.
+2^31 rows or more are out of scope.
+
+``mesh`` shards the gallery rows over its devices (``parallel/``): the
+gallery is padded to ``g_chunk`` x shards rows and each shard is placed
+once. Per query chunk every shard extracts against its own rows with its
+global offset, the extractions are summed on the mesh's first device
+(a hit lives in exactly one shard, the others give 0) before any shard
+counts, and the shards' counts are summed there. Without a mesh the
+device of the gallery is the one shard.
 """
 
 from __future__ import annotations
@@ -47,13 +54,12 @@ import torch
 
 from ..losses.distances import get_dist_func
 from ..ops.rerank import _as_f32
+from ..parallel.mesh import on_device, shard_width
 from .eval_reid import K_LIST, ReidMetrics
 
 _G_CHUNK = 8192    # gallery rows per score tile
 _Q_CHUNK = 128     # query rows per pass
 _H_CHUNK = 64      # positives per compare tile: [Qc, _H_CHUNK, C] at most
-_MESH_ITEM = ("ROADMAP.md queue 1 item 6.4 (multi-GPU: the gallery sharded "
-              "over cards)")
 _NEVER = torch.iinfo(torch.int64).max   # the key of an entry never counted
 
 
@@ -104,41 +110,118 @@ def _gallery_tiles(gf: torch.Tensor, g_chunk: int) -> list:
     return tiles
 
 
-def _stream_ranks(qf_c, qp_c, qc_c, pos_c, tiles: list, g_pids, g_cams,
-                  g_valid, dist: str, respect_camids: bool):
-    """The extract and count passes for one chunk of queries over the
-    gallery ``tiles``, on the device: (dpos [Qc, H] fp32, ranks [Qc, H]
-    int32)."""
-    fn = get_dist_func(dist, eval_mode=True)
-    c_rows = tiles[0].shape[0]
-    dev = qf_c.device
-    cols = torch.arange(c_rows, device=dev)
+class _Shard(NamedTuple):
+    """One block of gallery rows ``j0 .. j0 + len(tiles) * g_chunk`` on
+    ``device``, with its rows' pids, camids and validity."""
 
-    dpos = torch.zeros(pos_c.shape, dtype=torch.float32, device=dev)
-    for c, tile in enumerate(tiles):
+    device: torch.device
+    j0: int
+    tiles: list
+    g_pids: torch.Tensor
+    g_cams: torch.Tensor
+    g_valid: torch.Tensor
+
+
+def _shards(gf, g_pids, g_camids, devices, g_chunk: int) -> list:
+    """The gallery cut into ``len(devices)`` blocks of whole ``g_chunk``
+    tiles, each placed on its device once: views where the rows are
+    already there, a ragged tile's padded copy, zero tiles past the end."""
+    num_g = gf.shape[0]
+    width = shard_width(num_g, len(devices), g_chunk)
+    pad_g = width * len(devices) - num_g
+
+    def padded(x, fill):
+        return torch.as_tensor(np.concatenate(
+            [np.asarray(x, np.int64), np.full(pad_g, fill, np.int64)]))
+
+    g_pids_p, g_cams_p = padded(g_pids, -1), padded(g_camids, -1)
+    g_valid = torch.arange(num_g + pad_g) < num_g
+    out = []
+    for s, dev in enumerate(devices):
+        lo = s * width
+        rows = gf[lo:lo + width]
+        tiles = _gallery_tiles(rows.to(dev), g_chunk) if len(rows) else []
+        if len(tiles) < width // g_chunk:
+            zero = gf.new_zeros((g_chunk, gf.shape[1]), device=dev)
+            tiles += [zero] * (width // g_chunk - len(tiles))
+        sl = slice(lo, lo + width)
+        out.append(_Shard(dev, lo, tiles, g_pids_p[sl].to(dev),
+                          g_cams_p[sl].to(dev), g_valid[sl].to(dev)))
+    return out
+
+
+def _extract(qf_c, pos_c, sh: _Shard, dist: str):
+    """[Qc, H] fp32: each hit's distance read out of the score tile of
+    ``sh`` it lives in, 0 for hits in other shards."""
+    fn = get_dist_func(dist, eval_mode=True)
+    c_rows = sh.tiles[0].shape[0]
+    dpos = torch.zeros(pos_c.shape, dtype=torch.float32, device=sh.device)
+    for c, tile in enumerate(sh.tiles):
         s = fn(qf_c, tile)                                  # [Qc, C] fp32
-        local = pos_c - c * c_rows
+        local = pos_c - (sh.j0 + c * c_rows)
         inside = (local >= 0) & (local < c_rows)
         dpos = torch.where(inside, s.gather(1, local.clamp(0, c_rows - 1)),
                            dpos)
+    return dpos
 
+
+def _count(qf_c, qp_c, qc_c, pos_c, dpos, sh: _Shard, dist: str,
+           respect_camids: bool):
+    """[Qc, H] int32: the kept entries of ``sh`` ordered before each hit by
+    (distance, index); ``dpos`` is the extraction over all shards."""
+    fn = get_dist_func(dist, eval_mode=True)
+    c_rows = sh.tiles[0].shape[0]
+    cols = torch.arange(c_rows, device=sh.device)
     pos_key = _order_key(dpos, pos_c)
-    ranks = torch.zeros(pos_c.shape, dtype=torch.int32, device=dev)
-    for c, tile in enumerate(tiles):
+    ranks = torch.zeros(pos_c.shape, dtype=torch.int32, device=sh.device)
+    for c, tile in enumerate(sh.tiles):
         s = fn(qf_c, tile)
         sl = slice(c * c_rows, (c + 1) * c_rows)
-        match = g_pids[None, sl] == qp_c[:, None]
+        match = sh.g_pids[None, sl] == qp_c[:, None]
         if respect_camids:
-            same = ((g_cams[None, sl] >> qc_c[:, None]) & 1) == 1
+            same = ((sh.g_cams[None, sl] >> qc_c[:, None]) & 1) == 1
         else:
-            same = g_cams[None, sl] == qc_c[:, None]
-        keep = ~(match & same) & g_valid[None, sl]
-        key = torch.where(keep, _order_key(s, cols + c * c_rows), _NEVER)
+            same = sh.g_cams[None, sl] == qc_c[:, None]
+        keep = ~(match & same) & sh.g_valid[None, sl]
+        key = torch.where(keep,
+                          _order_key(s, cols + (sh.j0 + c * c_rows)), _NEVER)
         for h0 in range(0, pos_c.shape[1], _H_CHUNK):
             before = key[:, None, :] < pos_key[:, h0:h0 + _H_CHUNK, None]
             ranks[:, h0:h0 + _H_CHUNK] += before.sum(dim=2,
                                                      dtype=torch.int32)
-    return dpos, ranks
+    return ranks
+
+
+def _summed(parts: list, home: torch.device) -> torch.Tensor:
+    out = parts[0].to(home)
+    for p in parts[1:]:
+        out = out + p.to(home)
+    return out
+
+
+def _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards: list, dist: str,
+                  respect_camids: bool):
+    """The extract and count passes for one chunk of queries over the
+    gallery ``shards``: (dpos [Qc, H] fp32, ranks [Qc, H] int32) on the
+    first shard's device. Every shard's pass is enqueued before its
+    results are gathered."""
+    home = shards[0].device
+    parts = []
+    for sh in shards:
+        with on_device(sh.device):
+            parts.append(_extract(qf_c.to(sh.device), pos_c.to(sh.device),
+                                  sh, dist))
+    with on_device(home):
+        dpos = _summed(parts, home)
+    parts = []
+    for sh in shards:
+        dev = sh.device
+        with on_device(dev):
+            parts.append(_count(qf_c.to(dev), qp_c.to(dev), qc_c.to(dev),
+                                pos_c.to(dev), dpos.to(dev), sh, dist,
+                                respect_camids))
+    with on_device(home):
+        return dpos, _summed(parts, home)
 
 
 class StreamRanks(NamedTuple):
@@ -159,13 +242,16 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
     arrays: each hit's gallery index, distance and rank among the kept
     entries. The passes run on the device of ``gf`` when it is a tensor
     (a gallery on the card is never copied to the host), else on
-    ``device``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"streaming evaluation over a mesh is not ported yet; see "
-            f"{_MESH_ITEM}")
-    gf = _as_f32(gf, device)
-    dev = gf.device
+    ``device``; with ``mesh``, on its devices, the gallery's shards copied
+    there from wherever it lies (a host array goes straight to them)."""
+    if mesh is None:
+        gf = _as_f32(gf, device)
+        devices = (gf.device,)
+    else:
+        gf = (gf.float() if torch.is_tensor(gf)
+              else torch.from_numpy(np.asarray(gf, np.float32)))
+        devices = mesh.devices
+    dev = devices[0]
     qf = _as_f32(qf, dev).to(dev)
     q_pids = np.asarray(q_pids)
     g_pids = np.asarray(g_pids)
@@ -176,17 +262,7 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
     pos = _positives_table(q_pids, g_pids, q_camids, g_camids,
                            respect_camids)
     num_rel = (pos >= 0).sum(axis=1)
-    tiles = _gallery_tiles(gf, g_chunk)
-    pad_g = len(tiles) * g_chunk - num_g
-
-    def padded(x, fill):
-        return torch.as_tensor(np.concatenate(
-            [np.asarray(x, np.int64), np.full(pad_g, fill, np.int64)]),
-            device=dev)
-
-    g_pids_d = padded(g_pids, -1)
-    g_cams_d = padded(g_camids, -1)
-    g_valid = torch.arange(num_g + pad_g, device=dev) < num_g
+    shards = _shards(gf, g_pids, g_camids, devices, g_chunk)
     pos_d = torch.as_tensor(pos.astype(np.int64), device=dev)
     qp_d = torch.as_tensor(q_pids.astype(np.int64), device=dev)
     qc_d = torch.as_tensor(q_camids.astype(np.int64), device=dev)
@@ -200,8 +276,7 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
         qc_c = torch.cat([qc_d[s:s + rows], qc_d.new_zeros((pad_q,))])
         pos_c = torch.cat([pos_d[s:s + rows],
                            pos_d.new_full((pad_q, pos.shape[1]), -1)])
-        dpos, ranks = _stream_ranks(qf_c, qp_c, qc_c, pos_c, tiles,
-                                    g_pids_d, g_cams_d, g_valid, dist,
+        dpos, ranks = _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards, dist,
                                     respect_camids)
         dpos_all.append(dpos[:rows])
         ranks_all.append(ranks[:rows])
@@ -328,8 +403,10 @@ def eval_func_streaming_reranked(qf, gf, q_pids, g_pids, q_camids, g_camids,
     g_pids = np.asarray(g_pids)
     q_camids = np.asarray(q_camids)
     g_camids = np.asarray(g_camids)
-    # one copy of the gallery on the device, for both the passes and the
-    # window selection
+    # one copy of the gallery on the device (the mesh's first), for both
+    # the passes and the window selection
+    if mesh is not None:
+        device = mesh.devices[0]
     gf = _as_f32(gf, device)
     qf = _as_f32(qf, gf.device).to(gf.device)
     sr = compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
@@ -337,7 +414,7 @@ def eval_func_streaming_reranked(qf, gf, q_pids, g_pids, q_camids, g_camids,
                               mesh=mesh, g_chunk=g_chunk)
     num_g = int(gf.shape[0])
     _, ridx = rerank_topk(qf, gf, r=r, k1=k1, k2=k2,
-                          lambda_value=lambda_value, dist=dist)
+                          lambda_value=lambda_value, dist=dist, mesh=mesh)
     ridx = ridx.cpu().numpy()                   # [Q, r] re-ranked windows
 
     wp = g_pids[ridx]

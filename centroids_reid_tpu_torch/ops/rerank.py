@@ -33,9 +33,10 @@ go to ``device``, the card unless the caller asks for the CPU):
 The ranks of step 2 are ``ops.retrieval._exact_topk`` of each row (K3 on
 the card, a stable sort on the CPU): the k smallest, ties to the lower
 index, as ``lax.top_k(-d)``. The expansion's scatter-max over repeated
-indices is ``scatter_reduce(amax)``, which is deterministic. The JAX
-package's ``_windowed_feats`` (pre-gathered candidate rows of a sharded
-gallery) waits for multi-GPU serving (ROADMAP.md queue 1 item 6.4).
+indices is ``scatter_reduce(amax)``, which is deterministic.
+``_windowed_feats`` runs the same windowed core on pre-gathered candidate
+rows, the form the sharded serving path has (its rows come from the
+cross-shard gather of ``parallel.retrieval``).
 """
 
 from __future__ import annotations
@@ -240,31 +241,55 @@ def _core(d, kk: int, hk: int, k2: int, lam: float):
     return lam * dn[:, 0, 1:] + (1.0 - lam) * jac
 
 
-def _windowed(qf, gf, idx, lam: float, kk: int, hk: int, k2: int,
-              chunk: int, dist: str):
-    """Re-ranked distances [Q, R] of each query to its candidate window
-    ``idx [Q, R]`` (rows of ``gf``), in the window's order: chunks of
-    ``chunk`` queries, each a batch of [C, R + 1, R + 1] local problems.
-    ``gf`` may be a kernel-dtype copy; distances are fp32."""
-    q, r = idx.shape
+def _windowed_rows(qf, rows, r: int, lam: float, kk: int, hk: int, k2: int,
+                   chunk: int, dist: str):
+    """Re-ranked distances [Q, r] of each query to its ``r`` candidate rows
+    ``rows(s, e) -> [e - s, r, D]``, in the candidates' order: chunks of
+    ``chunk`` queries, each a batch of [C, r + 1, r + 1] local problems."""
+    q = qf.shape[0]
     out = qf.new_empty((q, r), dtype=torch.float32)
     for s in range(0, q, chunk):
         f = torch.cat([qf[s:s + chunk, None, :].float(),
-                       gf[idx[s:s + chunk]].float()], dim=1)
+                       rows(s, s + chunk).float()], dim=1)
         out[s:s + chunk] = _core(_local_dist(f, dist), kk, hk, k2, lam)
     return out
 
 
+def _windowed(qf, gf, idx, lam: float, kk: int, hk: int, k2: int,
+              chunk: int, dist: str):
+    """Re-ranked distances [Q, R] of each query to its candidate window
+    ``idx [Q, R]`` (rows of ``gf``), in the window's order. ``gf`` may be a
+    kernel-dtype copy; distances are fp32."""
+    return _windowed_rows(qf, lambda s, e: gf[idx[s:e]], idx.shape[1], lam,
+                          kk, hk, k2, chunk, dist)
+
+
+def _windowed_feats(qf, cand, lam: float, kk: int, hk: int, k2: int,
+                    chunk: int, dist: str):
+    """``_windowed`` over pre-gathered candidate rows ``cand [Q, R, D]``
+    instead of ``(gf, idx)``: the same math and output."""
+    return _windowed_rows(qf, lambda s, e: cand[s:e], cand.shape[1], lam,
+                          kk, hk, k2, chunk, dist)
+
+
 def rerank_topk(qf, gf, r: int = 100, k1: int = 20, k2: int = 6,
                 lambda_value: float = 0.3, dist: str = "euclidean",
-                q_chunk: int = _WIN_CHUNK,
-                device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                q_chunk: int = _WIN_CHUNK, device="cuda",
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Windowed k-reciprocal re-ranking: [Q, D] x [G, D] -> (re-ranked
     distances [Q, r], gallery indices [Q, r]), nearest first, on the
     inputs' device. Each query is re-ranked against its own exact fp32
     top-``r`` window, i.e. ``rerank_distmat(qf[i:i+1], gf[window_i])``;
     candidates outside the window never enter it. ``r`` is clamped to the
-    gallery size, ``k1`` to ``r``, ``k2`` to ``k1 + 1``."""
+    gallery size, ``k1`` to ``r``, ``k2`` to ``k1 + 1``.
+
+    ``mesh`` selects the windows on the gallery sharded over it
+    (``parallel.retrieval.sharded_topk``); array inputs then go to its
+    first device. The windows' rows are still read from the whole ``gf``
+    on the queries' device, as in the JAX package, so this entry does not
+    spread the gallery's residency."""
+    if mesh is not None:
+        device = mesh.devices[0]
     qf, gf = _as_f32(qf, device), _as_f32(gf, device)
     gf = gf.to(qf.device)
     q, g = qf.shape[0], gf.shape[0]
@@ -274,7 +299,13 @@ def rerank_topk(qf, gf, r: int = 100, k1: int = 20, k2: int = 6,
     r = max(1, min(int(r), g))
     k1 = max(1, min(int(k1), r))
     k2 = max(1, min(int(k2), k1 + 1))
-    _, idx0 = topk_retrieval_tensors(qf, gf, r, dist=dist)
+    if mesh is not None:
+        from ..parallel.retrieval import sharded_topk_tensors
+
+        _, idx0 = sharded_topk_tensors(qf, gf, r, mesh, dist=dist)
+        idx0 = idx0.to(qf.device)
+    else:
+        _, idx0 = topk_retrieval_tensors(qf, gf, r, dist=dist)
     vals = _windowed(qf, gf, idx0, float(lambda_value), k1 + 1, k1 // 2 + 1,
                      k2, max(1, min(int(q_chunk), q)), dist)
     vals, order = torch.sort(vals, dim=1, stable=True)

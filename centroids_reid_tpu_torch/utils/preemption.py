@@ -10,7 +10,8 @@
 - Second signal: the original disposition was restored when the first one
   fired, so a repeated SIGTERM terminates immediately.
 - One process only: ``should_stop`` takes no collective (a stop decision
-  across processes waits for multi-GPU, ROADMAP.md queue 1 item 6.4).
+  across processes waits for ROADMAP.md queue 1 item 6.3, processes over
+  torch.distributed).
 
 Gated by ``TPU.GRACEFUL_PREEMPTION`` (default on).
 """

@@ -61,7 +61,15 @@ bf16 autocast) and seeded random weights:
   zstandard (the system's libzstd through ctypes), every leaf held bit for
   bit against its ``arrays.npz``, its Adam state mapped through
   ``from_jax_opt_state``; the zstd decode and encode rates on 100 MB of
-  fp32 at level 1.
+  fp32 at level 1;
+* the gallery mesh (phases 13 and 13b, ``parallel/``): phase 4's gallery
+  sharded 4 ways (on one card all four shards on cuda:0): ``sharded_topk``
+  against ``topk_retrieval``; ``RetrievalService(mesh=)`` at k=10 and
+  k=100, fp32 and bf16 (K1 and K3 on every shard), re-ranked at r=100
+  (the cross-shard row gather), and with phase 4b's int8 embed (K5, K6);
+  ``get_similar`` and the HTTP front with ``TPU.SHARDED_RETRIEVAL`` (one
+  card: the reference's fewer-than-two-devices rule); ``R1mAP(mesh=)`` on
+  phase 10's cell, plain and re-ranked, against the unsharded evaluator.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -81,7 +89,11 @@ the dense re-ranker at Market-1501's size with its peak memory. Phase 11
 prints export and load seconds and file bytes, the artifacts' embed rate
 (CUDA events) and request and ``/search`` p50 beside the live path's, in
 turns, and K5's and K6's host cost a launch through their operators and
-through the operators' bodies. Each phase prints its seconds.
+through the operators' bodies. Phase 13 prints the sharded request's p50
+and device busy time beside the one-device service's and K1's and K3's
+launches per sharded request; 13b the sharded evaluation's seconds and
+peak memory beside the unsharded run's and phase 10's. Each phase prints
+its seconds.
 Exits non-zero on any failure; the last line is ``{"ok": true, "device":
 {...}}``. Imports no JAX.
 """
@@ -3466,7 +3478,51 @@ def _materialised_ranks(qf, gf, sr, q_pids, g_pids, q_cams, g_cams):
     return torch.gather(kept, 1, at).cpu().numpy()
 
 
-def phase_eval_stream(gpu: str) -> None:
+def _stream_cell():
+    """eval-stream-market500k's features on the card (unit rows; pids and
+    cameras on the host): (f, pids, cams, the generator), queries first."""
+    import torch
+
+    nq, ng, pids = MARKET
+    n_all = nq + ng + DISTRACTORS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    centers = torch.randn((pids, DIM), generator=gen, device="cuda")
+    pid = torch.randint(0, pids, (nq + ng,), generator=gen, device="cuda")
+    near = torch.randint(0, pids, (DISTRACTORS,), generator=gen,
+                         device="cuda")
+    # distractors lie around the identities' centres, further out than
+    # their own images (noise 1.0 against 0.8): hard negatives
+    f = torch.cat([centers[pid] + 0.8 * torch.randn(
+        (nq + ng, DIM), generator=gen, device="cuda"),
+        centers[near] + 1.0 * torch.randn((DISTRACTORS, DIM), generator=gen,
+                                           device="cuda")])
+    f /= f.norm(dim=1, keepdim=True)
+    pids_all = np.concatenate([pid.cpu().numpy(),
+                               np.full(DISTRACTORS, pids, np.int64)])
+    cams = torch.randint(0, STREAM_CAMS, (n_all,), generator=gen,
+                         device="cuda").cpu().numpy()
+    return f, pids_all, cams, gen
+
+
+def _measured(name: str, fn, gpu: str):
+    """``fn()`` timed on the host clock up to a synchronize, with its peak
+    device memory above what was allocated before: (result, s, GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"{name}: {secs:.3f} s (host clock, synchronized), peak "
+        f"{peak:.2f} GiB above the inputs [{gpu}]")
+    return res, secs, peak
+
+
+def phase_eval_stream(gpu: str) -> dict:
     """Phase 10, cell eval-stream-market500k: ``R1mAP`` on Market-1501's test
     split with 500,000 distractors switches to the streaming evaluator by
     itself. Held: the first STREAM_HELD_Q queries against the card's
@@ -3477,7 +3533,8 @@ def phase_eval_stream(gpu: str) -> None:
     on the explicitly stitched order (its windows selected by K3's plain
     version). K3 runs the windows' selection and their ranks; at each of
     its shapes it is held exactly against its plain version and timed by
-    graph replay."""
+    graph replay. Returns the whole cell's (seconds, peak GiB), plain and
+    re-ranked."""
     import torch
 
     from centroids_reid_tpu_torch.metrics import (
@@ -3499,44 +3556,22 @@ def phase_eval_stream(gpu: str) -> None:
 
     log("== phase 10: evaluation at any gallery scale (eval-stream-"
         "market500k)")
-    nq, ng, pids = MARKET
+    nq, ng, _ = MARKET
     n_all = nq + ng + DISTRACTORS
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    centers = torch.randn((pids, DIM), generator=gen, device="cuda")
-    pid = torch.randint(0, pids, (nq + ng,), generator=gen, device="cuda")
-    near = torch.randint(0, pids, (DISTRACTORS,), generator=gen,
-                         device="cuda")
-    # distractors lie around the identities' centres, further out than
-    # their own images (noise 1.0 against 0.8): hard negatives
-    f = torch.cat([centers[pid] + 0.8 * torch.randn(
-        (nq + ng, DIM), generator=gen, device="cuda"),
-        centers[near] + 1.0 * torch.randn((DISTRACTORS, DIM), generator=gen,
-                                           device="cuda")])
-    f /= f.norm(dim=1, keepdim=True)
-    pids_all = np.concatenate([pid.cpu().numpy(),
-                               np.full(DISTRACTORS, pids, np.int64)])
-    cams = torch.randint(0, STREAM_CAMS, (n_all,), generator=gen,
-                         device="cuda").cpu().numpy()
+    f, pids_all, cams, gen = _stream_cell()
     qf, gf = f[:nq], f[nq:]
     q_pids, g_pids, q_cams, g_cams = (pids_all[:nq], pids_all[nq:],
                                       cams[:nq], cams[nq:])
-    del centers, pid, near
     torch.cuda.synchronize()
     log(f"{nq} queries, {ng} + {DISTRACTORS} gallery rows x {DIM} on the "
         f"card: {nq * (n_all - nq):.3e} cells (the streaming switch: "
         f"{r1_map._STREAMING_CELLS:.3e})")
 
+    measured = {}
+
     def run(name, fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        log(f"{name}: {secs:.3f} s (host clock, synchronized), peak "
-            f"{peak:.2f} GiB above the inputs [{gpu}]")
+        res, secs, peak = _measured(name, fn, gpu)
+        measured[name] = (secs, peak)
         return res
 
     # the whole cell through the user's entry point: R1mAP streams
@@ -3706,6 +3741,10 @@ def phase_eval_stream(gpu: str) -> None:
             f"{ms * 1e3:.1f} us (graph replay), torch.topk {lib * 1e3:.1f} "
             f"us, bound {b / HBM_PEAK_GBS / 1e6 * 1e3:.1f} us by bytes "
             f"[{gpu}]")
+    return {"plain": measured["R1mAP.compute, the whole cell (streaming by "
+                              "itself)"],
+            "rerank": measured[f"R1mAP(rerank=True, rerank_window="
+                               f"{STREAM_R}), the whole cell"]}
 
 
 # -------------------------------------------------------- phase 12 ------
@@ -3831,6 +3870,374 @@ def phase_orbax(gpu: str) -> dict:
             "read_ms": read_ms}
 
 
+# -------------------------------------------------------- phase 13 ------
+
+MESH_SHARDS = 4           # gallery shards; on one card all on cuda:0
+MESH_TIE = 1e-6           # fp32 rounding of two matmul blockings, unit rows
+MESH_TOL = 1e-5 * 2       # 1e-5 of the squared norms' scale (2, unit rows)
+
+
+def _mesh():
+    """The phase's mesh: MESH_SHARDS shards dealt over the visible cards."""
+    import torch
+
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
+    n = torch.cuda.device_count()
+    return make_retrieval_mesh(devices=[torch.device("cuda", s % n)
+                                        for s in range(MESH_SHARDS)])
+
+
+def device_ops_per_call(fn, n: int = 10):
+    """Kernels, copies and sets that ``fn`` puts on the card per call
+    (torch.profiler over ``n`` calls); None when it traced none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False))
+    return ops / n if ops else None
+
+
+def _tie_equal(vals, idx, ref_idx) -> tuple:
+    """(rows whose indices are equal outright, whether every row is equal
+    up to runs of values within MESH_TIE)."""
+    same = int((np.asarray(idx) == np.asarray(ref_idx)).all(axis=1).sum())
+    return same, _same_ranking(vals, idx, ref_idx, MESH_TIE)
+
+
+def phase_mesh(state: dict, int8_state: dict, tmp: str, eval_root: str,
+               gpu: str) -> dict:
+    """Phase 13, the gallery mesh: phase 4's 100,000 x 2048 gallery sharded
+    MESH_SHARDS ways (on one card every shard on cuda:0). ``sharded_topk``
+    against ``topk_retrieval`` (fp32, TF32 off); ``RetrievalService(mesh=)``
+    on phase 4's 64 images at k=10 and k=100 against the one-device
+    services, fp32 and bf16; re-ranked at r=100 (the cross-shard gather
+    against the gallery rows, each response against ``_windowed``); phase
+    4b's int8 embed feeding the sharded bf16 gallery; ``get_similar
+    --topk 100`` and the HTTP front with ``TPU.SHARDED_RETRIEVAL``, which
+    follow the reference's fewer-than-two-devices rule on one card.
+    Returns the launch counts of the sharded bf16 requests."""
+    import base64
+    import functools
+    import logging
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.inference import (
+        RetrievalService,
+        get_similar,
+    )
+    from centroids_reid_tpu_torch.inference import service as service_mod
+    from centroids_reid_tpu_torch.ops import (
+        launch_counts,
+        reset_launch_counts,
+        topk_retrieval,
+    )
+    from centroids_reid_tpu_torch.ops.rerank import _windowed
+    from centroids_reid_tpu_torch.parallel import sharded_topk
+
+    log("== phase 13: gallery mesh")
+    mesh = _mesh()
+    log(f"mesh of {MESH_SHARDS} shards on "
+        f"{', '.join(map(str, mesh.devices))} ({torch.cuda.device_count()} "
+        f"card(s) visible; shards that share a card run one after another "
+        f"on its stream, so this measures the program, not multi-card "
+        f"speed) [{gpu}]")
+    cfg, model, imgs = state["cfg"], state["model"], state["imgs"]
+    gallery, paths, rows = state["gallery"], state["paths"], state["rows"]
+    out = {}
+
+    # ---- 1. sharded_topk against topk_retrieval on one device, fp32
+    qf = torch.from_numpy(state["emb"]).cuda()
+    gf = torch.from_numpy(gallery).cuda()
+    for dist in ("euclidean", "cosine"):
+        for k in (10, 100):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            v, i = sharded_topk(qf, gf, k, mesh, dist=dist)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            rv, ri = topk_retrieval(qf, gf, k, dist=dist)
+            same, ok = _tie_equal(rv, i, ri)
+            err = float(np.abs(v - rv).max() / np.abs(rv).max())
+            log(f"sharded_topk {dist} k={k}, {len(qf)} queries: indices "
+                f"equal in {same} of {len(qf)} rows (the rest within runs of "
+                f"values closer than {MESH_TIE}: {ok}), max relative value "
+                f"difference {err:.2e} (tol 1e-4); K3 launches "
+                f"{launches['kpass_topk']}")
+            require(ok and err <= 1e-4, f"sharded_topk {dist} k={k} differs "
+                    f"from topk_retrieval")
+            require(launches["kpass_topk"] > 0, "sharded_topk launched no K3")
+    del gf
+
+    # ---- 2. the sharded service against the one-device ones
+    def serve_all(svc, check_rows=True):
+        """Phase 4's 64 images as 8-image requests; each request's answer
+        and the embeddings the service computed for it."""
+        res = []
+        with _recording(service_mod, "embed_query") as emb_calls:
+            for r in range(N_IMAGES // REQUEST):
+                sl = slice(r * REQUEST, (r + 1) * REQUEST)
+                d, idx, _ = svc.query_arrays(imgs[sl])
+                require(np.isfinite(d).all() and d.shape == (REQUEST, svc.k),
+                        "sharded service: bad distances")
+                if check_rows:
+                    require((idx[:, 0] == rows[sl]).all(),
+                            "sharded service: top-1 is not the own row")
+                res.append((d, idx))
+        return res, [c[2] for c in emb_calls]
+
+    one32 = {}
+    for k in (10, 100):
+        sharded32 = RetrievalService(cfg, gallery, paths, k=k, model=model,
+                                     mesh=mesh, use_bf16_kernel=False)
+        one32[k] = RetrievalService(cfg, gallery, paths, k=k, device="cuda",
+                                    model=model, use_bf16_kernel=False)
+        got, _ = serve_all(sharded32)
+        ref, _ = serve_all(one32[k])
+        same, ok = 0, True
+        for (d, i), (rd, ri) in zip(got, ref):
+            n_same, n_ok = _tie_equal(rd, i, ri)
+            same, ok = same + n_same, ok and n_ok
+            ok = ok and np.allclose(d, rd, rtol=0, atol=MESH_TIE)
+        log(f"fp32 route k={k}: indices equal to the one-device service in "
+            f"{same} of {N_IMAGES} rows (the rest within runs of distances "
+            f"closer than {MESH_TIE}: {ok})")
+        require(ok, f"fp32 sharded service k={k} differs from one device")
+        del sharded32
+
+    out["launches"] = {}
+    sharded = {k: RetrievalService(cfg, gallery, paths, k=k, model=model,
+                                   mesh=mesh) for k in (10, 100)}
+    for k, svc in sharded.items():
+        full = torch.cat(svc._gf32).double()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, embs = serve_all(svc)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ref, _ = serve_all(state["services"][k])
+        worst_exact, worst_dom = 0.0, 0.0
+        for (d, i), e, (rd, _) in zip(got, embs, ref):
+            g = full[torch.from_numpy(i).cuda()]
+            e = e.double()
+            exact = ((e * e).sum(1)[:, None] + (g * g).sum(2)
+                     - 2 * torch.einsum("qd,qkd->qk", e, g)).cpu().numpy()
+            worst_exact = max(worst_exact, float(np.abs(d - exact).max()))
+            worst_dom = max(worst_dom, float((d - rd).max()))
+        per = {n: launches[n] / (N_IMAGES // REQUEST) for n in launches
+               if launches[n]}
+        out["launches"][k] = launches
+        log(f"bf16 route k={k}: every top-1 is the own row; each distance "
+            f"is its row's exact distance within {worst_exact:.2e} (float64 "
+            f"reference, tol {MESH_TOL}); at every rank the sharded distance "
+            f"exceeds the one-device service's by at most {worst_dom:.2e} "
+            f"(tol {MESH_TOL}; it picks from a superset of candidates); "
+            f"launches per request {per}")
+        require(worst_exact <= MESH_TOL, f"bf16 k={k}: distances not exact")
+        require(worst_dom <= MESH_TOL, f"bf16 k={k}: a sharded distance "
+                "exceeds the one-device service's")
+        require(launches["scores"] > 0 and launches["kpass_topk"] > 0,
+                f"bf16 k={k}: the sharded path did not launch K1 and K3")
+        del full
+    for k, svc in sharded.items():
+        pair = {"sharded": svc, "one device": state["services"][k]}
+        lat = {name: [] for name in pair}
+        for name in ("sharded", "one device", "one device", "sharded"):
+            lat[name] += request_ms(pair[name], imgs[:REQUEST], 15)
+        for name, s in pair.items():
+            call = functools.partial(s.query_arrays, imgs[:REQUEST])
+            out[f"{name}-k{k}"] = (float(np.median(lat[name])),
+                                   device_busy_ms(call, 10),
+                                   device_ops_per_call(call, 10))
+        (sp, sb, so), (op, ob, oo) = (out[f"sharded-k{k}"],
+                                      out[f"one device-k{k}"])
+        log(f"k={k}, {REQUEST}-image requests: p50 {sp:.2f} ms sharded, "
+            f"{op:.2f} ms on one device (host clock, 2 x 15 requests each, "
+            f"in turns); device busy " + (
+                f"{sb:.3f} ms sharded, {ob:.3f} ms one device; device "
+                f"operations (kernels, copies, sets) per request {so:.1f} "
+                f"sharded, {oo:.1f} one device" if sb and ob and so and oo
+                else "not measured (no device time traced)")
+            + f" (torch.profiler, 10 requests) [{gpu}]")
+
+    # ---- 3. re-ranked on the sharded gallery
+    rr = RetrievalService(cfg, gallery, paths, k=100, model=model, mesh=mesh,
+                          rerank_window=RERANK_R)
+    full32 = torch.cat(rr._gf32)
+    with _recording(rr, "_gather_rows") as gathers, \
+            _recording(service_mod, "_windowed_feats") as cores:
+        got, _ = serve_all(rr)
+    require(len(gathers) == len(cores) == len(got),
+            "re-ranked: one gather and one core a request")
+    worst = 0.0
+    for (d, i), (g_args, _, cand), (c_args, _, vals) in zip(got, gathers,
+                                                            cores):
+        idx0 = g_args[0]
+        require(torch.equal(cand, full32[idx0]),
+                "re-ranked: the gathered rows are not gf32[idx0]")
+        own = _windowed(c_args[0], full32, idx0, *c_args[2:])
+        worst = max(worst, float((own - vals).abs().max()))
+        ov, order = torch.sort(own, dim=1, stable=True)
+        oi = torch.gather(idx0, 1, order)[:, :100].cpu().numpy()
+        require(np.abs(ov[:, :100].cpu().numpy() - d).max() <= 1e-6
+                and _same_ranking(d, i, oi, 1e-6),
+                "re-ranked: a response is not the re-rank of its window")
+    log(f"re-ranked (rerank_window {RERANK_R}, k=100): the gathered window "
+        f"rows equal gf32[window] bit for bit; _windowed on each window "
+        f"gives the core's values within {worst:.1e} and each response")
+    require(worst <= 1e-6, "re-ranked: _windowed_feats differs from "
+            "_windowed")
+    del rr, full32
+
+    # ---- 4. phase 4b's int8 embed feeding the sharded bf16 gallery
+    i8 = RetrievalService(cfg, gallery, paths, k=10, model=model, mesh=mesh,
+                          int8_qfn=int8_state["qfn"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    serve_all(i8)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"int8 embed on the sharded bf16 gallery, k=10: every top-1 is the "
+        f"own row; launches {launches}")
+    for name in ("scores", "kpass_topk", "matmul_requant", "conv3x3_requant"):
+        require(launches[name] > 0, f"int8 on the mesh: {name} not launched")
+    del i8, sharded, one32
+
+    # ---- 6. TPU.SHARDED_RETRIEVAL in get_similar and the HTTP front
+    ckpt = cfg.MODEL.PRETRAIN_PATH
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    api_log = logging.getLogger("centroids_reid_tpu_torch.inference.api")
+    handler = Catch(logging.WARNING)
+    api_log.addHandler(handler)
+    try:
+        queries = os.path.join(eval_root, "market1501", "bounding_box_test")
+        t0 = time.perf_counter()
+        res = get_similar.main([
+            "--gallery_data", os.path.join(tmp, "index_flat"), "--topk",
+            "100", "--normalize_features", "MODEL.PRETRAIN_PATH", ckpt,
+            "DATASETS.ROOT_DIR", queries, "TPU.SHARDED_RETRIEVAL", "True",
+            "OUTPUT_DIR", os.path.join(tmp, "similar_sharded")])
+        secs = time.perf_counter() - t0
+    finally:
+        api_log.removeHandler(handler)
+    ref = np.load(os.path.join(tmp, "similar_100", "results.npy"),
+                  allow_pickle=True).item()
+    require(list(res) == list(ref), "get_similar sharded: other queries")
+    same, ok = 0, True
+    for qp, r in ref.items():
+        d, i = res[qp]["distances"][None], res[qp]["indices"][None]
+        n_same, n_ok = _tie_equal(r["distances"][None], i,
+                                  r["indices"][None])
+        same, ok = same + n_same, ok and n_ok and np.allclose(
+            d, r["distances"][None], rtol=0, atol=MESH_TIE)
+    n_cards = torch.cuda.device_count()
+    log(f"get_similar --topk 100 TPU.SHARDED_RETRIEVAL True ({secs:.2f} s): "
+        f"{n_cards} card(s) visible, so " + (
+            "the reference's rule gives a one-device mesh, warning "
+            f"{warnings!r}" if n_cards < 2 else f"a mesh of {n_cards}")
+        + f"; results equal to the unsharded run's (phase 6) in {same} of "
+        f"{len(ref)} queries outright, the rest within runs of values closer "
+        f"than {MESH_TIE}: {ok}")
+    require(ok, "get_similar sharded differs from the unsharded run")
+    require((n_cards >= 2) or any("needs >= 2 devices" in w
+                                  for w in warnings),
+            "get_similar: the fewer-than-two-devices warning is missing")
+
+    server = _serve_cli(os.path.join(tmp, "http_index"), ckpt,
+                        "TPU.SHARDED_RETRIEVAL", "True")
+    try:
+        svc = server.service
+        require((svc.mesh is None) == (n_cards < 2),
+                f"HTTP front: mesh {svc.mesh} with {n_cards} card(s)")
+        for r in range(2):
+            rr_rows = _request_rows(r)
+            payload = {"images_b64": [_jpeg(imgs[j]) for j in rr_rows]}
+            blobs = [base64.b64decode(b) for b in payload["images_b64"]]
+            status, body, _ = _http(server.port, "POST", "/search", payload)
+            require(status == 200, f"HTTP front sharded: {status}")
+            _hold("mesh-http", svc, blobs, rr_rows, body)
+    finally:
+        server.shutdown()
+    log("HTTP front built with TPU.SHARDED_RETRIEVAL True: " + (
+        "one card, so no mesh, as the reference's front (the unsharded "
+        "service)" if n_cards < 2 else f"a mesh of {n_cards} cards")
+        + "; 2 /search requests held against its query_arrays")
+    return out
+
+
+def phase_mesh_eval(gpu: str, stream: dict) -> None:
+    """Phase 13b: ``R1mAP(mesh=)`` on eval-stream-market500k (phase 10's
+    data), plain and re-ranked at r = STREAM_R, against the unsharded
+    streaming evaluation run beside it: mAP, CMC and each AP within 1e-6,
+    every hit's rank equal; seconds and peak memory beside phase 10's."""
+    import torch
+
+    from centroids_reid_tpu_torch.metrics import R1mAP, compute_stream_ranks
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    log("== phase 13b: gallery mesh, streaming evaluation "
+        "(eval-stream-market500k)")
+    mesh = _mesh()
+    nq = MARKET[0]
+    f, pids_all, cams, _ = _stream_cell()
+    qf, gf = f[:nq], f[nq:]
+    args = (pids_all[:nq], pids_all[nq:], cams[:nq], cams[nq:])
+    runs = {}
+    for name, kw in (("plain", {}),
+                     ("re-ranked", dict(rerank=True,
+                                        rerank_window=STREAM_R))):
+        m1, s1, p1 = _measured(f"R1mAP {name}, unsharded",
+                               lambda: R1mAP(nq, **kw).compute(
+                                   f, pids_all, cams), gpu)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m4, s4, p4 = _measured(f"R1mAP(mesh=) {name}, {MESH_SHARDS} shards",
+                               lambda: R1mAP(nq, mesh=mesh, **kw).compute(
+                                   f, pids_all, cams), gpu)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ap = float(np.abs(m1.single_performance[:, 2]
+                          - m4.single_performance[:, 2]).max())
+        log(f"{name}: mAP {m4.mAP:.6f} sharded, {m1.mAP:.6f} unsharded, max "
+            f"|AP diff| {ap:.2e} (tol 1e-6), equal: {_metrics_equal(m1, m4)};"
+            f" launches {launches}")
+        require(_metrics_equal(m1, m4), f"R1mAP(mesh=) {name} differs")
+        runs[name] = (s1, p1, s4, p4)
+    require(launches["kpass_topk"] > 0, "re-ranked R1mAP(mesh=): no K3")
+    ref = compute_stream_ranks(qf, gf, *args)
+    got = compute_stream_ranks(qf, gf, *args, mesh=mesh)
+    valid = ref.pos >= 0
+    first = [np.where(valid, x.ranks, 1 << 30).min(1) for x in (ref, got)]
+    require(np.array_equal(ref.ranks, got.ranks)
+            and np.array_equal(ref.dpos, got.dpos)
+            and np.array_equal(*first),
+            "sharded streaming ranks differ from the unsharded ones")
+    log(f"compute_stream_ranks(mesh=): every hit's rank and distance equal "
+        f"to the unsharded passes ({int(valid.sum())} hits), first ranks "
+        f"equal")
+    for name, key in (("plain", "plain"), ("re-ranked", "rerank")):
+        s1, p1, s4, p4 = runs[name]
+        s10, p10 = stream[key]
+        log(f"{name}, the whole cell: {s4:.3f} s / {p4:.2f} GiB sharded "
+            f"{MESH_SHARDS} ways, {s1:.3f} s / {p1:.2f} GiB unsharded here, "
+            f"{s10:.3f} s / {p10:.2f} GiB in phase 10 [{gpu}]")
+
+
 def main() -> int:
     import torch
 
@@ -3869,9 +4276,12 @@ def main() -> int:
                         eval_state["root"])["best"]
         timed("9", phase_serve_http, state, tmp, trained, eval_state["root"])
         timed("11", phase_artifacts, state, int8_state, tmp)
+        timed("13", phase_mesh, state, int8_state, tmp, eval_state["root"],
+              gpu_line())
     torch.cuda.empty_cache()
-    timed("10", phase_eval_stream, gpu_line())
+    stream = timed("10", phase_eval_stream, gpu_line())
     timed("12", phase_orbax, gpu_line())
+    timed("13b", phase_mesh_eval, gpu_line(), stream)
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
     # the int8 serving path

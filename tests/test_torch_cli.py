@@ -150,18 +150,37 @@ def test_find_similar_matches_jax(cli_setup, flat_index, topk, normalize):
 
 
 @pytest.mark.parametrize("flag", ["RERANK", "SHARDED_RETRIEVAL"])
-def test_find_similar_refuses_unported_options(cli_setup, flat_index, flag):
-    """``TPU.SHARDED_RETRIEVAL`` is refused. With ``TPU.RERANK`` (ported)
-    the reference routes to the re-ranker before it reads the sharding
-    flag, so the two together re-rank and nothing is refused."""
+def test_find_similar_refuses_unported_options(cli_setup, flat_index, flag,
+                                               caplog):
+    """Nothing is refused. ``TPU.SHARDED_RETRIEVAL`` on one device (the
+    CPU here) warns, as the reference does with fewer than two devices,
+    and ranks on a one-device mesh: the results equal the unsharded
+    run's (distances within 1e-5 of the squared norms' scale). With
+    ``TPU.RERANK`` the reference routes to the re-ranker
+    before it reads the sharding flag, so the two together re-rank."""
     from centroids_reid_tpu_torch.inference import find_similar
 
     pth, _, queries, tmp = cli_setup
     cfg = _cfg(get_default_cfg, pth, queries, str(tmp / f"refused_{flag}"))
     setattr(cfg.TPU, flag, True)
     if flag == "SHARDED_RETRIEVAL":
-        with pytest.raises(NotImplementedError, match=flag):
-            find_similar(cfg, str(tmp), False, False, 5, device="cpu")
+        with caplog.at_level("WARNING"):
+            out = find_similar(cfg, flat_index[1], False, False, 5,
+                               device="cpu")
+        assert "needs >= 2 devices; using one" in caplog.text
+        cfg.TPU.SHARDED_RETRIEVAL = False
+        cfg.OUTPUT_DIR = str(tmp / "unsharded")
+        ref = find_similar(cfg, flat_index[1], False, False, 5, device="cpu")
+        q = np.load(tmp / "unsharded" / "query_embeddings.npy")
+        g = np.load(f"{flat_index[1]}/embeddings.npy")
+        scale = (q * q).sum(axis=1).max() + (g * g).sum(axis=1).max()
+        for qp, r in ref.items():
+            np.testing.assert_array_equal(out[qp]["indices"], r["indices"])
+            # the same fp32 formula over another matmul blocking: rounding
+            # at the scale of the squared norms
+            np.testing.assert_allclose(out[qp]["distances"],
+                                       r["distances"], rtol=0,
+                                       atol=1e-5 * scale)
         return
     cfg.TPU.SHARDED_RETRIEVAL = True
     out = find_similar(cfg, flat_index[1], False, False, 5, device="cpu")

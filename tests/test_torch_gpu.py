@@ -1162,3 +1162,66 @@ def test_orbax_fixture_reads_on_the_card_machine(cuda):
         for s, (_, t) in zip(state.values(), named))
     assert not [m for m in sys.modules if m.split(".")[0] in (
         "jax", "orbax", "tensorstore", "zstandard")]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k", [10, 100])
+def test_sharded_topk_on_a_four_shard_card_mesh(cuda, bf16, k):
+    """``sharded_topk`` over 4 shards on cuda:0 (per shard K1 on bf16 or the
+    fp32 product, the hierarchical top-k on K3; the K3 merge) against the
+    same mesh of 4 CPU shards (plain versions). Integer rows: every score
+    is an exact fp32 integer, so values and indices are equal, ties
+    included. The 70,000 rows make 17,536-row shards, past the direct
+    base case: K1 x 4 and K3 x 9 a call."""
+    from centroids_reid_tpu_torch.parallel import (
+        make_retrieval_mesh,
+        sharded_topk,
+    )
+
+    rng = np.random.RandomState(40)
+    qf = torch.from_numpy(rng.randint(-2, 3, (100, 64)).astype(np.float32))
+    gf = torch.from_numpy(rng.randint(-2, 3, (70000, 64)).astype(np.float32))
+    if bf16:
+        qf, gf = qf.bfloat16(), gf.bfloat16()
+    R.reset_launch_counts()
+    v, i = sharded_topk(qf, gf.to(cuda), k,
+                        make_retrieval_mesh(devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    launches = dict(R.LAUNCHES)
+    rv, ri = sharded_topk(qf, gf, k, make_retrieval_mesh(devices=["cpu"] * 4))
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(v, rv)
+    assert launches["scores"] == (4 if bf16 else 0)
+    assert launches["kpass_topk"] == 9
+
+
+@pytest.mark.parametrize("rerank_window", [0, 50])
+def test_sharded_service_on_a_four_shard_card_mesh(cuda, rerank_window):
+    """``RetrievalService(mesh=)`` with 4 bf16 shards on cuda:0 against the
+    same service on 4 CPU shards: fp32 embed with TF32 off, so the
+    embeddings agree to ~1e-6; distances (or re-rank scores) within 1e-4,
+    rankings equal up to runs of values within 1e-4."""
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.INPUT.SIZE_TEST = [64, 32]
+    rng = np.random.RandomState(41)
+    gallery = rng.randn(3000, 512).astype(np.float32)
+    queries = rng.randint(0, 256, (6, 64, 32, 3)).astype(np.uint8)
+    paths = [str(i) for i in range(3000)]
+    model = create_model(cfg)
+    out = {}
+    for dev in ("cpu", cuda):
+        svc = RetrievalService(cfg, gallery, paths, k=50, model=model,
+                               rerank_window=rerank_window,
+                               mesh=make_retrieval_mesh(devices=[dev] * 4))
+        out[str(dev)] = svc.query_arrays(queries)
+    (dc, ic, _), (dg, ig, _) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4)
+    _same_ranking(dg, ig, ic, tol=1e-4)

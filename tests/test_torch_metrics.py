@@ -115,24 +115,28 @@ def test_r1map_compute_matches_jax(respect):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"streaming": True}, {"mesh": object()},
+    {"streaming": True}, {"streaming": True, "mesh": 8},
     # windowed re-ranked evaluation runs on the streaming evaluator
     {"rerank": True, "rerank_window": 5},
-    {"rerank": True, "mesh": object()}])
+    {"rerank": True, "rerank_window": 5, "mesh": 8}])
 def test_r1map_refuses_unported_options(kwargs):
-    """``mesh`` (multi-GPU) is refused, naming its ROADMAP item.
-    ``streaming=True`` and windowed re-ranked evaluation are ported: they
-    evaluate as the JAX package's R1mAP with the same options."""
-    if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="not ported.*6.4"):
-            TR.R1mAP(4, device="cpu", **kwargs)
-        return
+    """Nothing is refused: ``streaming=True``, windowed re-ranked
+    evaluation and ``mesh`` (``"mesh": n`` is the JAX package's n-device
+    CPU mesh and the port's mesh of n CPU shards) evaluate as the JAX
+    package's R1mAP with the same options."""
+    from centroids_reid_tpu.parallel import make_retrieval_mesh as jax_mesh
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
     rng = np.random.RandomState(4)
     feats = rng.randn(30, 8).astype(np.float32)
     pids = rng.randint(0, 5, 30)
     camids = rng.randint(0, 3, 30)
-    ref = JR.R1mAP(6, **kwargs).compute(feats, pids, camids)
-    got = TR.R1mAP(6, device="cpu", **kwargs).compute(feats, pids, camids)
+    jkw, tkw = dict(kwargs), dict(kwargs)
+    if "mesh" in kwargs:
+        jkw["mesh"] = jax_mesh(kwargs["mesh"])
+        tkw["mesh"] = make_retrieval_mesh(devices=["cpu"] * kwargs["mesh"])
+    ref = JR.R1mAP(6, **jkw).compute(feats, pids, camids)
+    got = TR.R1mAP(6, device="cpu", **tkw).compute(feats, pids, camids)
     _assert_metrics_equal(got, ref)
 
 

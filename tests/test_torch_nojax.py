@@ -4,14 +4,16 @@ YUV420) and the int8 path (PTQ embed + int8 gallery), a re-ranked service
 behind the HTTP server answering one /search, a streaming evaluation, an
 ONLY_TEST evaluation through its runner (also re-ranked, fully and in
 windows, and with its rank visualisation), a one-epoch training run and its
-resume, the offline CLIs' flows (``find_similar`` also re-ranked), the
-serving artifacts (an embedder and a retriever exported, saved, loaded and
+resume, the offline CLIs' flows (``find_similar`` also re-ranked), a
+query on a gallery sharded over a 4-shard CPU mesh and a sharded ``R1mAP``,
+the serving artifacts (an embedder and a retriever exported, saved, loaded and
 queried, and ``python -m ...inference.export_model`` run), and
 importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
 any module of ``centroids_reid_tpu``; an orbax checkpoint of the JAX
 package loads, serves and resumes while jax, orbax and tensorstore are
-blocked from import; no source file of the port imports the JAX package;
-and the service refuses what is not ported."""
+blocked from import; no source file of the port (``parallel/`` included)
+imports the JAX package; and the service refuses what the reference
+refuses."""
 
 import os
 import re
@@ -45,6 +47,7 @@ _SCRIPT = textwrap.dedent("""
     from centroids_reid_tpu_torch.metrics import R1mAP
     from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
     from centroids_reid_tpu_torch.ops import rerank_distmat, rerank_topk
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
     import chip_smoke
 
     cfg = get_default_cfg()
@@ -71,6 +74,18 @@ _SCRIPT = textwrap.dedent("""
     m = R1mAP(8, streaming=True, device="cpu").compute(
         gallery, np.arange(40) % 5, np.arange(40) % 2)
     assert 0.0 <= m.mAP <= 1.0, m
+    mesh = make_retrieval_mesh(devices=["cpu"] * 4)
+    m_sh = R1mAP(8, streaming=True, mesh=mesh).compute(
+        gallery, np.arange(40) % 5, np.arange(40) % 2)
+    assert m_sh.mAP == m.mAP, (m_sh, m)
+    kw = dict(k=3, model=model, use_bf16_kernel=False)
+    _, idx_sh, _ = RetrievalService(
+        cfg, gallery, [str(i) for i in range(40)], mesh=mesh,
+        **kw).query_bytes([buf.getvalue()])
+    _, idx, _ = RetrievalService(
+        cfg, gallery, [str(i) for i in range(40)], device="cpu",
+        **kw).query_bytes([buf.getvalue()])
+    assert (idx_sh == idx).all(), (idx_sh, idx)
     qfn = quantize_reid_model(model, [img[None]], cfg.INPUT.PIXEL_MEAN,
                               cfg.INPUT.PIXEL_STD, use_pallas=True)
     svc = RetrievalService(cfg, gallery, [str(i) for i in range(40)], k=3,
@@ -293,7 +308,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
                    "engine/steps.py", "engine/state.py",
                    "engine/epoch_runner.py", "engine/checkpoint.py",
                    "engine/fit.py", "utils/preemption.py",
-                   "utils/profiling.py", "utils/seeding.py"):
+                   "utils/profiling.py", "utils/seeding.py",
+                   "parallel/mesh.py", "parallel/retrieval.py"):
         assert f"centroids_reid_tpu_torch/{module}" in scanned, module
 
 
@@ -304,8 +320,11 @@ class _Int8EmbedStub:
         return self
 
 
+_CPU_MESH = ("cpu", "cpu")   # two shards on the CPU
+
+
 @pytest.mark.parametrize("option,kwargs", [
-    ("mesh", {"mesh": object()}),
+    ("mesh", {"mesh": _CPU_MESH}),
     ("rerank_window", {"rerank_window": 20}),
     ("TPU.FAST_DECODE", {}),
     ("rerank_window", {"use_int8_gallery": True, "rerank_window": 20}),
@@ -313,12 +332,15 @@ class _Int8EmbedStub:
     ("TPU.FAST_DECODE", {"use_int8_gallery": True}),
 ])
 def test_service_refuses_unported_options(option, kwargs):
-    """``mesh`` is refused. ``rerank_window`` is ported, on the bf16 / fp32
-    and the int8 gallery: it builds, clamped to the gallery's 4 rows.
+    """Nothing here is refused any more. ``mesh`` is ported: the 4 rows
+    are sharded two ways, 128 rows a shard (K1's tile), the pads at
+    +inf. ``rerank_window`` is ported, on the bf16 / fp32 and the int8
+    gallery: it builds, clamped to the gallery's 4 rows.
     ``TPU.FAST_DECODE`` is ported: without an int8 embed the service
     ingests packed YUV420, on either gallery."""
     from centroids_reid_tpu_torch.config import get_default_cfg
     from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
 
     cfg = get_default_cfg()
     if option == "TPU.FAST_DECODE":
@@ -334,8 +356,12 @@ def test_service_refuses_unported_options(option, kwargs):
                                model=torch.nn.Identity(), **kwargs)
         assert svc.ingest_format == "yuv420"
         return
-    with pytest.raises(NotImplementedError, match=f"{option} .*not ported"):
-        RetrievalService(*args, device="cpu", model=object(), **kwargs)
+    mesh = make_retrieval_mesh(devices=kwargs["mesh"])
+    svc = RetrievalService(*args, model=torch.nn.Identity(), mesh=mesh)
+    assert svc.mesh is mesh and svc.device == torch.device("cpu")
+    assert [tuple(g.shape) for g in svc._gf] == [(128, 8)] * 2
+    assert torch.isinf(svc._gn[0][0, 4:]).all() and torch.isinf(
+        svc._gn[1]).all()
 
 
 def test_fast_decode_with_an_int8_embed_serves_rgb():
@@ -351,7 +377,7 @@ def test_fast_decode_with_an_int8_embed_serves_rgb():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "mesh"),
+    ({"mesh": _CPU_MESH}, "mesh"),
     ({"exact_rescore": False, "rerank_window": 8}, "re-rank"),
 ])
 def test_service_refuses_int8_gallery_combinations(kwargs, match):
@@ -359,7 +385,10 @@ def test_service_refuses_int8_gallery_combinations(kwargs, match):
     capacity mode keeps no full-precision rows to re-rank."""
     from centroids_reid_tpu_torch.config import get_default_cfg
     from centroids_reid_tpu_torch.inference import RetrievalService
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
 
+    if "mesh" in kwargs:
+        kwargs = {"mesh": make_retrieval_mesh(devices=kwargs["mesh"])}
     with pytest.raises(ValueError, match=match):
         RetrievalService(get_default_cfg(), np.ones((4, 8), np.float32),
                          list("abcd"), device="cpu", model=object(),

@@ -322,7 +322,6 @@ def test_cli_build_serves_the_index_with_an_int8_embed(cli_index):
     # --int8_gallery it is refused, as in the JAX server
     (["--artifact", "model.crtpu", "--int8_gallery"], SystemExit,
      "artifacts"),
-    (["TPU.SHARDED_RETRIEVAL", "True"], NotImplementedError, "multi-GPU"),
 ])
 def test_cli_refuses_unported_options(cli_index, extra, exc, match):
     _, index, opts = cli_index
@@ -333,6 +332,41 @@ def test_cli_refuses_unported_options(cli_index, extra, exc, match):
         argv += opts + extra
     with pytest.raises(exc, match=match):
         build_from_args(argv)
+
+
+def test_cli_sharded_retrieval_follows_the_device_count(cli_index,
+                                                       monkeypatch):
+    """``TPU.SHARDED_RETRIEVAL`` builds no mesh with fewer than two devices
+    of ``--device``'s type (the CPU here), as the reference's front does;
+    with eight visible (patched) the service shards the index eight ways
+    and answers as the unsharded one: indices equal, exact fp32 distances
+    within 1e-6."""
+    import torch
+
+    from centroids_reid_tpu_torch.parallel import mesh as pmesh
+
+    root, index, opts = cli_index
+    argv = ["--gallery_data", index, "--port", "0", "--topk", "3",
+            "--normalize_features", "--fp32_exact", "--device", "cpu",
+            *opts, "TPU.SHARDED_RETRIEVAL", "True"]
+    one = build_from_args(argv)
+    monkeypatch.setattr(pmesh, "local_devices",
+                        lambda device: [torch.device(device)] * 8)
+    eight = build_from_args(argv)
+    try:
+        assert one.service.mesh is None
+        assert eight.service.mesh.shape == {"gallery": 8}
+        files = [str(root / "gallery" / f"{p}_1.jpg") for p in "ab"]
+        d1, i1, p1 = one.service.query_files(files)
+        d8, i8, p8 = eight.service.query_files(files)
+        np.testing.assert_array_equal(i8, i1)
+        np.testing.assert_array_equal(p8, p1)
+        np.testing.assert_allclose(d8, d1, rtol=1e-6, atol=1e-6)
+        assert [os.path.basename(p) for p in p8[:, 0]] == ["a_1.jpg",
+                                                           "b_1.jpg"]
+    finally:
+        one.shutdown()
+        eight.shutdown()
 
 
 def test_server_module_serves_and_stops_cleanly_on_sigterm(cli_index):

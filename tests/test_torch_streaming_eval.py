@@ -227,6 +227,16 @@ def test_r1map_switches_to_streaming_past_the_cell_count(monkeypatch):
 
 
 def test_streaming_refuses_a_mesh():
+    """A mesh is no longer refused: on three CPU shards (the 20 rows
+    padded to 3 x 8, one shard all padding) the passes give the unsharded
+    ranks and distances bit for bit."""
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
     data = _random_reid_set(4, q=5, g=20)
-    with pytest.raises(NotImplementedError, match="6.4"):
-        eval_func_streaming(*data, mesh=object(), device="cpu")
+    mesh = make_retrieval_mesh(devices=["cpu"] * 3)
+    got = compute_stream_ranks(*data, g_chunk=8, mesh=mesh)
+    ref = compute_stream_ranks(*data, g_chunk=8, device="cpu")
+    np.testing.assert_array_equal(got.ranks, ref.ranks)
+    np.testing.assert_array_equal(got.dpos, ref.dpos)
+    _assert_same(eval_func_streaming(*data, g_chunk=8, mesh=mesh),
+                 eval_func_streaming(*data, g_chunk=8, device="cpu"))
