@@ -134,17 +134,24 @@ class TrainLoader:
     (``num_groups`` groups, the sampler's plan split as the JAX package's
     ``TrainLoader`` splits it).
 
-    Batch dict (numpy):
-      images  [G, P*K, H, W, 3] uint8 (mock slots zero)
-      labels  [G, P*K] int64
-      camids  [G, P*K] int64
-      is_real [G, P*K] bool
+    ``num_groups`` is the global group count (the plan is the same in every
+    process); the loader assembles only the groups ``[group_offset,
+    group_offset + local_groups)``, a process's share
+    (``parallel.local_groups``). Batch dict (numpy), Gl = ``local_groups``:
+      images  [Gl, P*K, H, W, 3] uint8 (mock slots zero)
+      labels  [Gl, P*K] int64
+      camids  [Gl, P*K] int64
+      is_real [Gl, P*K] bool
     """
 
     def __init__(self, dataset: ReidDataset, cfg, num_groups: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, group_offset: int = 0,
+                 local_groups: Optional[int] = None):
         self.dataset = dataset
         self.num_groups = num_groups
+        self.group_offset = group_offset
+        self.local_groups = (num_groups if local_groups is None
+                             else local_groups)
         self.batch_pids = cfg.SOLVER.IMS_PER_BATCH
         self.num_instances = cfg.DATALOADER.NUM_INSTANCE
         self.use_resampling = cfg.DATALOADER.USE_RESAMPLING
@@ -158,14 +165,16 @@ class TrainLoader:
                                 self.use_resampling)
 
     def _assemble(self, plan: EpochPlan, t: int) -> dict:
-        g, p, k = plan.sample_idx.shape[1:]
+        _, p, k = plan.sample_idx.shape[1:]
+        g0, g = self.group_offset, self.local_groups
         h, w = self.store.size_hw
         images = np.zeros((g, p * k, h, w, 3), np.uint8)
         labels = np.zeros((g, p * k), np.int64)
         camids = np.zeros((g, p * k), np.int64)
-        is_real = plan.is_real[t].reshape(g, p * k).copy()
+        is_real = plan.is_real[t, g0:g0 + g].reshape(g, p * k).copy()
         for gi in range(g):
-            for i, idx in enumerate(plan.sample_idx[t, gi].reshape(p * k)):
+            for i, idx in enumerate(
+                    plan.sample_idx[t, g0 + gi].reshape(p * k)):
                 rec = self._records[idx]
                 labels[gi, i] = rec.pid
                 camids[gi, i] = rec.camid

@@ -274,8 +274,19 @@ def apply_augment(imgs_u8: torch.Tensor, is_real: torch.Tensor,
 def augment_batch(imgs_u8: torch.Tensor, is_real: torch.Tensor,
                   generator: torch.Generator, size_hw: Tuple[int, int],
                   padding: int, mean, std, flip_p: float, re_p: float,
-                  dtype=torch.float32) -> torch.Tensor:
-    """Draw, then apply: the training augmentation of one batch."""
-    params = draw_augment_params(imgs_u8.shape[0], generator, size_hw,
-                                 padding, flip_p, re_p)
+                  dtype=torch.float32,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Draw, then apply: the training augmentation of one batch. With
+    ``rows=(start, total)`` the draws are those of a batch of ``total``
+    images whose rows ``start, start + 1, ...`` are ``imgs_u8``: a process
+    of a data-parallel run draws for the global [G, P*K] grid and keeps
+    its groups' rows, so its images are augmented as in a one-process run
+    of the same G (the JAX package's resident policy: one key for every
+    process, split per image over the global grid)."""
+    n = imgs_u8.shape[0]
+    start, total = rows or (0, n)
+    params = draw_augment_params(total, generator, size_hw, padding, flip_p,
+                                 re_p)
+    if total != n:
+        params = AugmentParams(*(f[start:start + n] for f in params))
     return apply_augment(imgs_u8, is_real, params, padding, mean, std, dtype)

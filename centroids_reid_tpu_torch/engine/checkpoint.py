@@ -14,6 +14,13 @@ Saves are synchronous. A save writes into ``<dir>.tmp`` and renames it, so
 a crash never leaves a half-written checkpoint under a checkpoint's name.
 ``inference/api.py::load_inference_model`` reads such a directory.
 
+In a process group (``parallel``) every process calls the manager at the
+same points; rank 0 alone writes, deletes the previous best and prunes
+the ring, between barriers before and after each save, as the JAX
+package's multi-process saves. The state is the same on every process, and
+so is the metric (every process ranks the same gathered embeddings), so
+the best-checkpoint decision is too. Every process restores the same file.
+
 ``restore_state`` also reads the orbax checkpoints of the JAX package
 (``engine/orbax_read``): its params, batch statistics, centers, Adam state
 and step, so ``fit`` resumes a run that the JAX package trained.
@@ -32,6 +39,7 @@ from ..models.convert import (
     from_jax_train_state,
     load_converted,
 )
+from ..parallel.mesh import barrier, process_index
 from .orbax_read import is_orbax_checkpoint, read_checkpoint
 
 STATE_FILE = "state.pt"
@@ -79,6 +87,8 @@ class CheckpointManager:
         return sorted(entries, key=lambda d: int(d[len("checkpoint_epoch"):]))
 
     def _prune_ring(self) -> None:
+        if process_index():
+            return
         entries = self._ring_entries()
         while len(entries) > self.n_saved:
             shutil.rmtree(os.path.join(self.auto_dir, entries.pop(0)),
@@ -95,6 +105,8 @@ class CheckpointManager:
         previous = os.listdir(self.best_dir)
         path = os.path.join(self.best_dir, f"epoch={epoch}")
         self._save(path, state, epoch, cfg)
+        if process_index():
+            return True
         for d in previous:   # only after the new best is written
             full = os.path.join(self.best_dir, d)
             if os.path.abspath(full) == path:
@@ -108,15 +120,20 @@ class CheckpointManager:
 
     # -- io ---------------------------------------------------------------
     def _save(self, path: str, state, epoch: int, cfg) -> None:
-        tmp = path + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state_dict(state, epoch), os.path.join(tmp, STATE_FILE))
-        if cfg is not None:
-            with open(os.path.join(tmp, "config.yml"), "w") as f:
-                f.write(cfg.dump())
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
+        """Rank 0 writes; every process leaves once the file is there."""
+        barrier()
+        if not process_index():
+            tmp = path + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(state_dict(state, epoch),
+                       os.path.join(tmp, STATE_FILE))
+            if cfg is not None:
+                with open(os.path.join(tmp, "config.yml"), "w") as f:
+                    f.write(cfg.dump())
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        barrier()
 
 
 def restore_state(path: str, state):

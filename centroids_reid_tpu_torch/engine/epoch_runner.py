@@ -10,6 +10,8 @@ train step. Two batch sources feed it:
 
 Batches are group-major ([G, P*K, ...], ``TPU.NUM_GROUPS``); augmentation
 draws for the G * P * K images in order, each group's images as its own.
+In a process group each process holds its groups of the global plan and
+draws for the global grid, keeping its rows (``make_augment(grid=)``).
 
 The step metrics are summed on the card; the caller reads their means with
 one host sync per epoch. (The JAX package's ``lax.scan``, step padding and
@@ -18,7 +20,7 @@ ahead-of-time compile exist for XLA and have no counterpart here.)
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Iterator, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +31,12 @@ from ..utils import annotate
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def make_augment(cfg) -> Callable:
+def make_augment(cfg, grid: Optional[Tuple[int, int]] = None) -> Callable:
     """``augment(imgs_u8, is_real, generator)``: the config's training
-    augmentation, in bf16 when ``USE_MIXED_PRECISION``."""
+    augmentation, in bf16 when ``USE_MIXED_PRECISION``. With ``grid=(start,
+    total)`` every call draws for ``total`` images and augments
+    ``imgs_u8`` as rows ``start, ...`` of them (a process's groups of the
+    global grid, ``augment_batch(rows=)``)."""
     size_hw = tuple(cfg.INPUT.SIZE_TRAIN)
     dtype = torch.bfloat16 if cfg.USE_MIXED_PRECISION else torch.float32
     consts = {}   # device -> (mean, std): copied there once, not per step
@@ -44,7 +49,7 @@ def make_augment(cfg) -> Callable:
                 for v in (cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD))
         return augment_batch(imgs_u8, is_real, generator, size_hw,
                              cfg.INPUT.PADDING, *consts[dev], cfg.INPUT.PROB,
-                             cfg.INPUT.RE_PROB, dtype=dtype)
+                             cfg.INPUT.RE_PROB, dtype=dtype, rows=grid)
 
     return augment
 

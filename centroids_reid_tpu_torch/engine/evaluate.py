@@ -1,6 +1,5 @@
 """Validation / test: embedding extraction + centroid eval + metrics
-(counterpart of the single-process half of
-``centroids_reid_tpu/engine/evaluate.py``).
+(counterpart of ``centroids_reid_tpu/engine/evaluate.py``).
 
 ``emb = bn(GAP(trunk(x)))`` per batch on the model's device, concatenated
 over query + gallery, optionally replaced by per-pid centroids, then R1 /
@@ -11,8 +10,11 @@ batch is one embed call (``make_embed_fn``). ``TPU.RERANK`` evaluates on
 the fully re-ranked distance matrix, or with ``TPU.RERANK_WINDOW > 0`` on
 each query's re-ranked window (streaming, any gallery size).
 ``TEST.VISUALIZE yes`` writes one rank strip per query under
-``OUTPUT_DIR/visrank``. Single process only: multi-process extraction is
-not ported yet and raises ``NotImplementedError``.
+``OUTPUT_DIR/visrank``. In a process group of more than one process
+(``fit``'s validation, the double test and ONLY_TEST under ``torchrun``)
+each process embeds a contiguous slice of the val set and the slices are
+gathered in record order (``extract_embeddings_sharded``): every process
+ranks the same full set and computes the same metrics.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..data.loader import EvalLoader, ImageStore
 from ..metrics import K_LIST, R1mAP, build_centroid_eval_set
+from ..parallel.mesh import process_allgather, process_count, process_index
 
 
 def _model_device(model) -> torch.device:
@@ -100,6 +103,32 @@ def extract_embeddings(model, cfg, loader: EvalLoader, embed_fn=None
         embs.append(e.cpu().float().numpy()[valid])
     return (np.concatenate(embs).astype(np.float32, copy=False),
             np.concatenate(pids), np.concatenate(camids))
+
+
+def balanced_slice(n: int, n_proc: int, rank: int) -> Tuple[int, int]:
+    """Contiguous balanced [lo, hi) split of n rows over n_proc ranks:
+    sizes differ by at most one and every rank is non-empty when
+    n >= n_proc."""
+    return rank * n // n_proc, (rank + 1) * n // n_proc
+
+
+def extract_embeddings_sharded(model, cfg, records, store, embed_fn=None
+                               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``extract_embeddings`` over the processes of the group: each embeds
+    its balanced contiguous slice of ``records`` (``balanced_slice``; at
+    least one record each when there are as many records as processes),
+    and the slices are gathered in rank order, which is record order
+    (``process_allgather`` pads them to the longest and cuts the padding
+    off). Every process returns the full (embeddings, pids, camids),
+    having decoded and embedded only its slice."""
+    lo, hi = balanced_slice(len(records), process_count(), process_index())
+    emb, pids, camids = extract_embeddings(
+        model, cfg, EvalLoader(records[lo:hi], cfg, store=store),
+        embed_fn=embed_fn)
+    ids = np.stack([pids, camids], axis=1)      # int64, as the loader's
+    g_emb = process_allgather(torch.from_numpy(emb)).numpy()
+    g_ids = process_allgather(torch.from_numpy(ids)).numpy()
+    return g_emb, g_ids[:, 0], g_ids[:, 1]
 
 
 def _centroid_gallery_rows(g_pids, g_camids, q_pids, q_camids,
@@ -203,12 +232,9 @@ def run_validation(cfg, model, dataset, use_centroids: bool
     """Full validation pass on the model's device; returns {'mAP': ...,
     'Top-1': ..., ...}. With ``TEST.VISUALIZE yes`` the evaluation stays on
     the materialising path and writes the rank strips under
-    ``OUTPUT_DIR/visrank``."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process extraction is not ported yet; see ROADMAP.md "
-            "queue 1 item 6.3 (processes over torch.distributed)")
+    ``OUTPUT_DIR/visrank`` (rank 0's). With more than one process and at
+    least as many val records, the extraction is sharded
+    (``extract_embeddings_sharded``)."""
     store = _shared_store(dataset, cfg)
     # one quantization per dataset object covers the double evaluation; the
     # key holds everything the quantized embed depends on
@@ -226,15 +252,20 @@ def run_validation(cfg, model, dataset, use_centroids: bool
         if int8_fn is not None:
             dataset._int8_eval_fn = int8_fn
             dataset._int8_eval_key = int8_key
-    emb, pids, camids = extract_embeddings(
-        model, cfg, EvalLoader(dataset.val, cfg, store=store),
-        embed_fn=int8_fn)
+    n_proc = process_count()
+    if n_proc > 1 and len(dataset.val) >= n_proc:
+        emb, pids, camids = extract_embeddings_sharded(
+            model, cfg, dataset.val, store, embed_fn=int8_fn)
+    else:
+        emb, pids, camids = extract_embeddings(
+            model, cfg, EvalLoader(dataset.val, cfg, store=store),
+            embed_fn=int8_fn)
     visualize = cfg.TEST.VISUALIZE == "yes"
     m, evaluator = compute_reid_metrics(
         cfg, emb, pids, camids, dataset.num_query, use_centroids,
         return_evaluator=True, streaming=False if visualize else None,
         device=_model_device(model))
-    if visualize:
+    if visualize and process_index() == 0:
         import os
 
         from ..metrics.visrank import visualize_ranked_results

@@ -1,5 +1,4 @@
-"""The training loop (counterpart of ``centroids_reid_tpu/engine/fit.py``,
-one process on one device).
+"""The training loop (counterpart of ``centroids_reid_tpu/engine/fit.py``).
 
 Per epoch: the LR of the schedule, the epoch's identity plan of G groups of
 P x K images (G = ``num_groups``, as the JAX package's), the
@@ -12,6 +11,20 @@ the double test with ``MODEL.USE_CENTROIDS`` toggled.
 
 Augmentation draws come from a ``torch.Generator`` on the training device,
 seeded from ``REPRODUCIBLE_SEED + 17 * seed`` and the epoch.
+
+In a ``torch.distributed`` group (``engine.runner`` under ``torchrun``; one
+process per card) every process computes the same global plan, holds the
+whole image bank, and steps its share of the G groups
+(``parallel.local_groups``); the step all-reduces the gradients. Rank 0's
+state is broadcast after the build and the resume (``parallel.replicate``),
+augmentation draws cover the global grid on every process (one generator
+for all, so a run does not depend on the world size), rank 0 alone logs,
+prints and writes checkpoints, the stop decision is collective, and
+validation extracts a slice of the val set per process
+(``evaluate.extract_embeddings_sharded``), so every process computes the
+same metric and takes the same best-checkpoint decision. The epoch's
+metrics need no collective of their own: the step's reduce already makes
+each step's metrics the mean over all G groups.
 """
 
 from __future__ import annotations
@@ -26,6 +39,12 @@ from ..data import TrainLoader, init_dataset
 from ..data.device_data import bank_size_mb, build_image_bank, plan_to_arrays
 from ..models import create_model
 from ..models.convert import backbone_state_dict, load_torch_file
+from ..parallel.mesh import (
+    local_groups,
+    process_count,
+    process_index,
+    replicate,
+)
 from ..solver import lr_for_epoch, set_learning_rate
 from ..utils import PreemptionGuard, profile_trace
 from .checkpoint import CheckpointManager, epoch_of_checkpoint, restore_state
@@ -62,8 +81,19 @@ def build_model_and_state(cfg, dataset, seed: int = 0,
 
 def num_groups(cfg) -> int:
     """The training group count G: ``TPU.NUM_GROUPS``, or with 0 the process
-    count, which is 1 (the port trains in one process)."""
-    return cfg.TPU.NUM_GROUPS or 1
+    count (one group per process)."""
+    return cfg.TPU.NUM_GROUPS or process_count()
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of the train state that a process group must agree
+    on: parameters, buffers, the centers and the optimizers' state."""
+    opt = state.optimizers
+    return (list(state.model.parameters()) + list(state.model.buffers())
+            + [state.centers]
+            + [v for o in (opt.model, opt.centers)
+               for per in o.state.values() for v in per.values()
+               if torch.is_tensor(v)])
 
 
 def _epoch_generator(base_seed: int, epoch: int, device) -> torch.Generator:
@@ -94,6 +124,10 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
         dataset.print_statistics()
     device = torch.device(device)
 
+    is_main = process_index() == 0
+    groups = num_groups(cfg)
+    g0, gl = local_groups(groups)
+
     state = build_model_and_state(cfg, dataset, seed, device)
     train_step = make_train_step(state, cfg, dataset.num_classes, mode)
     start_epoch = 0
@@ -103,13 +137,18 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
         restore_state(cfg.MODEL.PRETRAIN_PATH, state)
         resumed = epoch_of_checkpoint(cfg.MODEL.PRETRAIN_PATH)
         start_epoch = (resumed + 1) if resumed is not None else 0
-        print(f"Resumed from {cfg.MODEL.PRETRAIN_PATH} at epoch {start_epoch}")
+        if is_main:
+            print(f"Resumed from {cfg.MODEL.PRETRAIN_PATH} at epoch "
+                  f"{start_epoch}")
+    replicate(_state_tensors(state))   # a no-op in one process
 
-    logger = MetricsLogger(log_dir, "train")
+    logger = MetricsLogger(log_dir, "train", enabled=is_main)
     logger.log_params({"mode": mode, "seed": seed, "config": cfg.dump()})
-    loader = TrainLoader(dataset, cfg, num_groups=num_groups(cfg),
-                         prefetch=cfg.TPU.PREFETCH_DEPTH)
-    augment = make_augment(cfg)
+    loader = TrainLoader(dataset, cfg, num_groups=groups,
+                         prefetch=cfg.TPU.PREFETCH_DEPTH, group_offset=g0,
+                         local_groups=gl)
+    pk = cfg.SOLVER.IMS_PER_BATCH * cfg.DATALOADER.NUM_INSTANCE
+    augment = make_augment(cfg, grid=(g0 * pk, groups * pk))
     base_seed = cfg.REPRODUCIBLE_SEED + 17 * seed
     size_hw = tuple(cfg.INPUT.SIZE_TRAIN)
     resident = (cfg.TPU.DEVICE_RESIDENT_DATA
@@ -117,8 +156,9 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
                 <= cfg.TPU.DEVICE_DATA_BUDGET_MB)
     bank = None
     if resident:
-        print(f"Device-resident training data: "
-              f"{bank_size_mb(dataset.train, size_hw):.0f} MB image bank")
+        if is_main:
+            print(f"Device-resident training data: "
+                  f"{bank_size_mb(dataset.train, size_hw):.0f} MB image bank")
         bank = torch.from_numpy(build_image_bank(
             dataset.train, size_hw, cfg.TPU.CACHE_IMAGES,
             cfg.DATALOADER.NUM_WORKERS)).to(device)
@@ -132,11 +172,11 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
             set_learning_rate(state.optimizers, lr)
             generator = _epoch_generator(base_seed, epoch, device)
             t0 = time.time()
-            with profile_trace(log_dir, enabled=cfg.TPU.PROFILE
+            with profile_trace(log_dir, enabled=cfg.TPU.PROFILE and is_main
                                and epoch == start_epoch):
-                if resident:
+                if resident:   # this process's groups of the plan
                     idx, labels, is_real = (
-                        torch.from_numpy(a).to(device)
+                        torch.from_numpy(a[:, g0:g0 + gl]).to(device)
                         for a in plan_to_arrays(loader.plan_for_epoch(epoch),
                                                 dataset.train))
                     batches = resident_batches(bank, idx.long(),
@@ -161,19 +201,24 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
                 epoch_metrics["epoch_dist_an"] = epoch_metrics.pop(
                     "step_dist_an")
             logger.log_metrics(epoch_metrics, step=epoch)
-            print(f"epoch {epoch}: loss={epoch_metrics['epoch_train_loss']:.4f}"
-                  f" lr={lr:.2e} steps={n_steps} "
-                  f"({epoch_metrics['epoch_time_s']:.1f}s)")
+            if is_main:
+                print(f"epoch {epoch}: "
+                      f"loss={epoch_metrics['epoch_train_loss']:.4f} "
+                      f"lr={lr:.2e} steps={n_steps} "
+                      f"({epoch_metrics['epoch_time_s']:.1f}s)")
 
             # the stop decision comes before the periodic validation: the
-            # grace window is for the save
-            if guard.should_stop():
+            # grace window is for the save. Collective: a signal to any
+            # process stops every process at this epoch
+            if guard.should_stop(process_count()):
                 ckpt.save_periodic(epoch, state, cfg)
                 preempted = True
-                print(f"Preemption signal received — saved "
-                      f"checkpoint_epoch{epoch}, stopping cleanly. Resume "
-                      f"with MODEL.RESUME_TRAINING True MODEL.PRETRAIN_PATH "
-                      f"<auto_checkpoints/checkpoint_epoch{epoch}>")
+                if is_main:
+                    print(f"Preemption signal received — saved "
+                          f"checkpoint_epoch{epoch}, stopping cleanly. "
+                          f"Resume with MODEL.RESUME_TRAINING True "
+                          f"MODEL.PRETRAIN_PATH "
+                          f"<auto_checkpoints/checkpoint_epoch{epoch}>")
                 break
             if (epoch + 1) % cfg.SOLVER.EVAL_PERIOD == 0:
                 val = _validate(cfg, state.model, dataset,

@@ -18,25 +18,47 @@ and ``train_base_model.py`` (``--mode base``):
         DATASETS.ROOT_DIR /data MODEL.PRETRAIN_PATH model.ckpt \\
         TEST.ONLY_TEST True
 
-Runs on the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``. Under ``torchrun`` (its
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``) the run joins a process group, NCCL on the cards (one
+process per card, ``cuda:LOCAL_RANK``) and gloo with ``--device cpu``,
+and trains data-parallel, one group per process with ``TPU.NUM_GROUPS
+0``:
+
+    torchrun --standalone --nproc_per_node 8 \\
+        -m centroids_reid_tpu_torch.engine.runner \\
+        --config_file configs/256_resnet50.yml TPU.NUM_GROUPS 0 ...
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import os
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..config import get_default_cfg
 from ..data import init_dataset
 from ..inference.api import load_inference_model
+from ..parallel.mesh import (
+    barrier,
+    distributed,
+    process_count,
+    process_device,
+    process_index,
+)
 from ..utils import seed_everything
 from .evaluate import run_validation, validate_rerank_config
 from .fit import fit
-from .logging import MetricsLogger, next_version_dir
+from .logging import MetricsLogger, latest_version_dir, next_version_dir
+
+# the process group's collective timeout: long enough for the skew of a
+# process decoding its image bank or a rank-0 checkpoint write
+DIST_TIMEOUT = datetime.timedelta(minutes=30)
 
 
 def load_model_for_test(cfg, device="cuda") -> torch.nn.Module:
@@ -83,6 +105,46 @@ def matmul_precision(value: str):
         torch.set_float32_matmul_precision(saved[2])
 
 
+def maybe_initialize_distributed(device="cuda") -> bool:
+    """Join the process group that ``torchrun`` describes in the
+    environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``): NCCL for a CUDA ``device`` (this process's card is
+    ``cuda:LOCAL_RANK``), gloo for the CPU, with ``DIST_TIMEOUT``. Then a
+    barrier, the counterpart of the JAX package's ``_warm_collectives``:
+    the first NCCL collective builds the communicator, and it should do so
+    while the processes are in step, not behind one still decoding its
+    image bank. Returns whether it initialised a group; without
+    ``WORLD_SIZE``, or in a group already, it does nothing. A failed
+    initialisation raises: the run never falls back to one process."""
+    if "WORLD_SIZE" not in os.environ or distributed():
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, timeout=DIST_TIMEOUT)
+    barrier()
+    if process_index() == 0:
+        print(f"torch.distributed initialised: {process_count()} processes "
+              f"({backend})")
+    return True
+
+
+def allocate_version_dir(base: str, name: str) -> str:
+    """``<base>/<name>/version_N`` for this run: process 0 allocates the
+    next one, then a barrier, then every other process takes the newest;
+    in one process, the next one."""
+    if process_count() == 1:
+        return next_version_dir(base, name)
+    if process_index() == 0:
+        path = next_version_dir(base, name)
+        barrier()
+        return path
+    barrier()
+    return latest_version_dir(base, name)
+
+
 def run_single(cfg, mode: str, logger_save_dir: str,
                device="cuda") -> Dict[str, float]:
     """One run under ``LOG_DIR/<logger_save_dir>/version_N``: ``fit`` in
@@ -95,20 +157,23 @@ def run_single(cfg, mode: str, logger_save_dir: str,
 
 def _run_single(cfg, mode: str, logger_save_dir: str,
                 device) -> Dict[str, float]:
-    log_dir = next_version_dir(cfg.LOG_DIR, logger_save_dir)
-    print(f"Logging to {log_dir}")
-    with open(os.path.join(log_dir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
+    is_main = process_index() == 0
+    log_dir = allocate_version_dir(cfg.LOG_DIR, logger_save_dir)
+    if is_main:
+        print(f"Logging to {log_dir}")
+        with open(os.path.join(log_dir, "config.yml"), "w") as f:
+            f.write(cfg.dump())
 
     dataset = init_dataset(cfg.DATASETS.NAMES, cfg)
-    dataset.print_statistics()
+    if is_main:
+        dataset.print_statistics()
     # refuse a re-ranking config whose evaluation would fail mid-run
     validate_rerank_config(cfg, dataset)
     if not cfg.TEST.ONLY_TEST:
         return fit(cfg, mode, log_dir, seed=cfg.REPRODUCIBLE_SEED,
                    dataset=dataset, device=device)
     model = load_model_for_test(cfg, device)
-    logger = MetricsLogger(log_dir, "test")
+    logger = MetricsLogger(log_dir, "test", enabled=is_main)
     out: Dict[str, float] = {}
     for use_centroids in (cfg.MODEL.USE_CENTROIDS,
                           not cfg.MODEL.USE_CENTROIDS):
@@ -126,19 +191,27 @@ def run_main(cfg, mode: str, logger_save_dir: str,
     """Multi-run entry: ``LOG_DIR`` from ``OUTPUT_DIR`` (or
     ``logs/<dataset>``), then ``REPRODUCIBLE_NUM_RUNS`` runs, as the
     reference's run loop does; with ``REPRODUCIBLE`` each run takes the next
-    seed from ``REPRODUCIBLE_SEED`` on. A preempted run ends the loop."""
-    cfg.LOG_DIR = (f"logs/{cfg.DATASETS.NAMES}" if cfg.OUTPUT_DIR == ""
-                   else cfg.OUTPUT_DIR)
-    out: Dict[str, float] = {}
-    base = cfg.REPRODUCIBLE_SEED
-    for run in range(cfg.REPRODUCIBLE_NUM_RUNS):
-        if cfg.REPRODUCIBLE:
-            cfg.REPRODUCIBLE_SEED = base + run
-            seed_everything(cfg.REPRODUCIBLE_SEED)
-        out = run_single(cfg, mode, logger_save_dir, device)
-        if out.get("preempted"):
-            break
-    return out
+    seed from ``REPRODUCIBLE_SEED`` on. A preempted run ends the loop.
+    Under ``torchrun`` the runs join its process group
+    (``maybe_initialize_distributed``), left at the end."""
+    initialized = maybe_initialize_distributed(device)
+    try:
+        device = process_device(device)
+        cfg.LOG_DIR = (f"logs/{cfg.DATASETS.NAMES}" if cfg.OUTPUT_DIR == ""
+                       else cfg.OUTPUT_DIR)
+        out: Dict[str, float] = {}
+        base = cfg.REPRODUCIBLE_SEED
+        for run in range(cfg.REPRODUCIBLE_NUM_RUNS):
+            if cfg.REPRODUCIBLE:
+                cfg.REPRODUCIBLE_SEED = base + run
+                seed_everything(cfg.REPRODUCIBLE_SEED)
+            out = run_single(cfg, mode, logger_save_dir, device)
+            if out.get("preempted"):
+                break
+        return out
+    finally:
+        if initialized:
+            dist.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:

@@ -31,10 +31,24 @@ backward, the Adam step and the center SGD step.
   ``nn.BatchNorm2d`` and cuDNN's kernels as they are, holds one group's
   activations at a time, and at G = 1 is the one-group step unchanged; at
   full width one group (64 x 4 images) already fills the card.
-* ``TPU.DEBUG_NANS``: after the backward the step checks that every loss
-  term and every gradient is finite and raises ``FloatingPointError``
-  naming the first that is not, before the optimizers step (the JAX
-  package's ``jax_debug_nans`` for the step). Off, it adds no host sync.
+* Processes (a ``torch.distributed`` group, one process per card): each
+  process steps its own groups of the global batch (``parallel.local_groups``),
+  every group's loss scaled by 1 / G with G the global group count. After
+  the group loop one ``all_reduce(SUM)`` over one flat buffer
+  (``parallel.all_reduce_``) makes every gradient (the model's and the
+  centers') the sum over the processes, and the trunk's and the BNNeck's
+  running statistics and the metrics their mean (``num_batches_tracked``
+  is equal everywhere); then the optimizers step, the same on every
+  process. An explicit reduce rather than ``DistributedDataParallel``,
+  which would all-reduce on every group's backward and overwrite the
+  per-group statistics with its buffer broadcast. At 2 processes of one
+  group each the step equals the one-process step of G = 2 bit for bit.
+  Without a process group there is no collective and no extra copy.
+* ``TPU.DEBUG_NANS``: after the backward (and the reduce, so that every
+  process raises together) the step checks that every loss term and every
+  gradient is finite and raises ``FloatingPointError`` naming the first
+  that is not, before the optimizers step (the JAX package's
+  ``jax_debug_nans`` for the step). Off, it adds no host sync.
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from ..losses import (
     ctl_centroid_loss,
     triplet_loss,
 )
+from ..parallel.mesh import all_reduce_, distributed, process_count
 from ..utils import annotate
 
 _BN_EPS = 1e-5
@@ -156,13 +171,24 @@ def _check_finite(metrics: Dict[str, torch.Tensor], model, centers) -> None:
                                  f"the train step")
 
 
+def _reduce_over_processes(model, centers, bns, metrics, neck) -> None:
+    """The step's one collective: gradients summed, running statistics and
+    metrics averaged over the processes, in place."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    stats = [b for m in bns for b in (m.running_mean, m.running_var)]
+    all_reduce_(sums=grads + [centers.grad],
+                means=stats + list(neck) + list(metrics.values()))
+
+
 def make_train_step(state, cfg, num_classes: int, mode: str) -> Callable:
     """``step(images, labels, is_real) -> metrics``: one optimizer step of
     the ``TrainState``'s model and centers over a group-major batch: images
-    [G, P*K, H, W, 3], labels and is_real [G, P*K]. Puts the model in
-    ``train()`` mode; the metrics (means over groups) are detached tensors
-    on the model's device (no host sync unless ``TPU.DEBUG_NANS``). mode:
-    'ctl' (centroid loss, mocks masked) or 'base'."""
+    [G, P*K, H, W, 3], labels and is_real [G, P*K] (in a process group,
+    this process's groups of the global batch). Puts the model in
+    ``train()`` mode; the metrics (means over all groups) are detached
+    tensors on the model's device (no host sync unless
+    ``TPU.DEBUG_NANS``). mode: 'ctl' (centroid loss, mocks masked) or
+    'base'."""
     model, optimizers, centers = state.model, state.optimizers, state.centers
     loss_fn = make_loss_fn(model, centers, cfg, num_classes, mode)
     debug_nans = bool(cfg.TPU.DEBUG_NANS)
@@ -179,6 +205,7 @@ def make_train_step(state, cfg, num_classes: int, mode: str) -> Callable:
         model.train()
         optimizers.zero_grad()
         g = images.shape[0]
+        groups = g * process_count()   # the global group count
         if g > 1:   # the shared starting statistics and their group sums
             start = [[b.clone() for b in (m.running_mean, m.running_var,
                                           m.num_batches_tracked)]
@@ -197,7 +224,7 @@ def make_train_step(state, cfg, num_classes: int, mode: str) -> Callable:
                 total, group_metrics, stats = loss_fn(images[i], labels[i],
                                                       is_real[i])
             with annotate("backward"):
-                (total / g if g > 1 else total).backward()
+                (total / groups if groups > 1 else total).backward()
             if g == 1:
                 metrics, neck = group_metrics, stats
                 break
@@ -217,6 +244,10 @@ def make_train_step(state, cfg, num_classes: int, mode: str) -> Callable:
                     m.num_batches_tracked.copy_(st[2] + 1)
             metrics = {k: v / g for k, v in metrics.items()}
             neck = (neck[0] / g, neck[1] / g)
+        if distributed():
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            with annotate("all_reduce"):
+                _reduce_over_processes(model, centers, bns, metrics, neck)
         if debug_nans:
             _check_finite(metrics, model, centers)
         with annotate("optimizer"):

@@ -1,12 +1,24 @@
-"""The gallery mesh: gallery rows sharded over the devices of one process
-(counterpart of ``centroids_reid_tpu/parallel/``'s retrieval half)."""
+"""Devices and processes (counterpart of ``centroids_reid_tpu/parallel/``):
+the gallery mesh, gallery rows sharded over the devices of one process,
+and the process group of data-parallel training and evaluation over
+``torch.distributed``."""
 
 from .mesh import (
     GALLERY_AXIS,
     Mesh,
+    all_reduce_,
+    any_process,
+    barrier,
+    distributed,
     local_devices,
+    local_groups,
     make_retrieval_mesh,
     on_device,
+    process_allgather,
+    process_count,
+    process_device,
+    process_index,
+    replicate,
     shard_width,
     split_rows,
 )
@@ -20,10 +32,20 @@ from .retrieval import (
 __all__ = [
     "GALLERY_AXIS",
     "Mesh",
+    "all_reduce_",
+    "any_process",
+    "barrier",
+    "distributed",
     "local_devices",
+    "local_groups",
     "make_retrieval_mesh",
     "make_sharded_row_gather",
     "on_device",
+    "process_allgather",
+    "process_count",
+    "process_device",
+    "process_index",
+    "replicate",
     "shard_select_merge",
     "shard_width",
     "sharded_topk",

@@ -1,5 +1,5 @@
 """Graceful-preemption guard: SIGTERM -> checkpoint + clean exit
-(counterpart of ``centroids_reid_tpu/utils/preemption.py``, one process).
+(counterpart of ``centroids_reid_tpu/utils/preemption.py``).
 
 - First signal: a flag is set; ``fit`` observes it at the next epoch
   boundary, saves a ring checkpoint for the finished epoch before any
@@ -9,9 +9,9 @@
   (``engine/runner.run_main``) stops submitting further seeds.
 - Second signal: the original disposition was restored when the first one
   fired, so a repeated SIGTERM terminates immediately.
-- One process only: ``should_stop`` takes no collective (a stop decision
-  across processes waits for ROADMAP.md queue 1 item 6.3, processes over
-  torch.distributed).
+- Several processes: ``should_stop`` is a collective (the flags' maximum),
+  so a signal delivered to any process stops every process at the same
+  epoch, none left waiting in the next epoch's collectives.
 
 Gated by ``TPU.GRACEFUL_PREEMPTION`` (default on).
 """
@@ -20,6 +20,10 @@ from __future__ import annotations
 
 import signal
 import threading
+from typing import Optional
+
+from ..parallel.mesh import any_process
+from ..parallel.mesh import process_count as _process_count
 
 
 class PreemptionGuard:
@@ -73,6 +77,19 @@ class PreemptionGuard:
             except (ValueError, TypeError):  # pragma: no cover
                 pass
 
-    def should_stop(self) -> bool:
-        """The stop decision, polled once per epoch (this process only)."""
-        return self.enabled and self._flag
+    def should_stop(self, process_count: Optional[int] = None) -> bool:
+        """The stop decision, polled once per epoch. With more than one
+        process (``process_count``, by default the process group's size)
+        every enabled process must call it at the same point: an
+        ``all_reduce(MAX)`` of the local flags, so a signal to any process
+        stops them all. A process whose handler could not be installed
+        (a worker thread) takes part with its flag False; only
+        ``enabled=False``, the same everywhere, skips the collective. With
+        one process, the local flag."""
+        if not self.enabled:
+            return False
+        if process_count is None:
+            process_count = _process_count()
+        if process_count <= 1:
+            return self._flag
+        return any_process(self._flag)

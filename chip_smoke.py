@@ -69,7 +69,19 @@ bf16 autocast) and seeded random weights:
   (the cross-shard row gather), and with phase 4b's int8 embed (K5, K6);
   ``get_similar`` and the HTTP front with ``TPU.SHARDED_RETRIEVAL`` (one
   card: the reference's fewer-than-two-devices rule); ``R1mAP(mesh=)`` on
-  phase 10's cell, plain and re-ranked, against the unsharded evaluator.
+  phase 10's cell, plain and re-ranked, against the unsharded evaluator;
+* processes over ``torch.distributed`` (phase 14, NCCL at world size 1, the
+  one card): ``torchrun --standalone --nproc_per_node 1 -m
+  centroids_reid_tpu_torch.engine.runner`` trains ResNet-50 (64 x 4
+  images, bf16, ``TPU.NUM_GROUPS 0``) for one epoch on a cut of phase 8's
+  split (its first 128 pids; phase 5's first 25 for validation) with
+  checkpoints and the double test; in an NCCL group of one, one
+  full-width distributed step (its gradients, running statistics and
+  metrics all-reduced in one flat buffer) against the plain step from one
+  state, bit for bit with cuDNN deterministic, both timed in turns, with
+  the flat all-reduce's device time; ``extract_embeddings_sharded``
+  against ``extract_embeddings`` bit for bit; the stop collective. No
+  hand-written kernel runs there.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -1456,13 +1468,19 @@ def phase_timing(state: dict, int8_state: dict) -> dict:
 def device_us_per_call(fn, calls: int = 20) -> float:
     """torch.profiler's device time of ``fn`` per call, in us: the kernels
     alone, without the host's enqueue gaps between calls. A trace that
-    holds no device time is taken again, up to three times in all."""
+    holds no device time is taken again, up to three times in all; after
+    three empty traces (the profiler on the card sometimes loses every
+    event of a session) the time comes from CUDA events around back-to-back
+    calls instead, which counts the enqueue gaps too, and a line says so."""
     for _ in range(3):
         per, _ = kernel_device_us(fn, calls)
         us = sum(us for us, _ in per.values())
         if us > 0:
             return us / calls
-    raise AssertionError("the profiler saw no device time in three traces")
+    us = cuda_ms(fn, calls) * 1e3
+    log(f"  (torch.profiler saw no device time in three traces: "
+        f"{us:.2f} us a call from CUDA events instead)")
+    return us
 
 
 def phase_timing_k3(gen) -> None:
@@ -1798,7 +1816,7 @@ def step_flops(model, x) -> tuple:
     return 3.0 * fwd - stem, fwd
 
 
-def _phase_device_us(trace_path: str) -> dict:
+def _phase_device_us(trace_path: str, phases=TRAIN_PHASES) -> dict:
     """Device time (kernels, copies, sets) per annotated phase of a
     torch.profiler Chrome trace: each device event goes to the phase whose
     host range holds the call that launched it (by correlation id; the
@@ -1810,11 +1828,11 @@ def _phase_device_us(trace_path: str) -> dict:
         events = json.load(f)["traceEvents"]
     ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
               if e.get("cat") == "user_annotation"
-              and e.get("name") in TRAIN_PHASES]
+              and e.get("name") in phases]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat", "").startswith("cuda_")
                  and "correlation" in e.get("args", {})}
-    out = {name: 0.0 for name in TRAIN_PHASES + ("other",)}
+    out = {name: 0.0 for name in tuple(phases) + ("other",)}
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -2007,7 +2025,7 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
     timing["groups"] = time_train_step(cfg_g2, dataset, state_g2, banks[0])
     del state_g2
     timing["groups"].update(train_parity(cfg_g2, dataset, banks[0]))
-    timing["best"] = best
+    timing.update(best=best, root=root, pth=pth)
     return timing
 
 
@@ -2270,6 +2288,296 @@ def train_parity(cfg, dataset, bank_np) -> dict:
         f"float64 {tc64:.2f} s on the card, {t64:.2f} s on the CPU")
     return {"parity_loss_rel": worst_loss, "parity_grad64_rel": err64[worst64],
             "parity_grad32_whole": card_whole, "bf16_loss_rel": bf16_rel}
+
+
+# -------------------------------------------------------- phase 14 ------
+
+DIST_TRAIN_PIDS = 128    # the torchrun run: phase 8's first 128 identities
+DIST_EVAL_PIDS = 25      # and phase 5's first 25 (50 queries, 450 gallery)
+DIST_STEPS = 8           # steps timed per variant (first excluded)
+DIST_PROFILED = 3        # distributed steps under torch.profiler
+DIST_TIMEOUT_S = 300     # the torchrun launch's limit
+
+
+def _dist_cut(tmp: str, train_root: str, eval_root: str) -> str:
+    """Phase 8's train split cut to its first DIST_TRAIN_PIDS identities
+    and phase 5's query and gallery to their first DIST_EVAL_PIDS, as
+    symlinks in a Market-1501 layout."""
+    import os
+
+    base = os.path.join(tmp, "dist_data", "market1501")
+    for sub, src_root, pids in (
+            ("bounding_box_train", train_root, DIST_TRAIN_PIDS),
+            ("query", eval_root, DIST_EVAL_PIDS),
+            ("bounding_box_test", eval_root, DIST_EVAL_PIDS)):
+        src = os.path.realpath(os.path.join(src_root, "market1501", sub))
+        os.makedirs(os.path.join(base, sub))
+        for name in sorted(os.listdir(src)):
+            if name.endswith(".jpg") and int(name[:4]) <= pids:
+                os.symlink(os.path.join(src, name),
+                           os.path.join(base, sub, name))
+    return os.path.dirname(base)
+
+
+def _torchrun(args: list, timeout: float) -> tuple:
+    """``python -m torch.distributed.run <args>`` from the repository root
+    in a session of its own (killed whole past ``timeout``); returns (exit
+    code, output, seconds)."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0] + f"\n(killed after {timeout} s)"
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def phase_dist(tmp: str, train: dict, eval_root: str) -> dict:
+    """Phase 14, processes over ``torch.distributed`` at world size 1 on the
+    card (NCCL): ``torchrun --standalone --nproc_per_node 1 -m
+    centroids_reid_tpu_torch.engine.runner`` trains ResNet-50 (256x128,
+    64 x 4 images a group, bf16, ``TPU.NUM_GROUPS 0``: one group per
+    process) for 1 epoch on a cut of phase 8's split with validation,
+    checkpoints and the double test; then, in this process, in an NCCL
+    group of one: one full-width distributed step (the flat all-reduce)
+    against the plain step from one state (cuDNN deterministic), both
+    timed, with the all-reduce's device time; ``extract_embeddings_sharded``
+    against ``extract_embeddings``; the stop collective."""
+    import copy
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.data import EvalLoader, TrainLoader
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.engine import fit as FIT
+    from centroids_reid_tpu_torch.engine.epoch_runner import make_augment
+    from centroids_reid_tpu_torch.engine.evaluate import (
+        _shared_store,
+        extract_embeddings,
+        extract_embeddings_sharded,
+    )
+    from centroids_reid_tpu_torch.engine.state import create_train_state
+    from centroids_reid_tpu_torch.engine.steps import make_train_step
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+    from centroids_reid_tpu_torch.parallel import any_process, process_count
+
+    log("== phase 14: processes over torch.distributed (NCCL, world size 1)")
+    gpu = gpu_line()
+    root = _dist_cut(tmp, train["root"], eval_root)
+    logs = os.path.join(tmp, "logs_dist")
+    code, out, run_s = _torchrun(
+        ["--standalone", "--nproc_per_node", "1", "-m",
+         "centroids_reid_tpu_torch.engine.runner", "--mode", "ctl",
+         *_train_opts(root, logs, "MODEL.PRETRAINED", "True",
+                      "MODEL.PRETRAIN_PATH", train["pth"], "TPU.NUM_GROUPS",
+                      "0", "SOLVER.MAX_EPOCHS", "1", "SOLVER.EVAL_PERIOD",
+                      "1")], DIST_TIMEOUT_S)
+    require(code == 0, f"torchrun exited {code}:\n{out[-6000:]}")
+    require("torch.distributed initialised: 1 processes (nccl)" in out,
+            f"the runner did not join an NCCL group:\n{out[-3000:]}")
+    runs = os.path.join(logs, "train_ctl_model")
+    require(os.listdir(runs) == ["version_0"], f"runs: {os.listdir(runs)}")
+    version = os.path.join(runs, "version_0")
+    best = os.listdir(os.path.join(version, "checkpoints"))
+    ring = os.listdir(os.path.join(version, "auto_checkpoints"))
+    require(best == ["epoch=0"] and ring == ["checkpoint_epoch0"],
+            f"checkpoints {best}, ring {ring}")
+    with open(os.path.join(version, "train", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r for r in recs if "epoch_train_loss" in r]
+    tests = {k: v for r in recs for k, v in r.items()
+             if k.startswith("test_")}
+    require(len(epochs) == 1 and np.isfinite(epochs[0]["epoch_train_loss"]),
+            f"epoch records: {epochs}")
+    require(np.isfinite(tests.get("test_centroids_mAP", np.nan))
+            and np.isfinite(tests.get("test_plain_mAP", np.nan)),
+            f"double test: {tests}")
+    log(f"torchrun --standalone --nproc_per_node 1 -m "
+        f"centroids_reid_tpu_torch.engine.runner (TPU.NUM_GROUPS 0, NCCL): "
+        f"{DIST_TRAIN_PIDS} of phase 8's pids, 1 epoch of "
+        f"{int(epochs[0]['steps'])} steps of {TRAIN_P} x {TRAIN_K}, loss "
+        f"{epochs[0]['epoch_train_loss']:.5f}, validation on "
+        f"{DIST_EVAL_PIDS * (EVAL_QUERIES + EVAL_GALLERY)} images, best "
+        f"{best[0]}, ring {ring[0]}, double test mAP centroids "
+        f"{tests['test_centroids_mAP']:.4f} plain "
+        f"{tests['test_plain_mAP']:.4f}; {run_s:.1f} s (host clock, process "
+        f"start, image bank and checkpoints included)")
+
+    # in this process: one state and one full-width batch of phase 8's split
+    marks = [("set-up", time.perf_counter())]
+    opts = _train_opts(train["root"], logs, "MODEL.PRETRAINED", "True",
+                       "MODEL.PRETRAIN_PATH", train["pth"])
+    cfg = get_default_cfg()
+    cfg.merge_from_file(opts[1])
+    cfg.merge_from_list(opts[2:])
+    dataset = init_dataset("market1501", cfg)
+    loader = TrainLoader(dataset, cfg, num_groups=1)
+    batch = loader._assemble(loader.plan_for_epoch(0), 0)
+    imgs, labels, is_real = (torch.from_numpy(batch[k]).cuda()
+                             for k in ("images", "labels", "is_real"))
+    x = make_augment(cfg)(imgs.flatten(0, 1), is_real.flatten(),
+                          torch.Generator(device="cuda").manual_seed(SEED)
+                          ).unflatten(0, imgs.shape[:2])
+    base = FIT.build_model_and_state(cfg, dataset, seed=3, device="cuda")
+
+    def fresh():
+        model = copy.deepcopy(base.model)
+        state = create_train_state(cfg, model, dataset.num_classes,
+                                   torch.Generator())
+        with torch.no_grad():
+            state.centers.copy_(base.centers)
+        return state, make_train_step(state, cfg, dataset.num_classes, "ctl")
+
+    def stepped():
+        state, step = fresh()
+        step(x, labels, is_real)
+        torch.cuda.synchronize()
+        return _flat_state({"model": state.model.state_dict(),
+                            "centers": state.centers})
+
+    def step_ms():
+        _, step = fresh()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(DIST_STEPS + 1)]
+        step(x, labels, is_real)
+        for start, end in events:
+            start.record()
+            step(x, labels, is_real)
+            end.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in events[1:]]))
+
+    def max_diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   if a[k].is_floating_point() else float(
+                       (a[k] != b[k]).any()) for k in a)
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    marks.append(("plain steps", time.perf_counter()))
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        plain = [stepped(), stepped()]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    plain_ms = [step_ms()]
+    marks.append(("NCCL init", time.perf_counter()))
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "pg14"), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        require(process_count() == 1, "the group is not of one process")
+        marks.append(("distributed steps", time.perf_counter()))
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            reduced = stepped()
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        dist_ms = [step_ms(), step_ms()]
+        marks.append(("profile", time.perf_counter()))
+        state, step = fresh()
+        step(x, labels, is_real)
+        for _ in range(3):   # a trace that lost its device events again
+            with tempfile.TemporaryDirectory() as d:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(DIST_PROFILED):
+                        step(x, labels, is_real)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(f"{d}/trace.json")
+                split = _phase_device_us(f"{d}/trace.json", (
+                    "forward", "backward", "all_reduce", "optimizer"))
+            if split["all_reduce"] > 0:
+                break
+        nccl_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and "nccl" in e.key.lower()) / DIST_PROFILED
+        values = (sum(p.numel() for p in state.model.parameters()
+                      if p.grad is not None) + state.centers.numel()
+                  + sum(b.numel() for m in state.model.backbone.modules()
+                        if isinstance(m, torch.nn.BatchNorm2d)
+                        for b in (m.running_mean, m.running_var))
+                  + 2 * state.model.bn.num_features)
+        del state, step
+
+        marks.append(("extraction", time.perf_counter()))
+        eval_cfg = cfg.clone()
+        eval_cfg.DATASETS.ROOT_DIR = root
+        eval_set = init_dataset("market1501", eval_cfg)
+        model = base.model.eval()
+        store = _shared_store(eval_set, eval_cfg)
+        sharded = extract_embeddings_sharded(model, eval_cfg, eval_set.val,
+                                             store)
+        full = extract_embeddings(model, eval_cfg, EvalLoader(
+            eval_set.val, eval_cfg, store=store))
+        require(all(np.array_equal(a, b) for a, b in zip(sharded, full)),
+                "extract_embeddings_sharded differs from extract_embeddings "
+                "at world size 1")
+        t0 = time.perf_counter()
+        stops = (any_process(False), any_process(True))
+        stop_ms = (time.perf_counter() - t0) * 1e3 / 2
+        require(stops == (False, True), f"stop collective: {stops}")
+    finally:
+        dist.destroy_process_group()
+    marks.append(("plain steps", time.perf_counter()))
+    plain_ms.append(step_ms())
+    torch.cuda.synchronize()
+    marks.append(("end", time.perf_counter()))
+    launches = launch_counts()
+    require(not any(launches.values()),
+            f"hand-written kernels launched in phase 14: {launches}")
+    noise = max_diff(plain[1], plain[0])
+    diff = max_diff(reduced, plain[0])
+    require(diff <= 2 * noise, f"the distributed step differs from the "
+            f"plain one by {diff:.3e} (two plain steps: {noise:.3e})")
+    log(f"distributed step against the plain step from one state "
+        f"(ResNet-50 256x128 bf16, {TRAIN_P} x {TRAIN_K}, cuDNN "
+        f"deterministic): state after the step "
+        + ("equal bit for bit" if diff == 0 else
+           f"within {diff:.3e} (max abs; two plain steps differ by "
+           f"{noise:.3e}, the tolerance is twice that)")
+        + f" over {len(plain[0])} tensors; extract_embeddings_sharded at "
+        f"world size 1 equals extract_embeddings bit for bit on "
+        f"{len(eval_set.val)} records; the stop collective (all_reduce MAX "
+        f"of an int32 on the card) {stop_ms:.3f} ms a call (host clock); "
+        f"in-process seconds: " + ", ".join(
+            f"{name} {b - a:.1f}" for (name, a), (_, b)
+            in zip(marks, marks[1:])))
+    per = {k: v / DIST_PROFILED / 1e3 for k, v in split.items()}
+    log(f"train step in an NCCL group of one, {gpu}: medians "
+        f"{', '.join(f'{t:.2f}' for t in dist_ms)} ms (CUDA events, "
+        f"{DIST_STEPS} steps a run) against the plain step's "
+        f"{', '.join(f'{t:.2f}' for t in plain_ms)} ms (runs in turns: "
+        f"plain, distributed, distributed, plain) in this phase "
+        f"and {train['step_ms']:.2f} ms in phase 8; the flat all-reduce of "
+        f"{values:,} values ({values * 4 / 1e6:.1f} MB fp32): device time "
+        f"of its range {per['all_reduce']:.3f} ms a step (pack, NCCL, unpack;"
+        f" torch.profiler over {DIST_PROFILED} steps), of it NCCL kernels "
+        f"{nccl_us / 1e3:.3f} ms; forward {per['forward']:.2f}, backward "
+        f"{per['backward']:.2f}, optimizer {per['optimizer']:.2f} ms; "
+        f"kernel launches: {launches} (none: no hand-written kernel)")
+    return {"run_s": run_s, "dist_ms": dist_ms, "plain_ms": plain_ms,
+            "all_reduce_ms": per["all_reduce"], "nccl_ms": nccl_us / 1e3,
+            "values": values, "max_diff": diff}
 
 
 # --------------------------------------------------------- phase 9 ------
@@ -4272,12 +4580,13 @@ def main() -> int:
         eval_state = timed("5", phase_eval, tmp, ckpt)
         cli_launches = timed("6", phase_cli, tmp, ckpt, eval_state["root"])
         times = timed("7", phase_timing, state, int8_state)
-        trained = timed("8", phase_train, tmp, ckpt,
-                        eval_state["root"])["best"]
+        train = timed("8", phase_train, tmp, ckpt, eval_state["root"])
+        trained = train["best"]
         timed("9", phase_serve_http, state, tmp, trained, eval_state["root"])
         timed("11", phase_artifacts, state, int8_state, tmp)
         timed("13", phase_mesh, state, int8_state, tmp, eval_state["root"],
               gpu_line())
+        timed("14", phase_dist, tmp, train, eval_state["root"])
     torch.cuda.empty_cache()
     stream = timed("10", phase_eval_stream, gpu_line())
     timed("12", phase_orbax, gpu_line())

@@ -1225,3 +1225,67 @@ def test_sharded_service_on_a_four_shard_card_mesh(cuda, rerank_window):
     (dc, ic, _), (dg, ig, _) = out["cpu"], out[str(cuda)]
     np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4)
     _same_ranking(dg, ig, ic, tol=1e-4)
+
+
+def test_nccl_step_at_world_one_equals_the_plain_step(cuda, tmp_path):
+    """One train step of resnet18 (32x16, fp32, TF32 off, two groups of 4 x
+    4, cuDNN deterministic) without a process group and in an NCCL group of
+    world size 1, where the step packs every gradient, running statistic
+    and metric into one flat buffer and all-reduces it: metrics, gradients
+    and the state after the optimizers' step equal bit for bit."""
+    import copy
+
+    import torch.distributed as dist
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine.state import create_train_state
+    from centroids_reid_tpu_torch.engine.steps import make_train_step
+    from centroids_reid_tpu_torch.models import create_model
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "resnet18"
+    cfg.USE_MIXED_PRECISION = False
+    cfg.SOLVER.IMS_PER_BATCH = 4
+    cfg.DATALOADER.NUM_INSTANCE = 4
+    classes = 8
+    base = create_model(cfg, num_classes=classes,
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(5)
+    imgs = torch.from_numpy(rng.randn(2, 16, 32, 16, 3).astype(np.float32))
+    labels = torch.from_numpy(np.stack([np.repeat(rng.choice(
+        classes, 4, replace=False), 4) for _ in range(2)]))
+    is_real = torch.ones(2, 16, dtype=torch.bool)
+    is_real[:, 7] = False
+
+    def run():
+        model = copy.deepcopy(base).to(cuda, memory_format=torch.channels_last)
+        state = create_train_state(cfg, model, classes,
+                                   torch.Generator().manual_seed(1))
+        metrics = make_train_step(state, cfg, classes, "ctl")(
+            imgs.to(cuda), labels.to(cuda), is_real.to(cuda))
+        out = {f"metric.{k}": v for k, v in metrics.items()}
+        out.update({f"grad.{n}": p.grad for n, p in model.named_parameters()
+                    if p.grad is not None})
+        out.update({f"state.{k}": v for k, v in model.state_dict().items()})
+        out["centers"] = state.centers.detach()
+        return {k: v.cpu().clone() for k, v in out.items()}
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        plain = run()
+        dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            reduced = run()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert plain.keys() == reduced.keys()
+    for k in plain:
+        assert torch.equal(plain[k], reduced[k]), k

@@ -11,9 +11,11 @@ queried, and ``python -m ...inference.export_model`` run), and
 importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
 any module of ``centroids_reid_tpu``; an orbax checkpoint of the JAX
 package loads, serves and resumes while jax, orbax and tensorstore are
-blocked from import; no source file of the port (``parallel/`` included)
-imports the JAX package; and the service refuses what the reference
-refuses."""
+blocked from import; a 2-process ``fit`` and a 2-process sharded
+extraction over ``torch.distributed`` (gloo) run while jax, flax, optax,
+orbax, tensorstore and the JAX package are blocked; no source file of the
+port (``parallel/`` included) imports the JAX package; and the service
+refuses what the reference refuses."""
 
 import os
 import re
@@ -281,6 +283,36 @@ def test_orbax_checkpoints_load_with_jax_orbax_and_tensorstore_blocked(
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_two_process_flows_run_with_jax_blocked(tmp_path):
+    """``tests/fixtures/torch_dist_worker.py`` with ``block_jax``: one epoch
+    of ``fit`` over 2 ranks (G = 2, validation and checkpoints) and the
+    sharded extraction over 2 ranks, each against the full extraction."""
+    from fixtures.torch_dist_worker import start, wait
+    from test_integration import _make_separable_market
+    from test_torch_dist_fit import fit_opts
+
+    root = _make_separable_market(tmp_path, n_pids=8, per_pid=4)
+    env = cpu_subprocess_env()
+    fit = start(tmp_path, {"task": "fit", "block_jax": True,
+                           "log_dir": str(tmp_path / "run"),
+                           "opts": fit_opts(root, 0, "SOLVER.MAX_EPOCHS",
+                                            "1")}, 2, env)
+    extract = start(tmp_path, {"task": "extract", "block_jax": True,
+                               "opts": ["DATASETS.ROOT_DIR", root,
+                                        "MODEL.NAME", "resnet18",
+                                        "INPUT.SIZE_TEST", "[32,16]",
+                                        "USE_MIXED_PRECISION", "False"]},
+                    2, env)
+    for out in wait(fit):
+        assert np.isfinite(float(out["metric.test_centroids_mAP"]))
+        assert int(out["jax_modules"]) == 0
+    for out in wait(extract):
+        np.testing.assert_allclose(out["emb"], out["ref_emb"], atol=1e-5)
+        assert int(out["jax_modules"]) == 0
+    assert os.listdir(tmp_path / "run" / "auto_checkpoints") == [
+        "checkpoint_epoch0"]
+
+
 _JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from|import) centroids_reid_tpu(\.| |$)", re.MULTILINE)
 
@@ -309,7 +341,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
                    "engine/epoch_runner.py", "engine/checkpoint.py",
                    "engine/fit.py", "utils/preemption.py",
                    "utils/profiling.py", "utils/seeding.py",
-                   "parallel/mesh.py", "parallel/retrieval.py"):
+                   "parallel/mesh.py", "parallel/retrieval.py",
+                   "engine/runner.py", "engine/evaluate.py",
+                   "data/loader.py", "data/transforms.py"):
         assert f"centroids_reid_tpu_torch/{module}" in scanned, module
 
 

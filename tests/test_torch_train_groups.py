@@ -58,47 +58,60 @@ def test_group_step_matches_jax(groups):
     new_jstate, jmetrics = jstep(jstate, {
         "images": jnp.asarray(imgs), "is_real": jnp.asarray(is_real),
         "labels": jnp.asarray(labels.astype(np.int32))})
-    jgrads = jax.tree.map(np.asarray, new_jstate.opt_state[1])
 
     state = _port_state(jstate.params, jstate.batch_stats, cfg)
     model = state.model
     sizes = _bn_input_sizes(model, torch.from_numpy(imgs[0]).permute(
         0, 3, 1, 2))
-    old = {k: v.clone() for k, v in model.state_dict().items()}
+    old = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     step = TSTEPS.make_train_step(state, cfg, C, "ctl")
     metrics = step(torch.from_numpy(imgs), torch.from_numpy(labels),
                    torch.from_numpy(is_real))
+    grads = {n: p.grad.numpy() for n, p in model.named_parameters()
+             if p.requires_grad}
+    grads["centers"] = state.centers.grad.numpy()
+    assert_step_matches_jax(
+        cfg, new_jstate, jmetrics, {k: v.item() for k, v in metrics.items()},
+        grads, {k: v.numpy() for k, v in model.state_dict().items()}, old,
+        sizes)
+
+
+def assert_step_matches_jax(cfg, new_jstate, jmetrics, metrics, grads, sd,
+                            old, sizes):
+    """A port step's results (numpy / float dicts: its metrics, the
+    trainable parameters' gradients and ``"centers"``, the state dict after
+    and before the step) against the JAX step's, at this file's
+    tolerances. ``sizes``: rows x H x W of each trunk BN's input."""
     assert set(metrics) == set(jmetrics)
     for name, ref in jmetrics.items():
-        np.testing.assert_allclose(metrics[name].item(), float(ref),
+        np.testing.assert_allclose(metrics[name], float(ref),
                                    rtol=1e-4, atol=1e-7, err_msg=name)
 
+    jgrads = jax.tree.map(np.asarray, new_jstate.opt_state[1])
     gsd = from_jax_params(jgrads["model"], {})
-    for name, p in model.named_parameters():
-        if p.requires_grad:
-            assert _rel_l2(p.grad.numpy(), gsd[name].numpy()) <= 1e-4, name
+    for name, g in grads.items():
+        if name != "centers":
+            assert _rel_l2(g, gsd[name].numpy()) <= 1e-4, name
     scale = np.float32(1.0 / cfg.SOLVER.CENTER_LOSS_WEIGHT)
-    assert _rel_l2(state.centers.grad.numpy(),
-                   jgrads["centers"] * scale) <= 1e-4
+    assert _rel_l2(grads["centers"], jgrads["centers"] * scale) <= 1e-4
 
     new_stats = from_jax_params({}, jax.tree.map(np.asarray,
                                                  new_jstate.batch_stats))
-    sd = model.state_dict()
     for key in ("bn.running_mean", "bn.running_var"):
-        np.testing.assert_allclose(sd[key].numpy(), new_stats[key].numpy(),
+        np.testing.assert_allclose(sd[key], new_stats[key].numpy(),
                                    rtol=1e-6, atol=1e-6, err_msg=key)
     for prefix, n in sizes.items():
         jmean = new_stats[prefix + ".running_mean"].numpy()
-        np.testing.assert_allclose(sd[prefix + ".running_mean"].numpy(), jmean,
+        np.testing.assert_allclose(sd[prefix + ".running_mean"], jmean,
                                    rtol=1e-4, atol=1e-4 * np.abs(jmean).max())
-        old_var = old[prefix + ".running_var"].numpy()
+        old_var = old[prefix + ".running_var"]
         biased = (new_stats[prefix + ".running_var"].numpy()
                   - 0.9 * old_var) / 0.1
         want = 0.9 * old_var + 0.1 * biased * n / (n - 1)
-        np.testing.assert_allclose(sd[prefix + ".running_var"].numpy(), want,
+        np.testing.assert_allclose(sd[prefix + ".running_var"], want,
                                    rtol=1e-4, err_msg=prefix)
-        assert torch.equal(sd[prefix + ".num_batches_tracked"],
-                           old[prefix + ".num_batches_tracked"] + 1)
+        assert np.array_equal(sd[prefix + ".num_batches_tracked"],
+                              old[prefix + ".num_batches_tracked"] + 1)
 
 
 @pytest.mark.parametrize("mode", ["ctl", "base"])
