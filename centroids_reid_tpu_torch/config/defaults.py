@@ -2,8 +2,9 @@
 
 Key set and defaults mirror the reference yacs tree exactly
 (reference config/defaults.py:13-181) so that the reference's YAML
-config files and ``KEY VALUE`` CLI override lists work unchanged. Additional
-TPU-specific keys live under the ``TPU`` section and are strictly additive.
+config files and ``KEY VALUE`` CLI override lists work unchanged. The JAX
+package's additional keys live under the ``TPU`` section, strictly
+additive.
 """
 
 from .node import ConfigNode
@@ -103,106 +104,89 @@ def get_default_cfg() -> ConfigNode:
     _C.REPRODUCIBLE_SEED = 0
 
     # ----------------------------------------------------------- TPU-SPECIFIC
+    # The JAX package's extra keys, kept under their names so that one YAML
+    # or override list drives both packages. Each comment says what the
+    # switch does in this port.
     _C.TPU = ConfigNode()
-    # Number of data-parallel groups the global batch is split into. Each
-    # group holds a full P x K identity batch; hard-example mining is local
-    # to a group (matches per-rank DDP semantics of the reference). 0 means
-    # "use jax.device_count()".
+    # Groups the global batch is split into, each a full P x K identity
+    # batch; mining, centroids and BN batch statistics are per group, and
+    # the step loops over the groups (engine/steps.py). 0 means one group
+    # per process of the torch.distributed group (1 without one).
     _C.TPU.NUM_GROUPS = 0
-    # Cache decoded+resized train images in host RAM (uint8).
+    # Keep decoded and resized images in host memory (uint8).
     _C.TPU.CACHE_IMAGES = True
-    # Keep the decoded train set resident in HBM and run each epoch as one
-    # scanned XLA program (zero per-step host work). Falls back to streaming
-    # when the image bank exceeds the budget. Multi-host: each host decodes
-    # the full bank and replicates it; the epoch scan is one global SPMD
-    # program over the data mesh.
+    # Decode the train split once into a uint8 image bank on the card and
+    # gather each step's batch there. Past DEVICE_DATA_BUDGET_MB (MB of
+    # 1e6 bytes: H x W x 3 bytes an image) fit streams host batches
+    # through the prefetching loader instead.
     _C.TPU.DEVICE_RESIDENT_DATA = True
     _C.TPU.DEVICE_DATA_BUDGET_MB = 4096
-    # Number of host prefetch threads for image decoding.
+    # Threads that decode evaluation images.
     _C.TPU.PREFETCH_THREADS = 4
-    # Batches to keep in flight on device.
+    # Host batches the streaming train loader keeps ready.
     _C.TPU.PREFETCH_DEPTH = 2
-    # Use the Pallas fused distance+top-k kernel for retrieval when possible.
+    # Rank with the hand-written selection kernels (ops/retrieval.py) when
+    # a top-k is asked for; off, a stable argsort of the full distances.
     _C.TPU.USE_PALLAS_RETRIEVAL = True
-    # get_similar CLI: shard the gallery over all local devices
-    # (parallel.sharded_topk) — for galleries past one chip's HBM on
-    # multi-chip hosts. Requires --topk (full-distmat output cannot
-    # shard) and >= 2 devices; identical results to the single-chip path.
+    # get_similar and the HTTP front: shard the gallery over the visible
+    # cards (parallel/); needs --topk and at least two cards, and gives the
+    # one-card results.
     _C.TPU.SHARDED_RETRIEVAL = False
-    # Emit jax.profiler traces into LOG_DIR/traces when set.
+    # Write a torch.profiler trace of fit's first epoch under
+    # LOG_DIR/traces.
     _C.TPU.PROFILE = False
-    # Save the periodic (crash-resume) checkpoint every N epochs. The
-    # reference hardcodes every epoch (utils/misc.py:88-93); pulling the
-    # full train state off-device each epoch is expensive on TPU.
+    # Save the periodic (resume) checkpoint every N epochs. The reference
+    # saves every epoch (utils/misc.py:88-93).
     _C.TPU.PERIODIC_CHECKPOINT_INTERVAL = 1
-    # Graceful preemption: SIGTERM (spot/maintenance notice) makes fit()
-    # save a ring checkpoint at the next epoch boundary and exit cleanly
-    # for MODEL.RESUME_TRAINING; a second SIGTERM terminates immediately.
-    # The reference has no preemption handling (SURVEY.md §5).
+    # Graceful preemption: SIGTERM makes fit() save a ring checkpoint at
+    # the next epoch boundary and exit cleanly for MODEL.RESUME_TRAINING; a
+    # second SIGTERM terminates immediately. The reference has no
+    # preemption handling (SURVEY.md §5).
     _C.TPU.GRACEFUL_PREEMPTION = True
-    # Debug aid: abort on the first NaN/Inf produced on device
-    # (jax_debug_nans). The reference has no sanitizers (SURVEY.md §5).
+    # Check every loss term and gradient of the train step and raise
+    # FloatingPointError on the first that is not finite. The reference
+    # has no sanitizers (SURVEY.md §5).
     _C.TPU.DEBUG_NANS = False
-    # Matmul/conv precision for fp32 runs (jax_default_matmul_precision).
-    # IMPORTANT: XLA's TPU default lowers fp32 convolutions to single-pass
-    # bf16 MXU operands (verified by HLO inspection — see README
-    # "Performance notes"), so USE_MIXED_PRECISION False buys fp32
-    # *activation storage and BN/loss math*, not fp32 conv arithmetic.
-    # "high" (bf16_3x, ~1.4x step time) or "highest" (fp32-exact, ~2.1x)
-    # opt into more conv precision.
+    # fp32 matmul and convolution precision for the run: "default" leaves
+    # cuBLAS and cuDNN as they are; "highest" and "float32" turn TF32 off,
+    # "tensorfloat32" on; JAX's other values raise (engine/runner.py).
     _C.TPU.MATMUL_PRECISION = "default"
-    # Compute the 7x7/s2 stem conv as a 4x4/s1 conv over space-to-depth(2)
-    # input (MLPerf-style), sharing the reference (7,7,3,64) kernel — exact
-    # numerics, checkpoint-compatible. MEASURED A WASH on v5e (eval 13.1k
-    # vs 13.5k imgs/s, train step +-0.4%): current XLA already lays out the
-    # 3-channel stem well, so this classic lever is OFF by default and kept
-    # as a knob for other TPU generations.
+    # Not read: the JAX package's space-to-depth stem computes the same
+    # function as the 7x7 stride-2 conv, which the port runs as it is.
     _C.TPU.SPACE_TO_DEPTH_STEM = False
-    # Serving-path fast ingest for the offline inference CLIs: DCT-scaled
-    # JPEG decode (libjpeg scale_num/8, large sources only pay ~1/k^2 of
-    # the IDCT) + planar YUV420 packing — 1.5 bytes/px on the host->device
-    # wire instead of 3, unpacked (triangle chroma upsample + BT.601)
-    # inside the jitted embed program. NOT bit-exact vs the parity decode
-    # path (scaled IDCT + 4:2:0 chroma are lossy; embedding agreement is
-    # asserted in tests/test_fast_ingest.py), so this is OFF by default
-    # and never applies to training/eval loaders.
+    # Fast ingest for serving and the offline inference CLIs: where the
+    # native decoder builds, DCT-scaled JPEG decode and planar YUV420
+    # packing (1.5 bytes a pixel to the card instead of 3), unpacked on the
+    # card. Lossy (4:2:0 chroma, scaled IDCT), so off by default and never
+    # used by the training or evaluation loaders.
     _C.TPU.FAST_DECODE = False
-    # int8 post-training-quantized serving for the offline inference CLIs
-    # (models/quantized.py): BN+input folding, per-channel int8 weights,
-    # self-calibrated per-tensor activation scales. Measured 1.66x embedding
-    # throughput on v5e vs bf16 (plain ResNets; IBN-a supported too — its
-    # per-sample IN halves run in the int8 domain after a round-3
-    # measurement showed the old fp32 materialisation was the entire IBN
-    # slowdown, benchmarks/bench_int8_ibn.py). Eval during *training*
-    # stays bf16.
+    # int8 post-training-quantized embed for ONLY_TEST and the offline
+    # inference CLIs (models/quantized.py): BN and input folding,
+    # per-channel int8 weights, calibrated per-tensor activation scales;
+    # IBN-a's InstanceNorm half runs in the int8 domain. Evaluation during
+    # training stays bf16.
     _C.TPU.INT8_EVAL = False
     # Leading batches of the input folder used for activation calibration.
     _C.TPU.INT8_CALIB_BATCHES = 4
     # Activation-range percentile for calibration; 100 = absolute max,
-    # lower (e.g. 99.9) clips outliers — more robust on trained
-    # checkpoints with heavy-tailed activations.
+    # lower (e.g. 99.9) clips outliers.
     _C.TPU.INT8_CALIB_PCT = 100.0
     # Optional .npz path for the quantized model: loaded when it exists
-    # (skipping calibration entirely), written after calibration when it
-    # does not — one validated artifact serves every later run.
+    # and matches the run (skipping calibration), written after
+    # calibration when it does not.
     _C.TPU.INT8_CACHE_PATH = ""
     # k-reciprocal re-ranking (Zhong et al., CVPR 2017) for evaluation and
-    # the get_similar CLI — the reid ecosystem's standard post-hoc accuracy
-    # booster, absent from the reference (SURVEY.md has no rerank
-    # component); TPU-native implementation in ops/rerank.py. O(N^2) HBM:
-    # refuse eval sets past ~26k rows (Market/Duke fit; fashion-scale
-    # galleries should keep the streaming evaluator instead).
+    # the get_similar CLI (ops/rerank.py), absent from the reference. The
+    # full re-ranker holds O(N^2) distances on the card and refuses
+    # evaluation sets past ~26k rows; larger galleries take
+    # RERANK_WINDOW.
     _C.TPU.RERANK = False
     _C.TPU.RERANK_K1 = 20
     _C.TPU.RERANK_K2 = 6
     _C.TPU.RERANK_LAMBDA = 0.3
-    # > 0 switches get_similar's re-ranking to the windowed variant
-    # (ops/rerank.py::rerank_topk): retrieve this many candidates per
-    # query with the fused top-k kernel, re-rank each query against its
-    # own candidate set. O(r^2) transient memory instead of O((Q+G)^2)
-    # resident — the production form for galleries past the full
-    # re-ranker's ~26k-row guard. Only meaningful with --topk; full-matrix
-    # requests (--topk 0) and evaluation keep the exact full re-ranker.
+    # > 0: windowed re-ranking (ops/rerank.py::rerank_topk): each query
+    # re-ranks its own top RERANK_WINDOW candidates, in O(r^2) memory,
+    # in get_similar, serving and evaluation (the streaming evaluator).
     _C.TPU.RERANK_WINDOW = 0
 
     return _C

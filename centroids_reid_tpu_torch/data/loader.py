@@ -164,6 +164,9 @@ class TrainLoader:
                                 self.num_instances, self.num_groups, epoch,
                                 self.use_resampling)
 
+    def steps_per_epoch(self, epoch: int = 0) -> int:
+        return self.plan_for_epoch(epoch).num_steps
+
     def _assemble(self, plan: EpochPlan, t: int) -> dict:
         _, p, k = plan.sample_idx.shape[1:]
         g0, g = self.group_offset, self.local_groups

@@ -227,6 +227,34 @@ def compute_reid_metrics(cfg, embeddings, pids, camids, num_query: int,
     return metrics
 
 
+def evaluate_on_train(cfg, model, dataset, use_centroids: bool = True
+                      ) -> Dict[str, float]:
+    """Train-set retrieval diagnostic ("Train mAP"), on the model's device
+    and in its ``eval()`` mode (its mode is restored after). The
+    reference's ``eval_on_train`` (modelling/bases.py:320-357) is dead
+    code; this is the JAX package's working form: every train image
+    queries the train set (as images, or per-pid centroids with
+    ``use_centroids``), with the usual same pid and camid removal."""
+    training = model.training
+    model.eval()
+    try:
+        emb, pids, camids = extract_embeddings(
+            model, cfg, EvalLoader(dataset.train, cfg,
+                                   store=_shared_store(dataset, cfg)))
+    finally:
+        model.train(training)
+    m = compute_reid_metrics(
+        cfg, np.concatenate([emb, emb]), np.concatenate([pids, pids]),
+        np.concatenate([camids, camids]), len(emb), use_centroids,
+        device=_model_device(model))
+    log = {"Train mAP": m.mAP}
+    for val, kk in zip(m.all_topk, K_LIST):
+        print("Train top-k, Rank-{:<3}:{:.1%}".format(kk, float(val)))
+        log[f"Train Top-{kk}"] = float(val)
+    print(f"Train mAP: {m.mAP}")
+    return log
+
+
 def run_validation(cfg, model, dataset, use_centroids: bool
                    ) -> Dict[str, float]:
     """Full validation pass on the model's device; returns {'mAP': ...,

@@ -6,8 +6,10 @@ device-resident epoch (the image bank on the card, ``TPU.DEVICE_RESIDENT_DATA``
 within ``TPU.DEVICE_DATA_BUDGET_MB``) or the host-streamed one, the epoch
 metrics, the preemption stop, validation every ``SOLVER.EVAL_PERIOD``
 epochs with the best-metric checkpoint, and the periodic ring checkpoint
-every ``TPU.PERIODIC_CHECKPOINT_INTERVAL`` epochs. After the last epoch,
-the double test with ``MODEL.USE_CENTROIDS`` toggled.
+every ``TPU.PERIODIC_CHECKPOINT_INTERVAL`` epochs, each written from a
+thread while the next epoch trains (``CheckpointManager(use_async=True)``,
+closed at the end). After the last epoch, the double test with
+``MODEL.USE_CENTROIDS`` toggled.
 
 Augmentation draws come from a ``torch.Generator`` on the training device,
 seeded from ``REPRODUCIBLE_SEED + 17 * seed`` and the epoch.
@@ -242,5 +244,6 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
         test = {f"test_{tag}_{k}": v for k, v in val.items()}
         logger.log_metrics(test, step=cfg.SOLVER.MAX_EPOCHS)
         metrics_out.update(test)
+    ckpt.close()   # settle the write in flight and its deferred pruning
     logger.close()
     return metrics_out

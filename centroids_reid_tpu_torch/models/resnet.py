@@ -10,7 +10,7 @@ load key for key. Behavioural quirks kept from the reference:
   on the first half of the channels and BatchNorm on the rest.
 
 The space-to-depth stem of the JAX package (``TPU.SPACE_TO_DEPTH_STEM``) is
-not ported: it computes the same function and measured a wash on the TPU.
+not ported: it computes the same function as the 7x7 stride-2 stem.
 """
 
 from __future__ import annotations

@@ -91,3 +91,8 @@ def set_learning_rate(optimizers: Optimizers, lr: float) -> None:
     for group in optimizers.model.param_groups:
         group["lr"] = lr
 
+
+def current_learning_rate(optimizers: Optimizers) -> float:
+    """The model optimizer's LR."""
+    return float(optimizers.model.param_groups[0]["lr"])
+

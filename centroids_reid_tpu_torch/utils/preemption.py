@@ -77,6 +77,11 @@ class PreemptionGuard:
             except (ValueError, TypeError):  # pragma: no cover
                 pass
 
+    @property
+    def signalled(self) -> bool:
+        """This process's local flag (no collective)."""
+        return self._flag
+
     def should_stop(self, process_count: Optional[int] = None) -> bool:
         """The stop decision, polled once per epoch. With more than one
         process (``process_count``, by default the process group's size)

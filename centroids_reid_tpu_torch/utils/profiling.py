@@ -4,7 +4,8 @@
   work (host and, where there is a card, device), written as a Chrome /
   Perfetto trace to ``<log_dir>/traces/trace.json``; ``fit`` wires it to
   ``TPU.PROFILE``;
-* ``annotate(name)``: a named range on that trace (``record_function``).
+* ``annotate(name)``: a named range on that trace (``record_function``);
+* ``step_marker(name, step)``: such a range named with the step number.
 """
 
 from __future__ import annotations
@@ -35,3 +36,8 @@ def profile_trace(log_dir: str, enabled: bool = True):
 def annotate(name: str):
     """Named region on the profiler timeline."""
     return torch.profiler.record_function(name)
+
+
+def step_marker(name: str, step: int):
+    """A range on the profiler timeline named ``<name>#<step>``."""
+    return torch.profiler.record_function(f"{name}#{step}")

@@ -28,12 +28,14 @@ bf16 autocast) and seeded random weights:
   ctl`` on a synthetic train split of Market-1501's size (751 pids, 12,936
   JPEGs), 64 x 4 images a step from the image bank on the card, 2 epochs
   with validation and checkpoints from a torchvision-layout backbone file,
-  a resume from ``checkpoint_epoch1``, ONLY_TEST of the best checkpoint;
-  the step's time, rate, memory, idle share, profiler split and share of
-  the bf16 peak; one full-width step on the card against the CPU. Then
-  ``TPU.NUM_GROUPS 2`` (two groups of 64 x 4 a step): one epoch through
-  the runner, the step's time, rate, memory, idle share and profiler
-  split, and one step of two groups on the card against the CPU. No hand-written kernel runs there;
+  a resume from ``checkpoint_epoch1``, ONLY_TEST of the best checkpoint,
+  one ``--mode base`` epoch (on the split's first 128 pids) with the
+  double test; the step's time, rate, memory, idle share, profiler split
+  and share of the bf16 peak; one full-width step on the card against the
+  CPU. Then ``TPU.NUM_GROUPS 2`` (two groups of 64 x 4 a step): one epoch
+  through the runner, the step's time, rate, memory, idle share and
+  profiler split, and one step of two groups on the card against the CPU.
+  No hand-written kernel runs there;
 * online serving (phase 9): the HTTP front built by
   ``inference.server.build_from_args`` over phase 4's gallery written as
   an index (k=100, dynamic batching, warm-up of the buckets 1-64), plain,
@@ -81,7 +83,26 @@ bf16 autocast) and seeded random weights:
   state, bit for bit with cuDNN deterministic, both timed in turns, with
   the flat all-reduce's device time; ``extract_embeddings_sharded``
   against ``extract_embeddings`` bit for bit; the stop collective. No
-  hand-written kernel runs there.
+  hand-written kernel runs there;
+* the fashion recipe (phase 15): ``configs/320_resnet50_ibn_a.yml`` with
+  the df1 script's overrides (ResNet50-IBN-a, 320x320, 12 x 4 images a
+  step, bf16) over a synthetic COCO-layout split it writes (100 train pair
+  ids, 50 query / gallery pair ids of 320x320 JPEGs): one CTL epoch through
+  ``engine.runner.main`` from a seeded backbone file in the reference
+  IBN-a layout, with validation, asynchronous checkpoints and the double
+  test; the step's time, rate, memory, profiler split and the IBN layers'
+  share with their layout copies; one full-width step of 4 x 4 images on
+  the card against the CPU (one mock slot);
+  ONLY_TEST with ``MODEL.KEEP_CAMID_CENTROIDS`` True and False against the
+  CPU's metrics; bf16 serving over a ``create_embeddings`` index of the
+  gallery at k=10 and k=100 (K1, K2, K3) against ``torch.topk`` over the
+  exact distances of the same embeddings; and the int8 IBN embed
+  (``TPU.INT8_EVAL``'s fold and calibration, then the fused engine: 23 K5
+  and 14 K6 launches a call at 80x80, 40x40 and 20x20), held against the
+  unfused engine (layer by layer and end to end) and printed beside the
+  bf16 embed, each K5 / K6 launch of a call against its plain version,
+  timed at 8 and 256 images with K5, K6, the fp64 convs and the
+  int8-domain InstanceNorm as device time.
 
 Times the embeds, the requests and the kernels (with each kernel's bound
 and, where one PyTorch call computes the same function, that call) with
@@ -167,8 +188,12 @@ INT8_KERNELS = ("kpass_topk", "scores_i8", "matmul_requant",
                 "conv3x3_requant")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def gpu_line() -> str:
@@ -539,11 +564,15 @@ def requant_inputs(gen, m: int, k: int, n: int, res_shape=None):
     return x, w, scale, bias, res, torch.tensor(0.4, device="cuda")
 
 
-def embed_requant_shapes(batch: int) -> dict:
-    """The K5 / K6 launches of one ResNet-50 (last stride 1) int8 embed
-    call of ``batch`` 256x128 images, from the trunk's block plan, in
-    launch order: {(kernel, dims, residual, ReLU): launches}; dims (M, K,
-    N) for K5 and (B, H, W, K, N) for K6."""
+def embed_requant_shapes(batch: int, name: str = "resnet50",
+                         hw: tuple = (64, 32)) -> dict:
+    """The K5 / K6 launches of one int8 embed call of ``batch`` images
+    through trunk ``name`` (last stride 1), whose layer 1 runs at ``hw``
+    (after the stem and the max pool: 64x32 for 256x128 images), from the
+    trunk's block plan, in launch order: {(kernel, dims, residual, ReLU):
+    launches}; dims (M, K, N) for K5 and (B, H, W, K, N) for K6. The IBN
+    conv1s of IBN-a's layers 1-3 run unfused (their InstanceNorm half
+    needs its own requantization point)."""
     from centroids_reid_tpu_torch.models.quantized import _block_plan
 
     out: dict = {}
@@ -551,9 +580,10 @@ def embed_requant_shapes(batch: int) -> dict:
     def add(*key):
         out[key] = out.get(key, 0) + 1
 
-    h, w, c = 64, 32, 64   # after the stem and the max pool
-    for _, _, planes, stride, has_ds, _ in _block_plan("resnet50", 1):
-        add("matmul_requant", (batch * h * w, c, planes), False, True)
+    (h, w), c = hw, 64
+    for _, _, planes, stride, has_ds, use_ibn in _block_plan(name, 1):
+        if not use_ibn:
+            add("matmul_requant", (batch * h * w, c, planes), False, True)
         if stride == 1:   # stride-2 3x3 convs run unfused
             add("conv3x3_requant", (batch, h, w, planes, planes), False, True)
         h, w = -(-h // stride), -(-w // stride)
@@ -772,7 +802,7 @@ def phase_serve(tmp: str) -> dict:
             if blobs is not None:
                 outs.append(("query_bytes", svc.query_bytes(blobs[sl])))
             for how, (d, idx, _) in outs:
-                require(d.shape == (REQUEST, k) and np.isfinite(d).all(),
+                require(d.shape == (REQUEST, svc.k) and np.isfinite(d).all(),
                         f"k={k} {how}: bad distances")
                 require((idx[:, 0] == rows[sl]).all(),
                         f"k={k} {how}: top-1 is not the image's own row")
@@ -846,7 +876,7 @@ def phase_serve_int8(state: dict) -> dict:
             if blobs is not None:
                 outs.append(("query_bytes", svc.query_bytes(blobs[sl])))
             for how, (d, idx, _) in outs:
-                require(d.shape == (REQUEST, k) and np.isfinite(d).all(),
+                require(d.shape == (REQUEST, svc.k) and np.isfinite(d).all(),
                         f"{name} {how}: bad distances")
                 require((idx[:, 0] == rows[sl]).all(),
                         f"{name} {how}: top-1 is not the image's own row")
@@ -1848,9 +1878,12 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
     training of ResNet-50 (256x128, 64 x 4 images a step, bf16) through
     ``engine.runner.main --mode ctl`` from a torchvision-layout backbone
     file, 2 epochs with validation and checkpoints, a resume from
-    ``checkpoint_epoch1`` to epoch 3, ONLY_TEST of the best checkpoint; then
-    the step's time, rate, memory, idle share, profiler split and share of
-    the bf16 peak, and one full-width step on the card against the CPU."""
+    ``checkpoint_epoch1`` to epoch 3, ONLY_TEST of the best checkpoint, one
+    ``--mode base`` epoch on the split's first DIST_TRAIN_PIDS pids and one
+    epoch at ``TPU.NUM_GROUPS 2``, each with the double test; then the
+    step's time, rate, memory, idle share, profiler split and share of the
+    bf16 peak, and one full-width step on the card against the CPU, at one
+    group and at two."""
     import os
 
     import torch
@@ -1924,9 +1957,10 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
             root, logs, "TEST.ONLY_TEST", "True", "MODEL.PRETRAIN_PATH",
             best))
         test_s = time.perf_counter() - t0
+        cut = _dist_cut(tmp, root, eval_root)
         t0 = time.perf_counter()
         base_out = runner.main(["--mode", "base", *_train_opts(
-            root, logs, "MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH",
+            cut, logs, "MODEL.PRETRAINED", "True", "MODEL.PRETRAIN_PATH",
             pth, "DATALOADER.USE_RESAMPLING", "True", "SOLVER.MAX_EPOCHS",
             "1", "SOLVER.EVAL_PERIOD", "100")])
         base_s = time.perf_counter() - t0
@@ -1991,8 +2025,9 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
             f"hand-written kernels launched while training: {launches}")
     log(f"runner: ctl 2 epochs + validation + double test {train_s:.1f} s, "
         f"resume at epoch 2 {resume_s:.1f} s, ONLY_TEST of {best} "
-        f"{test_s:.1f} s, base 1 epoch + double test {base_s:.1f} s, "
-        f"TPU.NUM_GROUPS {TRAIN_GROUPS} 1 epoch ({g2_records[0]['steps']} "
+        f"{test_s:.1f} s, base 1 epoch on the first {DIST_TRAIN_PIDS} pids "
+        f"({base_records[0]['steps']} steps) + double test on the first "
+        f"{DIST_EVAL_PIDS} {base_s:.1f} s, TPU.NUM_GROUPS {TRAIN_GROUPS} 1 epoch ({g2_records[0]['steps']} "
         f"steps of {TRAIN_GROUPS} x {TRAIN_P} x {TRAIN_K}) + double test "
         f"{g2_s:.1f} s (host clock, image bank decode included); state.pt "
         f"of checkpoint_epoch1 "
@@ -2025,16 +2060,17 @@ def phase_train(tmp: str, ckpt: str, eval_root: str) -> dict:
     timing["groups"] = time_train_step(cfg_g2, dataset, state_g2, banks[0])
     del state_g2
     timing["groups"].update(train_parity(cfg_g2, dataset, banks[0]))
-    timing.update(best=best, root=root, pth=pth)
+    timing.update(best=best, root=root, pth=pth, cut=cut)
     return timing
 
 
-def time_train_step(cfg, dataset, state, bank_np) -> dict:
-    """The bf16 train step of ``TPU.NUM_GROUPS`` groups (G) of 64 x 4
-    images over one epoch of the resident path: per-step CUDA-event times,
-    the epoch's wall time, peak memory, its device busy time, the
-    profiler's split of 5 steps, and the step's share of the bf16 dense
-    peak."""
+def time_train_step(cfg, dataset, state, bank_np,
+                    label: str = "ResNet-50 256x128 bf16") -> dict:
+    """The bf16 train step of ``TPU.NUM_GROUPS`` groups (G) of P x K
+    images (64 x 4 in phase 8) over one epoch of the resident path:
+    per-step CUDA-event times, the epoch's wall time, peak memory, its
+    device busy time, the profiler's split of 5 steps, and the step's
+    share of the bf16 dense peak."""
     import tempfile
 
     import torch
@@ -2088,8 +2124,9 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     med = float(np.median(step_ms[1:]))
     require(np.isfinite(m["loss"].item()), "timed epoch: loss not finite")
     gpu = gpu_line()
-    log(f"train step, ResNet-50 256x128 bf16, {images} images ({groups} "
-        f"group{'s' if groups > 1 else ''} of {TRAIN_P} x {TRAIN_K}), "
+    log(f"train step, {label}, {images} images ({groups} "
+        f"group{'s' if groups > 1 else ''} of {cfg.SOLVER.IMS_PER_BATCH} x "
+        f"{cfg.DATALOADER.NUM_INSTANCE}), "
         f"resident epoch of {n_steps} steps, {gpu}: median {med:.2f} ms a "
         f"step (CUDA events, first step excluded; min "
         f"{min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) = "
@@ -2100,8 +2137,11 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     out = {"step_ms": med, "images_per_s": images / med * 1e3,
            "epoch_wall_s": wall, "peak_bytes": peak, "steps": n_steps}
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's busy time over one epoch from a trace of device activity
+    # alone, which the host reads in a fraction of the time a trace of the
+    # host operators too would take
+    t_parse = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for t in range(n_steps):
             one(t)
@@ -2110,6 +2150,8 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False))
+    t_parse = time.perf_counter() - t_parse - wall_prof
+    require(busy_us > 0, "torch.profiler saw no device time in the epoch")
     busy = busy_us / 1e6
 
     with tempfile.TemporaryDirectory() as d:
@@ -2129,7 +2171,8 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     log(f"train epoch under torch.profiler, {gpu}: wall {wall_prof:.3f} s, "
         f"device busy {busy:.3f} s (kernels, copies and sets), idle share "
         f"{1 - busy / wall_prof:.4f}; against the unprofiled epoch's wall "
-        f"{wall:.3f} s: {1 - busy / wall:.4f}")
+        f"{wall:.3f} s: {1 - busy / wall:.4f} (device activity traced; "
+        f"the trace read in {t_parse:.1f} s of host time)")
     total = sum(split.values()) or 1.0
     log(f"device time of {PROFILED_STEPS} steps by phase (torch.profiler, "
         f"{gpu}, {total / 1e3:.1f} ms in all): " + ", ".join(
@@ -2144,11 +2187,12 @@ def time_train_step(cfg, dataset, state, bank_np) -> dict:
     return out
 
 
-def train_parity(cfg, dataset, bank_np) -> dict:
-    """One ctl step of ResNet-50 at full width (P=8 x K=4 at 256x128, one
-    mock a group, already augmented; with ``TPU.NUM_GROUPS`` G the 8 pids
-    split into G groups) from one state, on the card and on the CPU, in
-    fp32 with TF32 off and in float64.
+def train_parity(cfg, dataset, bank_np, pids_n: int = PARITY_P,
+                 label: str = "256x128") -> dict:
+    """One ctl step of the model at full width (``pids_n`` pids x K = 4,
+    P = 8 at 256x128 in phase 8, one mock a group, already augmented; with
+    ``TPU.NUM_GROUPS`` G the pids split into G groups) from one state, on
+    the card and on the CPU, in fp32 with TF32 off and in float64.
 
     * fp32: every loss term, card against CPU, to rtol 1e-4.
     * float64: every parameter's gradient, card against CPU, to a relative
@@ -2161,7 +2205,7 @@ def train_parity(cfg, dataset, bank_np) -> dict:
     * fp32 gradients, whole (every tensor in one vector): the card's
       relative L2 error against the float64 gradient at most 1e-3.
     Then the same batch in bf16 on the card: its total loss within 2e-2 of
-    fp32's."""
+    the CPU's fp32 loss (bf16 autocast rounds every conv's operands)."""
     import copy
     import os
 
@@ -2178,9 +2222,9 @@ def train_parity(cfg, dataset, bank_np) -> dict:
     cfg = cfg.clone()
     groups = FIT.num_groups(cfg)
     cfg.USE_MIXED_PRECISION = False
-    cfg.SOLVER.IMS_PER_BATCH = PARITY_P // groups
+    cfg.SOLVER.IMS_PER_BATCH = pids_n // groups
     pids = [pid for pid, recs in sorted(dataset.train_dict.items())
-            if len(recs) >= TRAIN_K][:PARITY_P]
+            if len(recs) >= TRAIN_K][:pids_n]
     rows = [r.idx for pid in pids for r in dataset.train_dict[pid][:TRAIN_K]]
     labels = torch.tensor([dataset.train[i].pid for i in rows]).view(
         groups, -1)
@@ -2263,10 +2307,13 @@ def train_parity(cfg, dataset, bank_np) -> dict:
         return (f"median {float(np.median(list(err.values()))):.2e}, worst "
                 f"{err[worst]:.2e} ({worst})")
 
-    bf16_rel = abs(mb["loss"] - mc["loss"]) / abs(mc["loss"])
-    require(bf16_rel <= 2e-2, f"bf16 loss {mb['loss']} vs fp32 {mc['loss']}")
+    bf16_rel = abs(mb["loss"] - mp["loss"]) / abs(mp["loss"])
+    require(bf16_rel <= 2e-2, f"bf16 loss {mb['loss']} vs the CPU's fp32 "
+            f"{mp['loss']}")
+    bf16_terms = ", ".join(f"{k} {mb[k]:.6f} vs {mp[k]:.6f}" for k in mp
+                           if k != "loss")
     log(f"full-width step parity ({groups} group{'s' if groups > 1 else ''}"
-        f" of {PARITY_P // groups} x {TRAIN_K} at 256x128, one mock a group, "
+        f" of {pids_n // groups} x {TRAIN_K} at {label}, one mock a group, "
         f"TF32 off, {gpu_line()}): fp32 loss terms within "
         f"{worst_loss:.2e} relative of the CPU's (loss {mc['loss']:.6f} vs "
         f"{mp['loss']:.6f}; tol 1e-4); float64 gradients, card vs CPU, "
@@ -2283,7 +2330,8 @@ def train_parity(cfg, dataset, bank_np) -> dict:
         f"tensor against float64: the card {count(card)} of {len(names)} "
         f"within 1e-3, {spread(card)}; the CPU {count(cpu)}, {spread(cpu)}; "
         f"card vs CPU {count(errs)}, {spread(errs)}; bf16 on the "
-        f"card: loss {mb['loss']:.6f}, {bf16_rel:.2e} from fp32 (tol 2e-2); "
+        f"card: loss {mb['loss']:.6f}, {bf16_rel:.2e} from the CPU's fp32 "
+        f"(tol 2e-2; terms, bf16 card vs fp32 CPU: {bf16_terms}); "
         f"step {tc:.2f} s on the card (first call), {tp:.2f} s on the CPU, "
         f"float64 {tc64:.2f} s on the card, {t64:.2f} s on the CPU")
     return {"parity_loss_rel": worst_loss, "parity_grad64_rel": err64[worst64],
@@ -2292,7 +2340,8 @@ def train_parity(cfg, dataset, bank_np) -> dict:
 
 # -------------------------------------------------------- phase 14 ------
 
-DIST_TRAIN_PIDS = 128    # the torchrun run: phase 8's first 128 identities
+DIST_TRAIN_PIDS = 128    # the torchrun run and phase 8's base epoch: phase
+                         # 8's first 128 identities
 DIST_EVAL_PIDS = 25      # and phase 5's first 25 (50 queries, 450 gallery)
 DIST_STEPS = 8           # steps timed per variant (first excluded)
 DIST_PROFILED = 3        # distributed steps under torch.profiler
@@ -2340,7 +2389,7 @@ def _torchrun(args: list, timeout: float) -> tuple:
     return proc.returncode, out, time.perf_counter() - t0
 
 
-def phase_dist(tmp: str, train: dict, eval_root: str) -> dict:
+def phase_dist(tmp: str, train: dict) -> dict:
     """Phase 14, processes over ``torch.distributed`` at world size 1 on the
     card (NCCL): ``torchrun --standalone --nproc_per_node 1 -m
     centroids_reid_tpu_torch.engine.runner`` trains ResNet-50 (256x128,
@@ -2378,7 +2427,7 @@ def phase_dist(tmp: str, train: dict, eval_root: str) -> dict:
 
     log("== phase 14: processes over torch.distributed (NCCL, world size 1)")
     gpu = gpu_line()
-    root = _dist_cut(tmp, train["root"], eval_root)
+    root = train["cut"]
     logs = os.path.join(tmp, "logs_dist")
     code, out, run_s = _torchrun(
         ["--standalone", "--nproc_per_node", "1", "-m",
@@ -2990,7 +3039,7 @@ def phase_serve_fast(state: dict, tmp: str, trained: str, eval_root: str,
         for k, svc in svcs.items():
             for r in range(0, len(jpegs), REQUEST):
                 d, idx, _ = svc.query_arrays(packed[r:r + REQUEST])
-                require(d.shape == (REQUEST, k) and np.isfinite(d).all()
+                require(d.shape == (REQUEST, svc.k) and np.isfinite(d).all()
                         and (idx[:, 0] == state["rows"][r:r + REQUEST]).all(),
                         f"fast ingest k={k}: top-1 is not the image's own row")
         torch.cuda.synchronize()
@@ -4546,6 +4595,729 @@ def phase_mesh_eval(gpu: str, stream: dict) -> None:
             f"{s10:.3f} s / {p10:.2f} GiB in phase 10 [{gpu}]")
 
 
+# -------------------------------------------------------- phase 15 ------
+
+FASHION_CONFIG = "configs/320_resnet50_ibn_a.yml"
+FASHION_HW = (320, 320)
+FASHION_TRAIN_PIDS = 100     # train pair ids of 4 to 12 images; the real
+FASHION_TRAIN_RANGE = (4, 12)  # DeepFashion and Street2Shop splits hold
+FASHION_EVAL_PIDS = 50       # tens of thousands: cut for the phase's time
+FASHION_QUERIES = 2          # query and gallery images per eval pair id
+FASHION_GALLERY = 4
+FASHION_P = 12               # the df1 script's SOLVER.IMS_PER_BATCH
+FASHION_PARITY_P = 4         # the card-vs-CPU step: 4 x 4 at 320x320
+FASHION_REQUESTS = 8         # 8-image requests against the gallery index
+IBN_LAYOUT_ITERS = 20
+# the fused engine's embeddings against the unfused engine's on the same
+# quantized tree, relative L2 per embedding: a quantum that the two
+# epilogues round apart (about 1 activation in 2e6) moved this seeded
+# trunk's embeddings by up to 0.0955 on an NVIDIA H100 80GB HBM3 at 700 W;
+# the trained checkpoint differs from run to run (cuDNN's backward is not
+# deterministic), and with it where the flips land
+INT8_FUSED_TOL = 0.15
+
+
+def _fashion_opts(root: str, json_train: str, logs: str, *extra) -> list:
+    """``configs/320_resnet50_ibn_a.yml`` with the overrides of
+    ``train_scripts/df1/train_ctl_model_l_r50ibn_df1.sh`` (one run)."""
+    import os
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          FASHION_CONFIG)
+    return ["--config_file", config, "DATASETS.NAMES", "df1",
+            "DATASETS.JSON_TRAIN_PATH", json_train, "DATASETS.ROOT_DIR",
+            root, "SOLVER.IMS_PER_BATCH", str(FASHION_P),
+            "TEST.IMS_PER_BATCH", "256", "SOLVER.BASE_LR", "1e-4",
+            "OUTPUT_DIR", logs, "DATALOADER.USE_RESAMPLING", "False",
+            "MODEL.KEEP_CAMID_CENTROIDS", "False",
+            "MODEL.USE_CENTROIDS", "True", "REPRODUCIBLE_NUM_RUNS", "1",
+            *extra]
+
+
+def _fashion_cfg(opts: list):
+    from centroids_reid_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(opts[1])
+    cfg.merge_from_list(opts[2:])
+    return cfg
+
+
+def _write_coco(root: str) -> str:
+    """A COCO-layout fashion split as the preparation tools lay it out:
+    ``train/``, ``query/`` and ``gallery/`` folders of 320x320 JPEGs and
+    ``train_320_320.json`` (``query_`` and ``gallery_`` beside it), pair ids
+    from 1000 up; each pair a seeded 8x8 block pattern, a brightness shift
+    and pixel noise per image. The query and gallery pairs are not train
+    pairs, as in the real splits. Returns the train JSON's path."""
+    import concurrent.futures
+    import json
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 21)
+    lo, hi = FASHION_TRAIN_RANGE
+    counts = {"train": {1000 + p: int(rng.randint(lo, hi + 1))
+                        for p in range(FASHION_TRAIN_PIDS)}}
+    held = range(1000 + FASHION_TRAIN_PIDS,
+                 1000 + FASHION_TRAIN_PIDS + FASHION_EVAL_PIDS)
+    counts["query"] = {p: FASHION_QUERIES for p in held}
+    counts["gallery"] = {p: FASHION_GALLERY for p in held}
+    patterns = rng.randint(0, 256, (FASHION_TRAIN_PIDS + FASHION_EVAL_PIDS,
+                                    8, 8, 3)).astype(np.float32)
+    h, w = FASHION_HW
+    image_id = 1
+
+    def save(img, path):
+        Image.fromarray(img).save(path, quality=90)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        jobs = []
+        for split in ("train", "query", "gallery"):
+            os.makedirs(os.path.join(root, split))
+            images, anns = [], []
+            for pair, n in counts[split].items():
+                block = np.kron(patterns[pair - 1000],
+                                np.ones((h // 8, w // 8, 1), np.float32))
+                imgs = (block + rng.randint(-30, 31, (n, 1, 1, 3))
+                        + rng.randint(-17, 18, (n,) + block.shape))
+                imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+                for i in range(n):
+                    name = f"{pair}_{i:02d}.jpg"
+                    jobs.append(pool.submit(save, imgs[i], os.path.join(
+                        root, split, name)))
+                    images.append({"id": image_id, "file_name": name,
+                                   "width": w, "height": h})
+                    anns.append({"id": image_id, "image_id": image_id,
+                                 "pair_id": pair, "source": "shop"
+                                 if split == "gallery" else "user",
+                                 "bbox": [0, 0, w, h], "category_id": 1})
+                    image_id += 1
+            with open(os.path.join(root, f"{split}_{h}_{w}.json"), "w") as f:
+                json.dump({"images": images, "annotations": anns}, f)
+        for job in jobs:
+            job.result()
+    return os.path.join(root, f"train_{h}_{w}.json")
+
+
+def _ibn_layout(model, shapes: list) -> dict:
+    """The 13 IBN layers of IBN-a's layers 1-3 in train mode under bf16
+    autocast, at the step's input shapes (channels_last bf16, as the trunk
+    gives them): forward + backward device time of all 13 a step (CUDA
+    events), and of their layout copies alone (the two halves made
+    contiguous, the concatenation, and the channels_last copy the next
+    conv makes of it, forward and backward); the dtype and memory format
+    of the IN and IBN outputs; and whether bf16 IN computes its statistics
+    in fp32 (its output against the fp32 IN of the same bf16 input)."""
+    import torch
+
+    from centroids_reid_tpu_torch.models.resnet import IBN
+
+    layers = [m for m in model.modules() if isinstance(m, IBN)]
+    require(len(layers) == len(shapes) == 13,
+            f"{len(layers)} IBN layers, {len(shapes)} input shapes")
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    xs = [torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=cl).requires_grad_(True)
+        for s in shapes]
+
+    def run(fn):
+        for m, x in zip(layers, xs):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                y = fn(m, x)
+            y.backward(torch.ones_like(y))
+
+    def copies(m, x):
+        a, b = torch.split(x, [m.half, x.shape[1] - m.half], dim=1)
+        return torch.cat([a.contiguous(), b.contiguous()], 1).contiguous(
+            memory_format=cl)
+
+    def ibn(m, x):   # the module, and the next conv's channels_last copy
+        return m(x).contiguous(memory_format=cl)
+
+    model.train()
+    ms = {name: cuda_ms(lambda fn=fn: run(fn), iters=IBN_LAYOUT_ITERS)
+          for name, fn in (("ibn", ibn), ("copies", copies))}
+    m, x = layers[0], xs[0].detach()
+    with torch.no_grad():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            a = x[:, :m.half]
+            y_in = m.IN(a.contiguous())
+            y = m(x)
+        ref = m.IN(a.float().contiguous()).to(torch.bfloat16)
+    ulp = (y_in.float() - ref.float()).abs() / ref.float().abs().clamp_min(
+        2.0 ** -126) * 2.0 ** 7
+    out = {"in_dtype": y_in.dtype, "ibn_dtype": y.dtype,
+           "ibn_channels_last": y.is_contiguous(memory_format=cl),
+           "in_vs_fp32_ulp": float(ulp.max()), **ms}
+    return out
+
+
+def _fashion_capture_shapes(model, x) -> list:
+    """The input shapes of every IBN layer in one forward of ``x``."""
+    import torch
+
+    from centroids_reid_tpu_torch.models.resnet import IBN
+
+    shapes, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, IBN):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, inp: shapes.append(tuple(inp[0].shape))))
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model.features(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+class _PairedInt8:
+    """Wraps an unfused ``_Int8Engine``: at every conv the fused kernels
+    could run, runs the fused path too on the same input and records how
+    many int8 activations differ and by how many quanta; returns the
+    unfused result, so the forward is the unfused engine's."""
+
+    def __init__(self, unfused, fused):
+        self.u, self.f = unfused, fused
+        self.diffs = []
+
+    def __getattr__(self, name):
+        return getattr(self.u, name)
+
+    def _compare(self, a, b, kind):
+        d = (a[0].int() - b[0].int()).abs()
+        self.diffs.append((kind, int((d > 0).sum()), d.numel(),
+                           int(d.max())))
+
+    def conv_act(self, rep, entry, stride, pad, qname, relu=True):
+        out = self.u.conv_act(rep, entry, stride, pad, qname, relu)
+        kind = self.f._kernel_eligible(entry, stride,
+                                       rep[0].shape[1] * rep[0].shape[2])
+        if kind is not None:
+            self._compare(self.f.conv_act(rep, entry, stride, pad, qname,
+                                          relu), out, kind)
+        return out
+
+    def conv_add_act(self, rep, entry, stride, pad, res_rep, qname):
+        out = self.u.conv_add_act(rep, entry, stride, pad, res_rep, qname)
+        kind = self.f._kernel_eligible(entry, stride,
+                                       rep[0].shape[1] * rep[0].shape[2])
+        if kind is not None:
+            self._compare(self.f.conv_add_act(rep, entry, stride, pad,
+                                              res_rep, qname), out, kind)
+        return out
+
+
+def _int8_device_split(qfn, x) -> dict:
+    """Device ms of one int8 embed call of ``x`` by part: K5 and K6 (by
+    kernel name), the exact fp64 convs (``_conv_int8``) and the int8-domain
+    InstanceNorm (each a ``record_function`` range; their kernels by
+    correlation to the range that launched them), the rest. Each part is
+    None (not measured) when three traces in a row lost kernel events."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from centroids_reid_tpu_torch.models import quantized as Q
+
+    conv, inorm = Q._conv_int8, Q._instance_norm_int8_domain
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    qfn(x)
+    torch.cuda.synchronize()
+    Q._conv_int8 = ranged("fp64_conv", conv)
+    Q._instance_norm_int8_domain = ranged("int8_in", inorm)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            trace = os.path.join(d, "trace.json")
+            for attempt in range(3):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    qfn(x)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(trace)
+                with open(trace) as f:
+                    events = json.load(f)["traceEvents"]
+                kernels = [e for e in events if e.get("cat") == "kernel"]
+                n_req = sum("requant_gemm_kernel" in e["name"]
+                            for e in kernels)
+                if n_req == 37 or attempt == 2:   # 23 K5 + 14 K6
+                    break
+                log("  int8 trace lost kernel events; tracing again")
+            split = _phase_device_us(trace, ("fp64_conv", "int8_in"))
+    finally:
+        Q._conv_int8, Q._instance_norm_int8_domain = conv, inorm
+    if n_req != 37:
+        return {"K5": None, "K6": None, "fp64 convs": None,
+                "int8-domain IN": None, "other": None, "traced": n_req}
+    k5 = sum(e["dur"] for e in kernels
+             if PROFILED["matmul_requant"] in e["name"])
+    k6 = sum(e["dur"] for e in kernels
+             if PROFILED["conv3x3_requant"] in e["name"])
+    return {"K5": k5 / 1e3, "K6": k6 / 1e3,
+            "fp64 convs": split["fp64_conv"] / 1e3,
+            "int8-domain IN": split["int8_in"] / 1e3,
+            "other": (split["other"] - k5 - k6) / 1e3, "traced": n_req}
+
+
+def phase_fashion(tmp: str) -> dict:
+    """Phase 15, the fashion recipe: ``configs/320_resnet50_ibn_a.yml``
+    with the df1 script's overrides over a synthetic COCO-layout split
+    (ResNet50-IBN-a, 320x320, P = 12 x K = 4, bf16): one CTL epoch through
+    ``engine.runner.main`` from a reference IBN-a backbone file, with
+    validation, checkpoints and the double test; the step's time, rate,
+    memory, profiler split and the IBN layers' share; one full-width step
+    on the card against the CPU; ONLY_TEST with ``KEEP_CAMID_CENTROIDS``
+    both ways against the CPU's metrics; bf16 serving over a
+    ``create_embeddings`` index of the gallery (K1, K2, K3); and the int8
+    IBN embed (``TPU.INT8_EVAL`` fold and calibration, then the fused
+    engine: K5 and K6 at 80x80, 40x40 and 20x20) against the unfused
+    engine and the bf16 embed, each K5 / K6 launch of a call against its
+    plain version, timed at 8 and 256 images. Returns the int8 serving
+    run's launch counts and the kernels' largest errors."""
+    import os
+
+    import torch
+
+    from centroids_reid_tpu_torch.data import EvalLoader, ImageStore
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.data.transforms import load_and_resize
+    from centroids_reid_tpu_torch.engine import checkpoint as CK
+    from centroids_reid_tpu_torch.engine import evaluate
+    from centroids_reid_tpu_torch.engine import fit as FIT
+    from centroids_reid_tpu_torch.engine import runner
+    from centroids_reid_tpu_torch.inference import (
+        RetrievalService,
+        create_embeddings,
+        load_inference_model,
+    )
+    from centroids_reid_tpu_torch.inference import service as service_mod
+    from centroids_reid_tpu_torch.inference.service import embed_query
+    from centroids_reid_tpu_torch.models import quantized as Q
+    from centroids_reid_tpu_torch.ops import int8_conv as C
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gpu = gpu_line()
+    log(f"== phase 15: the fashion recipe (ResNet50-IBN-a 320x320 over a "
+        f"COCO-layout split; {gpu})")
+    base = os.path.join(tmp, "fashion")
+    root = os.path.join(base, "images_320_320")
+    require("train" not in root, f"{root}: the query and gallery JSONs are "
+            f"named by replacing 'train' in the train JSON's path")
+    t0 = time.perf_counter()
+    json_train = _write_coco(root)
+    n_train = len(os.listdir(os.path.join(root, "train")))
+    log(f"synthetic COCO-layout split: {FASHION_TRAIN_PIDS} train pair ids "
+        f"({n_train} JPEGs, {FASHION_TRAIN_RANGE[0]} to "
+        f"{FASHION_TRAIN_RANGE[1]} a pair), {FASHION_EVAL_PIDS} query / "
+        f"gallery pair ids ({FASHION_QUERIES} and {FASHION_GALLERY} "
+        f"images each), 320x320, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the pretrained backbone: a seeded random ResNet50-IBN-a (BN
+    # statistics calibrated, residual gains 0.1, IN affine parameters drawn
+    # around their init, as trained ones are) in the reference IBN-a layout
+    # (bn1.IN.* / bn1.BN.* keys) with an ImageNet fc head. At the init's IN
+    # bias of exactly 0, a mock slot's constant maps leave IN as 0 plus
+    # rounding, and the ReLU after it masks by the rounding's sign: the IN
+    # bias gradient is then decided by rounding, on any device
+    logs = os.path.join(base, "logs")
+    opts = _fashion_opts(root, json_train, logs)
+    cfg = _fashion_cfg(opts)
+    require(cfg.MODEL.NAME == "resnet50_ibn_a"
+            and tuple(cfg.INPUT.SIZE_TRAIN) == FASHION_HW
+            and cfg.USE_MIXED_PRECISION and cfg.DATALOADER.NUM_INSTANCE == 4,
+            "unexpected fashion config")
+    dataset = init_dataset("df1", cfg)
+    calib = np.stack([load_and_resize(r.path, FASHION_HW)
+                      for r in dataset.train[:64]])
+    model0 = _random_reid_model(cfg, calib)
+    backbone = {k[len("backbone."):]: v for k, v in
+                model0.state_dict().items() if k.startswith("backbone.")}
+    gen = torch.Generator().manual_seed(SEED + 23)
+    for k in [k for k in backbone if ".IN." in k]:
+        draw = (torch.rand if k.endswith("weight") else torch.randn)(
+            backbone[k].shape, generator=gen)
+        backbone[k] = draw + 0.5 if k.endswith("weight") else draw * 0.1
+    require("layer1.0.bn1.IN.weight" in backbone
+            and "layer3.5.bn1.BN.running_var" in backbone,
+            "the backbone is not in the IBN-a layout")
+    backbone["fc.weight"] = torch.randn((1000, DIM), generator=gen) * 0.01
+    backbone["fc.bias"] = torch.zeros(1000)
+    pth = os.path.join(base, "r50_ibn_a_layout.pth")
+    torch.save(backbone, pth)
+    cfg.MODEL.PRETRAIN_PATH = pth
+    del model0
+
+    # ---- training through the runner
+    banks = []
+    build_bank = FIT.build_image_bank
+
+    def keep_bank(*args, **kw):
+        banks[:] = [build_bank(*args, **kw)]
+        return banks[0]
+
+    FIT.build_image_bank = keep_bank
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.main(["--mode", "ctl", *opts, "MODEL.PRETRAIN_PATH",
+                           pth, "SOLVER.MAX_EPOCHS", "1",
+                           "SOLVER.EVAL_PERIOD", "1"])
+        train_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        FIT.build_image_bank = build_bank
+    version0 = os.path.join(logs, "train_ctl_model", "version_0")
+    records = _epoch_records(version0)
+    keys = ("epoch_train_loss", "query_triplet", "query_xent",
+            "query_center", "centroid_triplet", "epoch_dist_ap",
+            "epoch_dist_an", "l2_mean_centroid")
+    require([r["step"] for r in records] == [0], "fashion: epochs trained")
+    r = records[0]
+    require(all(np.isfinite(r[k]) for k in keys),
+            f"fashion epoch 0: a loss is not finite: {r}")
+    best_dir = os.path.join(version0, "checkpoints")
+    require(os.listdir(best_dir) == ["epoch=0"],
+            f"fashion best checkpoints: {os.listdir(best_dir)}")
+    best = os.path.join(best_dir, "epoch=0")
+    ring = os.path.join(version0, "auto_checkpoints", "checkpoint_epoch0")
+    require(sorted(os.listdir(ring)) == ["config.yml", "state.pt"],
+            f"fashion ring checkpoint {ring}")
+    names = [f"test_{tag}_{m}" for tag in ("centroids", "plain")
+             for m in ("mAP", "Top-1", "Top-5", "Top-10")]
+    require(all(n in out and np.isfinite(out[n]) for n in names),
+            f"fashion: metrics missing from {sorted(out)}")
+    require(not any(launches.values()),
+            f"hand-written kernels launched while training: {launches}")
+    log(f"fashion epoch 0 ({int(r['steps'])} steps of {FASHION_P} x 4, "
+        f"{r['epoch_time_s']:.2f} s): " + ", ".join(
+            f"{k} {r[k]:.5f}" for k in keys))
+    log(f"runner (ctl, 1 epoch + validation + checkpoints + double test): "
+        f"{train_s:.1f} s (host clock, image bank decode included); double "
+        f"test: " + ", ".join(f"{n[5:]} {out[n]:.4f}" for n in names)
+        + f"; the asynchronous checkpoints committed (best {best}, ring "
+        f"{os.path.basename(ring)}); kernel launches while training: "
+        f"{launches}")
+
+    # ---- the step: time, memory, split, IBN share; parity with the CPU
+    state = FIT.build_model_and_state(cfg, dataset, seed=1, device="cuda")
+    CK.restore_state(ring, state)
+    timing = time_train_step(cfg, dataset, state, banks[0],
+                             label="ResNet50-IBN-a 320x320 bf16")
+    shapes = _fashion_capture_shapes(state.model, torch.zeros(
+        (FASHION_P * 4, 3) + FASHION_HW, device="cuda").to(
+        memory_format=torch.channels_last))
+    lay = _ibn_layout(state.model, shapes)
+    log(f"IBN layers (13, layers 1-3) in train mode at the step's shapes "
+        f"({shapes[0]} ... {shapes[-1]}), forward + backward, {gpu}: "
+        f"{lay['ibn']:.3f} ms a step = {lay['ibn'] / timing['step_ms']:.4f} "
+        f"of the median step; of it their layout copies (halves made "
+        f"contiguous, concatenation, the next conv's channels_last copy) "
+        f"{lay['copies']:.3f} ms = {lay['copies'] / timing['step_ms']:.4f} "
+        f"of the step; under bf16 autocast IN gives {lay['in_dtype']} and "
+        f"IBN {lay['ibn_dtype']} (channels_last out: "
+        f"{lay['ibn_channels_last']}); bf16 IN against fp32 IN of the same "
+        f"bf16 input: {lay['in_vs_fp32_ulp']:.2f} bf16 ulp at most")
+    del state
+    torch.cuda.empty_cache()
+    parity = train_parity(cfg, dataset, banks[0], pids_n=FASHION_PARITY_P,
+                          label="320x320")
+    timing.update(parity, ibn_ms=lay["ibn"], ibn_copies_ms=lay["copies"])
+
+    # ---- ONLY_TEST with KEEP_CAMID_CENTROIDS both ways, against the CPU
+    captured = []
+    compute = evaluate.compute_reid_metrics
+
+    def capture(cfg_, emb, pids, camids, nq, use_centroids, **kw):
+        res = compute(cfg_, emb, pids, camids, nq, use_centroids, **kw)
+        m = res[0] if kw.get("return_evaluator") else res
+        captured.append((cfg_, emb, pids, camids, nq, use_centroids, m))
+        return res
+
+    n_val = FASHION_EVAL_PIDS * (FASHION_QUERIES + FASHION_GALLERY)
+    evaluate.compute_reid_metrics = capture
+    try:
+        for keep in (True, False):
+            captured.clear()
+            t0 = time.perf_counter()
+            res = runner.main(_fashion_opts(
+                root, json_train, os.path.join(base, f"logs_test_{keep}"),
+                "TEST.ONLY_TEST", "True", "MODEL.PRETRAIN_PATH", best,
+                "MODEL.KEEP_CAMID_CENTROIDS", str(keep)))
+            secs = time.perf_counter() - t0
+            require(len(captured) == 2, "fashion ONLY_TEST: two evaluations")
+            for cfg_, emb, pids, camids, nq, cent, m in captured:
+                require(emb.shape == (n_val, DIM) and np.isfinite(emb).all(),
+                        f"fashion ONLY_TEST: bad embeddings {emb.shape}")
+                ref = compute(cfg_, emb, pids, camids, nq, cent,
+                              device="cpu")
+                tag = "centroids" if cent else "plain"
+                require(np.array_equal(m.all_topk, ref.all_topk)
+                        and np.array_equal(m.cmc, ref.cmc)
+                        and abs(m.mAP - ref.mAP) <= 1e-6,
+                        f"fashion ONLY_TEST keep={keep} {tag}: card metrics "
+                        f"differ from the CPU's")
+                require(res[f"test_{tag}_mAP"] == m.mAP,
+                        f"fashion ONLY_TEST {tag}: runner output")
+                log(f"fashion ONLY_TEST, KEEP_CAMID_CENTROIDS {keep}, {tag}: "
+                    f"mAP {m.mAP:.6f}, R1 {m.all_topk[0]:.6f} (CPU from the "
+                    f"same embeddings: mAP {ref.mAP:.6f}, CMC and top-k "
+                    f"equal), {secs:.2f} s for both modes")
+    finally:
+        evaluate.compute_reid_metrics = compute
+
+    # ---- bf16 serving over a create_embeddings index of the gallery
+    gallery_dir = os.path.join(root, "gallery")
+    t0 = time.perf_counter()
+    emb, paths = create_embeddings.main([
+        "--config_file", opts[1], "MODEL.PRETRAIN_PATH", best,
+        "DATASETS.ROOT_DIR", gallery_dir,
+        "OUTPUT_DIR", os.path.join(base, "index")])
+    n_gal = FASHION_EVAL_PIDS * FASHION_GALLERY
+    require(emb.shape == (n_gal, DIM) and np.isfinite(emb).all(),
+            f"fashion index: {emb.shape}")
+    log(f"create_embeddings of the gallery: {emb.shape[0]} x {emb.shape[1]} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    scfg = _fashion_cfg(opts + ["MODEL.PRETRAIN_PATH", best])
+    model = load_inference_model(scfg, "cuda")
+    n_req = FASHION_REQUESTS * REQUEST
+    imgs = np.stack([load_and_resize(str(p), FASHION_HW)
+                     for p in paths[:n_req]])
+    services = {k: RetrievalService(scfg, emb, paths, k=k, device="cuda",
+                                    model=model) for k in (10, 100)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    answers = {}
+    with _recording(service_mod, "embed_query") as emb_calls:
+        for k, svc in services.items():
+            for s in range(0, n_req, REQUEST):
+                d, idx, _ = svc.query_arrays(imgs[s:s + REQUEST])
+                require(d.shape == (REQUEST, svc.k) and np.isfinite(d).all()
+                        and (idx[:, 0] == np.arange(s, s + REQUEST)).all(),
+                        f"fashion serving k={k}: top-1 is not the own row")
+                answers[(k, s)] = (d, idx)
+        torch.cuda.synchronize()
+        served = launch_counts()
+    for name in BF16_KERNELS:
+        require(served[name] > 0, f"fashion serving launched no {name}")
+    # every answer against torch.topk over the exact distances of the
+    # embeddings the service computed for that request to the rows it
+    # holds: its distances are those rows' exact distances, its rows are
+    # distinct, and at each rank its distance is the exact k-th smallest's
+    # up to what selection on bf16 can swap: a score q.g of bf16 inputs
+    # summed in fp32 is off by at most d = (2^-7 + 2^-12) |q| |g|, its bf16
+    # key (k=10) by 2^-8 of its size, so two rows trade places only within
+    # twice the score's error, 2 x (2^-8 (|score| + 2d) + 2d), per query
+    require(len(emb_calls) == len(answers),
+            f"fashion serving: {len(emb_calls)} embeds for {len(answers)} "
+            f"requests")
+    g64 = services[10]._gf32[:n_gal].double()
+    gn64 = (g64 * g64).sum(1)
+    worst = {"exact": 0.0, "excess": 0.0, "margin": np.inf}
+    same = {10: 0, 100: 0}
+    for ((k, s), (d, idx)), (_, _, e) in zip(answers.items(), emb_calls):
+        e64 = e.double()
+        score = gn64[None] - 2 * e64 @ g64.T
+        full = (e64 * e64).sum(1)[:, None] + score
+        ref_d, ref_i = torch.topk(full, k, dim=1, largest=False)
+        err = 2 * (2.0 ** -7 + 2.0 ** -12) * e64.norm(dim=1) \
+            * gn64.sqrt().max()
+        bound = 2 * (2.0 ** -8 * (score.abs().max(1).values + err) + err)
+        ti = torch.from_numpy(idx).cuda()
+        td = torch.from_numpy(d).cuda().double()
+        exact = (td - torch.gather(full, 1, ti)).abs().max().item()
+        excess = (td - ref_d).max().item()
+        below = (ref_d - td).max().item()
+        require(all(len(set(r)) == k for r in idx.tolist()),
+                f"fashion serving k={k}: a row returned twice")
+        require(exact <= MESH_TOL and below <= MESH_TOL,
+                f"fashion serving k={k}: distances {exact:.2e} from the "
+                f"exact ones, {below:.2e} below the exact top-k")
+        require(((td - ref_d) <= bound[:, None]).all(),
+                f"fashion serving k={k}: a distance exceeds the exact top-k "
+                f"beyond the bf16 selection bound")
+        worst["exact"] = max(worst["exact"], exact)
+        worst["excess"] = max(worst["excess"], excess)
+        worst["margin"] = min(worst["margin"], bound.min().item())
+        same[k] += int((ti == ref_i).all(dim=1).sum())
+    log(f"fashion serving against torch.topk over the exact (float64) "
+        f"distances of the same embeddings, {FASHION_REQUESTS} requests at "
+        f"each k: distances exact within {worst['exact']:.2e} (tol "
+        f"{MESH_TOL}), rows distinct, at each rank at most "
+        f"{worst['excess']:.2e} above the exact k-th smallest (bf16 "
+        f"selection bound at least {worst['margin']:.2e}, per query); "
+        f"indices equal outright in {same[10]} of {n_req} rows at k=10, "
+        f"{same[100]} of {n_req} at k=100")
+    for k, svc in services.items():
+        lat = request_ms(svc, imgs[:REQUEST], 20)
+        busy = device_busy_ms(lambda svc=svc: svc.query_arrays(
+            imgs[:REQUEST]), 10)
+        log(f"fashion serving, bf16, k={k}, {REQUEST}-image requests of "
+            f"320x320 against the {n_gal}-row index, {gpu}: p50 "
+            f"{np.median(lat):.3f} ms (host clock, 20 requests), device "
+            f"busy " + (f"{busy:.4f} ms" if busy else "not measured")
+            + " a request")
+    log(f"fashion serving: every top-1 of {2 * FASHION_REQUESTS} requests "
+        f"is the image's own row; kernel launches (k=10 and k=100, "
+        f"{FASHION_REQUESTS} requests each): {served}")
+
+    # ---- the int8 IBN embed: TPU.INT8_EVAL's fold and calibration, then
+    # the fused engine against the unfused one on the same quantized tree
+    qcfg = scfg.clone()
+    qcfg.TPU.INT8_EVAL = True
+    store = ImageStore(FASHION_HW, True)
+    t0 = time.perf_counter()
+    q = Q.quantize_for_serving(qcfg, model, dataset.val, store)
+    torch.cuda.synchronize()
+    require(any(k.endswith(".pre") for k in q.qtree["act_scales"]),
+            "the IBN layers have no .pre requantization point")
+    log(f"int8 fold + calibration on the trained checkpoint "
+        f"({len(q.qtree['act_scales'])} activation scales, 13 of them the "
+        f"IBN layers' .pre): {time.perf_counter() - t0:.2f} s")
+    plan, stem_relu = q._static["plan"], q._static["stem_relu"]
+    fused = Q.QuantizedEmbed(q.qtree, plan, stem_relu, use_pallas=True,
+                             acc_dtype=torch.int32)
+    unfused = Q.QuantizedEmbed(q.qtree, plan, stem_relu, use_pallas=False,
+                               acc_dtype=torch.int32)
+    x_all = torch.from_numpy(imgs).cuda()
+    dtype = torch.bfloat16 if scfg.USE_MIXED_PRECISION else torch.float32
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        e_f = torch.cat([fused(x_all[s:s + REQUEST])
+                         for s in range(0, n_req, REQUEST)])
+        torch.cuda.synchronize()
+        int8_launches = launch_counts()
+        e_u = torch.cat([unfused(x_all[s:s + REQUEST])
+                         for s in range(0, n_req, REQUEST)])
+        e_b = torch.cat([embed_query(model, x_all[s:s + REQUEST],
+                                     scfg.INPUT.PIXEL_MEAN,
+                                     scfg.INPUT.PIXEL_STD, dtype,
+                                     normalize=True)
+                         for s in range(0, n_req, REQUEST)])
+    calls = n_req // REQUEST
+    expect = embed_requant_shapes(REQUEST, "resnet50_ibn_a", (80, 80))
+    per_call = {n: sum(c for (name, *_), c in expect.items() if name == n)
+                for n in ("matmul_requant", "conv3x3_requant")}
+    require(per_call == {"matmul_requant": 23, "conv3x3_requant": 14},
+            f"IBN-a plan: {per_call}")
+    require(all(int8_launches[n] == c * calls for n, c in per_call.items()),
+            f"int8 IBN embed launches over {calls} calls: {int8_launches}")
+    require(torch.isfinite(e_f).all() and torch.isfinite(e_u).all(),
+            "int8 IBN embeddings not finite")
+    rel = ((e_f - e_u).norm(dim=1) / e_u.norm(dim=1)).max().item()
+    cos_fu = torch.nn.functional.cosine_similarity(e_f, e_u).min().item()
+    ef_n = e_f / e_f.norm(dim=1, keepdim=True)
+    cos_b = (ef_n * e_b).sum(dim=1)
+
+    # the same rounding question layer by layer: at every fused conv of
+    # the unfused forward, the fused path on the same int8 input
+    f = dict(q.qtree)
+    f.update(q._static)
+    paired = _PairedInt8(Q._Int8Engine(f, False, torch.int32),
+                         Q._Int8Engine(f, True, torch.int32))
+    with torch.inference_mode():
+        Q._backbone_forward(paired, f, x_all[:REQUEST])
+    changed = sum(d[1] for d in paired.diffs)
+    total = sum(d[2] for d in paired.diffs)
+    worst_q = max(d[3] for d in paired.diffs)
+    require(len(paired.diffs) == 37, f"{len(paired.diffs)} fused convs")
+    require(worst_q <= 1, f"a fused conv differs from the unfused engine "
+            f"by {worst_q} quanta")
+    require(changed <= 1e-2 * total, f"{changed} of {total} activations "
+            f"differ between the fused and unfused convs")
+    require(rel <= INT8_FUSED_TOL, f"int8 IBN embed, fused vs unfused: "
+            f"relative L2 {rel:.3e} (tol {INT8_FUSED_TOL})")
+    log(f"int8 IBN embed, fused engine (K5, K6) against the unfused engine "
+        f"(exact fp64 convs, then a separate requantization) on the same "
+        f"quantized tree, {n_req} images, {gpu}: relative L2 at most "
+        f"{rel:.3e} (tol {INT8_FUSED_TOL}), cosine at least {cos_fu:.6f}; "
+        f"layer by layer, on the same int8 input: {changed} of {total} "
+        f"activations ({changed / total:.2e}) differ, by at most {worst_q} "
+        f"quantum (the epilogue rounds scale x acc + bias once where the "
+        f"unfused engine rounds acc x s_in x w_scale + b, then divides by "
+        f"s_out)")
+    log(f"int8 vs bf16 IBN embedding cosine over the {n_req} images: min "
+        f"{cos_b.min().item():.6f}, mean {cos_b.mean().item():.6f} (printed, "
+        f"not held: after one epoch these seeded weights sit near the JAX "
+        f"package's gate, min > 0.99 against fp32 in tests/test_quantized.py, "
+        f"on either side of it from run to run)")
+
+    # each K5 / K6 launch of one call against its plain version
+    mm, conv = C.matmul_requant, C.conv3x3_requant
+    errs = {"matmul_requant": 0, "conv3x3_requant": 0}
+    seen = {}
+
+    def checked(name, kern, plain, key):
+        def run(*args, **kw):
+            got = kern(*args, **kw)
+            kw.pop("w_packed", None)
+            ref = plain(*args, **kw)
+            require(torch.equal(got, ref), f"{name} {key(*args)} differs "
+                    f"from its plain version in the IBN embed")
+            errs[name] = max(errs[name], int((got.int() - ref.int()).abs()
+                                             .max()))
+            seen[(name, key(*args))] = seen.get((name, key(*args)), 0) + 1
+            return got
+        return run
+
+    C.matmul_requant = checked(
+        "matmul_requant", mm, C.matmul_requant_plain,
+        lambda x, w, *a, **k: (x.shape[0], x.shape[1], w.shape[1]))
+    C.conv3x3_requant = checked(
+        "conv3x3_requant", conv, C.conv3x3_requant_plain,
+        lambda x, w, *a, **k: tuple(x.shape) + (w.shape[3],))
+    try:
+        with torch.inference_mode():
+            fused(x_all[:REQUEST])
+    finally:
+        C.matmul_requant, C.conv3x3_requant = mm, conv
+    want = {}
+    for (n, dims, _, _), c in expect.items():
+        want[(n, dims)] = want.get((n, dims), 0) + c
+    require(seen == want, f"K5/K6 shapes of the IBN embed: "
+            f"{sorted(seen.items())} against the plan's "
+            f"{sorted(want.items())}")
+    log("int8 IBN embed, one call of 8 images: every K5 / K6 launch equals "
+        "its plain version bit for bit on its own inputs: " + "; ".join(
+            f"{'K5' if n == 'matmul_requant' else 'K6'} {dims} x{c}"
+            for (n, dims), c in sorted(seen.items())))
+
+    # timings: the call at 8 and 256 images, split by part; per shape
+    x256 = torch.cat([x_all] * (256 // n_req))
+    for batch in (REQUEST, 256):
+        xb = x256[:batch]
+        with torch.inference_mode():
+            ms8 = cuda_ms(lambda: fused(xb), iters=5, warmup=2)
+            msb = cuda_ms(lambda: embed_query(
+                model, xb, scfg.INPUT.PIXEL_MEAN, scfg.INPUT.PIXEL_STD,
+                dtype, normalize=True), iters=5, warmup=2)
+            split = _int8_device_split(fused, xb)
+        log(f"int8 IBN embed, {batch} images of 320x320, {gpu}: {ms8:.3f} "
+            f"ms a call (CUDA events; bf16 embed {msb:.3f} ms); device time "
+            f"of one call (torch.profiler, {split['traced']} K5/K6 launches "
+            f"traced): " + ", ".join(
+                f"{k} " + ("not measured" if v is None else f"{v:.3f} ms")
+                for k, v in split.items() if k != "traced"))
+    with torch.inference_mode():   # per shape, beside torch._int_mm
+        phase_timing_requant(fused, x256[:REQUEST])
+    return {"launches": int8_launches, "errs": errs, "timing": timing}
+
+
 def main() -> int:
     import torch
 
@@ -4586,22 +5358,28 @@ def main() -> int:
         timed("11", phase_artifacts, state, int8_state, tmp)
         timed("13", phase_mesh, state, int8_state, tmp, eval_state["root"],
               gpu_line())
-        timed("14", phase_dist, tmp, train, eval_state["root"])
+        timed("14", phase_dist, tmp, train)
+        fashion = timed("15", phase_fashion, tmp)
     torch.cuda.empty_cache()
     stream = timed("10", phase_eval_stream, gpu_line())
     timed("12", phase_orbax, gpu_line())
     timed("13b", phase_mesh_eval, gpu_line(), stream)
     # each kernel's launches from the path it was read on: K1 and K2 the
-    # bf16 serving path, K2u its entry point, K3 get_similar, K4, K5 and K6
-    # the int8 serving path
+    # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
+    # serving path, K5 and K6 the int8 serving path and phase 15's int8
+    # IBN embed (80x80, 40x40 and 20x20 feature maps)
+    for name, err in fashion["errs"].items():
+        errs[name] = max(errs[name], err)
     launches = {
         "scores": state["launches"]["scores"],
         "stream_topk": state["launches"]["stream_topk"],
         "stream_topk_unpacked": k2u_launches["stream_topk_unpacked"],
         "kpass_topk": cli_launches["kpass_topk"],
         "scores_i8": int8_state["launches"]["scores_i8"],
-        "matmul_requant": int8_state["launches"]["matmul_requant"],
-        "conv3x3_requant": int8_state["launches"]["conv3x3_requant"],
+        "matmul_requant": int8_state["launches"]["matmul_requant"]
+        + fashion["launches"]["matmul_requant"],
+        "conv3x3_requant": int8_state["launches"]["conv3x3_requant"]
+        + fashion["launches"]["conv3x3_requant"],
     }
     for name, embed in (("bf16", "cuDNN"), ("int8", "unfused int8 convs")):
         log(f"{name} evaluation kernel launches (no hand-written kernel: "

@@ -13,7 +13,8 @@ Tasks: ``step`` (one train step of this rank's groups from a saved state
 and batch), ``fit`` (``engine.fit.fit``, optionally with a SIGTERM to
 rank 0 at the start of an epoch), ``extract`` (the sharded extraction
 against the full one), ``only_test`` (``runner.run_single`` with
-``TEST.ONLY_TEST``).
+``TEST.ONLY_TEST``), ``checkpoint`` (a ``CheckpointManager(use_async=True)``
+saving two bests and two ring entries).
 """
 
 import json
@@ -195,8 +196,44 @@ def task_only_test(spec) -> dict:
     return {f"metric.{k}": v for k, v in out.items()}
 
 
+def task_checkpoint(spec) -> dict:
+    """Two best and two ring saves of a small train state (a linear layer,
+    its centers and optimizers) through ``CheckpointManager(use_async=True)``
+    into ``log_dir``: whether the manager writes from a thread, whether
+    each save had committed and whether the previous entry was gone when it
+    returned, and what is left after ``close()``."""
+    import numpy as np
+    import torch
+
+    from centroids_reid_tpu_torch.engine.checkpoint import CheckpointManager
+    from centroids_reid_tpu_torch.engine.state import TrainState
+    from centroids_reid_tpu_torch.solver import build_optimizers
+
+    cfg = _cfg(spec["opts"])
+    torch.manual_seed(0)
+    model = torch.nn.Linear(8, 4)
+    centers = torch.nn.Parameter(torch.zeros(3, 4))
+    state = TrainState(model, centers, build_optimizers(model, centers, cfg))
+    mgr = CheckpointManager(spec["log_dir"], n_saved=1, use_async=True)
+    committed, pruned = [], []
+    for epoch, metric in ((0, 0.5), (1, 0.7)):
+        mgr.save_if_best(epoch, state, metric)
+        committed.append(os.path.isfile(os.path.join(
+            mgr.best_dir, f"epoch={epoch}", "state.pt")))
+        pruned.append(os.listdir(mgr.best_dir) == [f"epoch={epoch}"])
+        path = mgr.save_periodic(epoch, state)
+        committed.append(os.path.isfile(os.path.join(path, "state.pt")))
+        pruned.append(os.listdir(mgr.auto_dir)
+                      == [f"checkpoint_epoch{epoch}"])
+    mgr.close()
+    return {"async": np.asarray(mgr._async),
+            "committed": np.asarray(committed), "pruned": np.asarray(pruned),
+            "best": np.asarray(sorted(os.listdir(mgr.best_dir))),
+            "ring": np.asarray(sorted(os.listdir(mgr.auto_dir)))}
+
+
 TASKS = {"step": task_step, "fit": task_fit, "extract": task_extract,
-         "only_test": task_only_test}
+         "only_test": task_only_test, "checkpoint": task_checkpoint}
 
 
 class _Block:

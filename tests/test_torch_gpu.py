@@ -431,6 +431,45 @@ def test_conv3x3_requant_embed_shapes_exact(cuda, b, h, w, k):
     assert C.LAUNCHES["conv3x3_requant"] == 1
 
 
+# (M, K, N, residual, ReLU): the 10 K5 shapes of one ResNet50-IBN-a embed
+# call at 8 images of 320x320 (23 launches; the IBN conv1s of layers 1-3
+# run unfused): feature maps of 80x80, 40x40 and 20x20
+K5_IBN320 = [
+    (51200, 64, 256, False, False), (51200, 64, 256, True, True),
+    (12800, 256, 512, False, False), (12800, 128, 512, True, True),
+    (3200, 512, 1024, False, False), (3200, 256, 1024, True, True),
+    (3200, 1024, 512, False, True), (3200, 1024, 2048, False, False),
+    (3200, 512, 2048, True, True), (3200, 2048, 512, False, True),
+]
+# (B, H, W, K -> N = K): its 4 K6 shapes (14 launches); no width divides
+# the kernel's 128-row tile, so every one loads rows through the 2D map
+# and zeroes the padding rows in shared memory
+K6_IBN320 = [(8, 80, 80, 64), (8, 40, 40, 128), (8, 20, 20, 256),
+             (8, 20, 20, 512)]
+
+
+@pytest.mark.parametrize("m,k,n,with_res,relu", K5_IBN320 + [
+    (1638400, 64, 256, True, True),    # batch 256: layer 1's conv3
+])
+def test_matmul_requant_ibn320_shapes_exact(cuda, m, k, n, with_res, relu):
+    """K5 at every shape of a batch-8 IBN-a 320x320 embed call and one of
+    batch 256: bit for bit."""
+    C.reset_launch_counts()
+    got, ref = _k5(cuda, m, k, n, with_res, relu, k + n + 1)
+    assert torch.equal(got, ref)
+    assert C.LAUNCHES["matmul_requant"] == 1
+
+
+@pytest.mark.parametrize("b,h,w,k", K6_IBN320 + [(256, 80, 80, 64)])
+def test_conv3x3_requant_ibn320_shapes_exact(cuda, b, h, w, k):
+    """K6 at every shape of a batch-8 IBN-a 320x320 embed call (ReLU, no
+    residual) and layer 1's at batch 256: bit for bit."""
+    C.reset_launch_counts()
+    got, ref = _k6(cuda, b, h, w, k, k, False, True, b + h + k)
+    assert torch.equal(got, ref)
+    assert C.LAUNCHES["conv3x3_requant"] == 1
+
+
 def _forced_splits(monkeypatch, splits):
     """Run the wrappers at a given split count, or the most the launch
     takes ("max"; at most that count otherwise), with the plan's tile

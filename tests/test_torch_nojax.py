@@ -9,7 +9,10 @@ query on a gallery sharded over a 4-shard CPU mesh and a sharded ``R1mAP``,
 the serving artifacts (an embedder and a retriever exported, saved, loaded and
 queried, and ``python -m ...inference.export_model`` run), and
 importing ``chip_smoke`` load neither jax nor flax nor optax nor orbax nor
-any module of ``centroids_reid_tpu``; an orbax checkpoint of the JAX
+any module of ``centroids_reid_tpu``; nor does the fashion recipe
+(``configs/320_resnet50_ibn_a.yml``: ResNet50-IBN-a over a COCO-layout
+``df1`` split, one epoch, ONLY_TEST, ``evaluate_on_train`` and the int8
+IBN embed); an orbax checkpoint of the JAX
 package loads, serves and resumes while jax, orbax and tensorstore are
 blocked from import; a 2-process ``fit`` and a 2-process sharded
 extraction over ``torch.distributed`` (gloo) run while jax, flax, optax,
@@ -209,6 +212,82 @@ _SCRIPT = textwrap.dedent("""
 
 def test_port_imports_and_serves_without_jax():
     proc = subprocess.run([sys.executable, "-c", _SCRIPT],
+                          env=cpu_subprocess_env(), capture_output=True,
+                          text=True, timeout=300, cwd=_REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+_FASHION_SCRIPT = textwrap.dedent("""
+    import json, os, sys, tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.data import init_dataset
+    from centroids_reid_tpu_torch.engine import evaluate_on_train, runner
+    from centroids_reid_tpu_torch.models.quantized import quantize_reid_model
+
+    rng = np.random.RandomState(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "images")
+        for split, pairs in (("train", (7, 7, 9, 9)), ("query", (7, 9)),
+                             ("gallery", (7, 7, 9, 9))):
+            os.makedirs(os.path.join(root, split))
+            images, anns = [], []
+            for i, pair in enumerate(pairs):
+                name = f"{split}_{i}.jpg"
+                Image.fromarray(rng.randint(0, 256, (32, 32, 3)).astype(
+                    np.uint8)).save(os.path.join(root, split, name))
+                images.append({"id": i, "file_name": name})
+                anns.append({"image_id": i, "pair_id": pair})
+            with open(os.path.join(root, f"{split}_32_32.json"), "w") as f:
+                json.dump({"images": images, "annotations": anns}, f)
+        fcfg = get_default_cfg()
+        fcfg.merge_from_file(os.path.join("configs",
+                                          "320_resnet50_ibn_a.yml"))
+        fcfg.merge_from_list([
+            "DATASETS.NAMES", "df1", "DATASETS.ROOT_DIR", root,
+            "DATASETS.JSON_TRAIN_PATH", os.path.join(root, "train_32_32.json"),
+            "INPUT.SIZE_TRAIN", "[32,32]", "INPUT.SIZE_TEST", "[32,32]",
+            "SOLVER.IMS_PER_BATCH", "2", "DATALOADER.NUM_INSTANCE", "2",
+            "MODEL.PRETRAINED", "False", "USE_MIXED_PRECISION", "False",
+            "MODEL.KEEP_CAMID_CENTROIDS", "False", "MODEL.USE_CENTROIDS",
+            "True", "SOLVER.MAX_EPOCHS", "1", "SOLVER.EVAL_PERIOD", "1",
+            "DATALOADER.USE_RESAMPLING", "False"])
+        fcfg.LOG_DIR = os.path.join(tmp, "logs")
+        out = runner.run_single(fcfg, "ctl", "train", device="cpu")
+        assert "test_centroids_mAP" in out, out
+        ckpt = os.path.join(fcfg.LOG_DIR, "train", "version_0",
+                            "checkpoints", "epoch=0")
+        fcfg.TEST.ONLY_TEST = True
+        fcfg.MODEL.PRETRAIN_PATH = ckpt
+        out = runner.run_single(fcfg, "ctl", "test", device="cpu")
+        assert 0.0 <= out["test_plain_mAP"] <= 1.0, out
+        ibn = runner.load_model_for_test(fcfg, "cpu")
+        out = evaluate_on_train(fcfg, ibn, init_dataset("df1", fcfg))
+        assert 0.0 <= out["Train mAP"] <= 1.0, out
+        x = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8)
+        qfn = quantize_reid_model(ibn, [x], fcfg.INPUT.PIXEL_MEAN,
+                                  fcfg.INPUT.PIXEL_STD, use_pallas=True)
+        assert any(k.endswith(".pre") for k in qfn.qtree["act_scales"])
+        e = qfn(x)
+        assert e.shape == (2, 2048) and torch.isfinite(e).all(), e
+
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "orbax", "centroids_reid_tpu"))
+    assert not bad, bad
+    print("OK")
+""")
+
+
+def test_fashion_recipe_runs_without_jax():
+    """``configs/320_resnet50_ibn_a.yml`` (ResNet50-IBN-a) over a
+    COCO-layout ``df1`` split at 32x32: one epoch, ONLY_TEST,
+    ``evaluate_on_train`` and the int8 IBN embed, in a subprocess that
+    loads no JAX module."""
+    proc = subprocess.run([sys.executable, "-c", _FASHION_SCRIPT],
                           env=cpu_subprocess_env(), capture_output=True,
                           text=True, timeout=300, cwd=_REPO)
     assert proc.returncode == 0, proc.stderr

@@ -206,11 +206,13 @@ def test_checkpoint_manager_ring_best_and_restore(data_root, tmp_path):
     os.makedirs(os.path.join(mgr.auto_dir, "checkpoint_epoch9.tmp"))
     for epoch in range(4):
         mgr.save_periodic(epoch, state, cfg)
+    mgr.wait()   # saves are asynchronous by default: settle the last one
     assert sorted(os.listdir(mgr.auto_dir)) == [
         "checkpoint_epoch2", "checkpoint_epoch3", "checkpoint_epoch9.tmp"]
     assert mgr.save_if_best(0, state, 0.5, cfg)
     assert not mgr.save_if_best(1, state, 0.4, cfg)
     assert mgr.save_if_best(2, state, 0.6, cfg)
+    mgr.wait()
     assert os.listdir(mgr.best_dir) == ["epoch=2"]
     assert sorted(os.listdir(os.path.join(mgr.best_dir, "epoch=2"))) == [
         "config.yml", "state.pt"]
