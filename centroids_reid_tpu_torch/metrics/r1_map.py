@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..losses.distances import get_dist_func
+from ..utils.profiling import annotate
 from .eval_reid import ReidMetrics, eval_func
 from .streaming_eval import eval_func_streaming, eval_func_streaming_reranked
 
@@ -112,6 +113,13 @@ class R1mAP:
 
     def compute(self, feats, pids, camids,
                 respect_camids: bool = False) -> ReidMetrics:
+        """The metrics of one evaluation; under a running profiler, the
+        span ``eval`` holds it on every path."""
+        with annotate("eval"):
+            return self._compute(feats, pids, camids, respect_camids)
+
+    def _compute(self, feats, pids, camids,
+                 respect_camids: bool) -> ReidMetrics:
         if not torch.is_tensor(feats):
             feats = torch.from_numpy(np.asarray(feats, np.float32))
         if feats.device.type == "cpu":

@@ -55,6 +55,7 @@ import torch
 from ..losses.distances import get_dist_func
 from ..ops.rerank import _as_f32
 from ..parallel.mesh import on_device, shard_width
+from ..utils.profiling import annotate, count
 from .eval_reid import K_LIST, ReidMetrics
 
 _G_CHUNK = 8192    # gallery rows per score tile
@@ -206,22 +207,24 @@ def _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards: list, dist: str,
     first shard's device. Every shard's pass is enqueued before its
     results are gathered."""
     home = shards[0].device
-    parts = []
-    for sh in shards:
-        with on_device(sh.device):
-            parts.append(_extract(qf_c.to(sh.device), pos_c.to(sh.device),
-                                  sh, dist))
-    with on_device(home):
-        dpos = _summed(parts, home)
-    parts = []
-    for sh in shards:
-        dev = sh.device
-        with on_device(dev):
-            parts.append(_count(qf_c.to(dev), qp_c.to(dev), qc_c.to(dev),
-                                pos_c.to(dev), dpos.to(dev), sh, dist,
-                                respect_camids))
-    with on_device(home):
-        return dpos, _summed(parts, home)
+    with annotate("eval.extract"):
+        parts = []
+        for sh in shards:
+            with on_device(sh.device):
+                parts.append(_extract(qf_c.to(sh.device),
+                                      pos_c.to(sh.device), sh, dist))
+        with on_device(home):
+            dpos = _summed(parts, home)
+    with annotate("eval.count"):
+        parts = []
+        for sh in shards:
+            dev = sh.device
+            with on_device(dev):
+                parts.append(_count(qf_c.to(dev), qp_c.to(dev),
+                                    qc_c.to(dev), pos_c.to(dev),
+                                    dpos.to(dev), sh, dist, respect_camids))
+        with on_device(home):
+            return dpos, _summed(parts, home)
 
 
 class StreamRanks(NamedTuple):
@@ -243,7 +246,13 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
     entries. The passes run on the device of ``gf`` when it is a tensor
     (a gallery on the card is never copied to the host), else on
     ``device``; with ``mesh``, on its devices, the gallery's shards copied
-    there from wherever it lies (a host array goes straight to them)."""
+    there from wherever it lies (a host array goes straight to them).
+
+    Under a running profiler it records the spans ``eval.positives``,
+    ``eval.place``, ``eval.extract`` and ``eval.count`` (one each per query
+    chunk) and ``eval.to_host``, and counts, from host values, the count
+    pass's compares: ``eval.pairs_compared`` (padded query rows x H x
+    padded gallery rows) and ``eval.pairs_useful`` (hits x G)."""
     if mesh is None:
         gf = _as_f32(gf, device)
         devices = (gf.device,)
@@ -259,13 +268,16 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
     g_camids = np.asarray(g_camids)
     num_q, num_g = qf.shape[0], gf.shape[0]
 
-    pos = _positives_table(q_pids, g_pids, q_camids, g_camids,
-                           respect_camids)
+    with annotate("eval.positives"):
+        pos = _positives_table(q_pids, g_pids, q_camids, g_camids,
+                               respect_camids)
     num_rel = (pos >= 0).sum(axis=1)
-    shards = _shards(gf, g_pids, g_camids, devices, g_chunk)
-    pos_d = torch.as_tensor(pos.astype(np.int64), device=dev)
-    qp_d = torch.as_tensor(q_pids.astype(np.int64), device=dev)
-    qc_d = torch.as_tensor(q_camids.astype(np.int64), device=dev)
+    with annotate("eval.place"):
+        shards = _shards(gf, g_pids, g_camids, devices, g_chunk)
+        pos_d = torch.as_tensor(pos.astype(np.int64), device=dev)
+        qp_d = torch.as_tensor(q_pids.astype(np.int64), device=dev)
+        qc_d = torch.as_tensor(q_camids.astype(np.int64), device=dev)
+    g_rows = sum(len(sh.tiles) for sh in shards) * g_chunk
 
     dpos_all, ranks_all = [], []
     for s in range(0, num_q, _Q_CHUNK):
@@ -276,13 +288,16 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
         qc_c = torch.cat([qc_d[s:s + rows], qc_d.new_zeros((pad_q,))])
         pos_c = torch.cat([pos_d[s:s + rows],
                            pos_d.new_full((pad_q, pos.shape[1]), -1)])
+        count("eval.pairs_compared", _Q_CHUNK * pos.shape[1] * g_rows)
+        count("eval.pairs_useful", int(num_rel[s:s + rows].sum()) * num_g)
         dpos, ranks = _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards, dist,
                                     respect_camids)
         dpos_all.append(dpos[:rows])
         ranks_all.append(ranks[:rows])
-    return StreamRanks(pos=pos, dpos=torch.cat(dpos_all).cpu().numpy(),
-                       ranks=torch.cat(ranks_all).cpu().numpy(),
-                       num_rel=num_rel)
+    with annotate("eval.to_host"):
+        dpos = torch.cat(dpos_all).cpu().numpy()
+        ranks = torch.cat(ranks_all).cpu().numpy()
+    return StreamRanks(pos=pos, dpos=dpos, ranks=ranks, num_rel=num_rel)
 
 
 def _hrank_lexsort(pos: np.ndarray, dpos: np.ndarray) -> np.ndarray:
@@ -347,9 +362,10 @@ def eval_func_streaming(qf, gf, q_pids, g_pids, q_camids, g_camids,
                               respect_camids=respect_camids, dist=dist,
                               mesh=mesh, g_chunk=g_chunk, device=device)
     max_rank = _clamp_max_rank(max_rank, len(gf))
-    return _metrics_from_ranks(sr.pos, sr.ranks,
-                               _hrank_lexsort(sr.pos, sr.dpos), sr.num_rel,
-                               np.asarray(q_pids), max_rank)
+    with annotate("eval.metrics"):
+        return _metrics_from_ranks(sr.pos, sr.ranks,
+                                   _hrank_lexsort(sr.pos, sr.dpos),
+                                   sr.num_rel, np.asarray(q_pids), max_rank)
 
 
 def _window_positions(ridx: np.ndarray, pos: np.ndarray,
@@ -416,26 +432,26 @@ def eval_func_streaming_reranked(qf, gf, q_pids, g_pids, q_camids, g_camids,
     _, ridx = rerank_topk(qf, gf, r=r, k1=k1, k2=k2,
                           lambda_value=lambda_value, dist=dist, mesh=mesh)
     ridx = ridx.cpu().numpy()                   # [Q, r] re-ranked windows
+    with annotate("eval.metrics"):
+        wp = g_pids[ridx]
+        match = wp == q_pids[:, None]
+        if respect_camids:
+            wc = g_camids[ridx].astype(np.int64)
+            same = ((wc >> q_camids[:, None].astype(np.int64)) & 1) == 1
+        else:
+            same = g_camids[ridx] == q_camids[:, None]
+        keep = ~(match & same)
+        hit = match & keep
+        kept_before = np.cumsum(keep, axis=1) - keep
+        hits_before = np.cumsum(hit, axis=1) - hit
 
-    wp = g_pids[ridx]
-    match = wp == q_pids[:, None]
-    if respect_camids:
-        wc = g_camids[ridx].astype(np.int64)
-        same = ((wc >> q_camids[:, None].astype(np.int64)) & 1) == 1
-    else:
-        same = g_camids[ridx] == q_camids[:, None]
-    keep = ~(match & same)
-    hit = match & keep
-    kept_before = np.cumsum(keep, axis=1) - keep
-    hits_before = np.cumsum(hit, axis=1) - hit
-
-    win_pos = _window_positions(ridx, sr.pos, num_g)
-    in_win = win_pos >= 0
-    j = np.clip(win_pos, 0, ridx.shape[1] - 1)
-    ranks = np.where(in_win, np.take_along_axis(kept_before, j, axis=1),
-                     sr.ranks)
-    hrank = np.where(in_win, np.take_along_axis(hits_before, j, axis=1),
-                     _hrank_lexsort(sr.pos, sr.dpos))
-    max_rank = _clamp_max_rank(max_rank, num_g)
-    return _metrics_from_ranks(sr.pos, ranks, hrank, sr.num_rel, q_pids,
-                               max_rank)
+        win_pos = _window_positions(ridx, sr.pos, num_g)
+        in_win = win_pos >= 0
+        j = np.clip(win_pos, 0, ridx.shape[1] - 1)
+        ranks = np.where(in_win, np.take_along_axis(kept_before, j, axis=1),
+                         sr.ranks)
+        hrank = np.where(in_win, np.take_along_axis(hits_before, j, axis=1),
+                         _hrank_lexsort(sr.pos, sr.dpos))
+        max_rank = _clamp_max_rank(max_rank, num_g)
+        return _metrics_from_ranks(sr.pos, ranks, hrank, sr.num_rel, q_pids,
+                                   max_rank)
