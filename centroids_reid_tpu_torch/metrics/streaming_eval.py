@@ -3,27 +3,31 @@ cannot exist (counterpart of ``centroids_reid_tpu/metrics/streaming_eval.py``).
 
 mAP, CMC and top-k need only each positive's rank, and a positive's rank
 among the kept gallery entries is the COUNT of kept entries ordered
-strictly before it. Counting distributes over gallery chunks, so the whole
-metric is two passes over [Qc, C] score tiles on the evaluator's device,
-with O(Q * H) state (H = the most positives a query has):
+strictly before it by (distance, index), the order a stable argsort gives.
+So the whole metric is two passes over the gallery on the evaluator's
+device, with O(Q * H) state (H = the most positives a query has), each one
+launch of the distance-and-rank kernel K7 per gallery shard
+(``ops/stream_rank.py``) over the whole query set:
 
-1. *extract*: each positive's distance is read out of the score tile it
-   lives in, so it is bit for bit the value the count pass compares
-   against;
-2. *count*: ``rank[q, h] = #{kept j : (d_qj, j) < (d_pos, pos_idx)}``,
-   lexicographic on (distance, index), the order a stable argsort gives.
+1. *extract*: each positive's distance, computed in the kernel exactly as
+   the count computes it (one thread's fp32 FFMA chain over D in order),
+   so it is bit for bit the value the count pass compares against;
+2. *count*: each query's positives are sorted by the int64 key
+   ``order_key(d, j) = mono32(d) * 2^32 + j`` (-0.0 folded to +0.0, as
+   float comparison equates them). A kept entry whose key is not below the
+   query's farthest positive precedes none (one compare, almost every
+   entry); any other adds one to a [Q, H] histogram at its position among
+   the sorted keys, and the inclusive prefix sum of the histogram, mapped
+   back to the positives' order, is ``rank[q, h] = #{kept j : (d_qj, j) <
+   (d_pos, pos_idx)}``. A positive's own key is not below itself, so it
+   never counts itself.
 
-Both passes compute every tile with one function
-(``get_dist_func(dist, eval_mode=True)``, as ``r1_map.compute_distmat_device``)
-on one shape: the gallery is cut into tiles of ``g_chunk`` rows, and the
-ragged last tile is a zero-padded copy of its own, made once, so that the
-same matrix product runs in both passes (padded rows are never kept). The
-passes are Python loops over tiles on the device; neither a tile nor the
-rank state goes to the host inside them. The count compares int64 keys
-``mono32(d) * 2^32 + j``: one comparison per (positive, entry) pair instead
-of the reference's four, the same order (-0.0 is folded to +0.0 first, as
-float comparison equates them). The positives axis is cut into tiles of
-``_H_CHUNK``, so device memory stays flat in H (a pid-heavy gallery).
+The rows' norms (squared, or inverse for cosine) are made once per
+evaluation per shard, a tile at a time; the rows are read where they lie,
+with no second copy, and the passes keep nothing of size [Q, G] or [Q, H,
+G]: device memory is flat in H (a pid-heavy gallery). On CPU tensors the
+kernel's plain versions run the same rule in torch over score tiles of
+``g_chunk`` gallery rows.
 
 From the ranks the Market-1501 metrics are closed-form on the host:
 ``first_rank = min_h rank`` gives CMC and top-k, and the precision at hit h
@@ -35,12 +39,12 @@ the reference splits them into two int32 words only because JAX without
 x64 truncates int64. Ranks are int32, as in the reference, so galleries of
 2^31 rows or more are out of scope.
 
-``mesh`` shards the gallery rows over its devices (``parallel/``): the
-gallery is padded to ``g_chunk`` x shards rows and each shard is placed
-once. Per query chunk every shard extracts against its own rows with its
-global offset, the extractions are summed on the mesh's first device
+``mesh`` shards the gallery rows over its devices (``parallel/``): shard
+``s`` holds rows ``s * width ..`` (``width`` a whole number of ``g_chunk``
+tiles) and is placed once. Every shard extracts against its own rows with
+its global offset, the extractions are summed on the mesh's first device
 (a hit lives in exactly one shard, the others give 0) before any shard
-counts, and the shards' counts are summed there. Without a mesh the
+counts, and the shards' histograms are summed there. Without a mesh the
 device of the gallery is the one shard.
 """
 
@@ -52,24 +56,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..losses.distances import get_dist_func
 from ..ops.rerank import _as_f32
+from ..ops.stream_rank import (
+    order_key,
+    prepare_rows,
+    stream_count,
+    stream_extract,
+)
 from ..parallel.mesh import on_device, shard_width
 from ..utils.profiling import annotate, count
 from .eval_reid import K_LIST, ReidMetrics
 
-_G_CHUNK = 8192    # gallery rows per score tile
-_Q_CHUNK = 128     # query rows per pass
-_H_CHUNK = 64      # positives per compare tile: [Qc, _H_CHUNK, C] at most
-_NEVER = torch.iinfo(torch.int64).max   # the key of an entry never counted
+_G_CHUNK = 8192    # gallery rows per plain score tile; shards hold whole tiles
+_H_CHUNK = 64      # H is padded to whole multiples, the JAX package's tiles
+_NEVER = torch.iinfo(torch.int64).max   # the key of a padded positive slot
 
 
 def _positives_table(q_pids, g_pids, q_camids, g_camids,
                      respect_camids: bool) -> np.ndarray:
     """[Q, H] gallery indices of each query's hits (same pid, kept under the
-    camid-removal rule), -1 padded; H is padded to whole ``_H_CHUNK`` tiles.
-    With ``respect_camids`` the gallery camids are bitmasks and removal is
-    set membership."""
+    camid-removal rule), ascending, -1 padded; H is padded to whole
+    ``_H_CHUNK`` tiles, as the JAX package's table. With ``respect_camids``
+    the gallery camids are bitmasks and removal is set membership."""
     by_pid = defaultdict(list)
     for j, p in enumerate(np.asarray(g_pids).tolist()):
         by_pid[int(p)].append(j)
@@ -91,106 +99,39 @@ def _positives_table(q_pids, g_pids, q_camids, g_camids,
     return pos
 
 
-def _order_key(d: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    """int64 keys ordered as the pairs (d, j), lexicographically: d fp32
-    (not NaN; -0.0 counts as +0.0), 0 <= j < 2^31."""
-    bits = (d + 0.0).view(torch.int32)
-    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    return mono * (1 << 32) + j
-
-
-def _gallery_tiles(gf: torch.Tensor, g_chunk: int) -> list:
-    """``gf`` as tiles of ``g_chunk`` rows, all of one shape: views of
-    ``gf``, except a ragged last tile, which is a zero-padded copy made
-    once (the gallery itself is never copied)."""
-    tiles = list(gf.split(g_chunk))
-    tail = tiles[-1]
-    if tail.shape[0] < g_chunk:
-        tiles[-1] = torch.cat([tail, tail.new_zeros(
-            (g_chunk - tail.shape[0], gf.shape[1]))])
-    return tiles
-
-
-class _Shard(NamedTuple):
-    """One block of gallery rows ``j0 .. j0 + len(tiles) * g_chunk`` on
-    ``device``, with its rows' pids, camids and validity."""
+class _Rows(NamedTuple):
+    """Rows as the kernel reads them on ``device``, with ``prepare_rows``'s
+    norms, pids and cameras (int64); a gallery shard's global offset
+    ``j0``."""
 
     device: torch.device
     j0: int
-    tiles: list
-    g_pids: torch.Tensor
-    g_cams: torch.Tensor
-    g_valid: torch.Tensor
+    x: torch.Tensor
+    norms: torch.Tensor
+    pids: torch.Tensor
+    cams: torch.Tensor
 
 
-def _shards(gf, g_pids, g_camids, devices, g_chunk: int) -> list:
+def _placed(x, pids, cams, device, dist: str, g_chunk: int,
+            j0: int = 0) -> _Rows:
+    x = x.to(device)
+    return _Rows(device, j0, x, prepare_rows(x, dist, g_chunk),
+                 torch.as_tensor(np.asarray(pids, np.int64), device=device),
+                 torch.as_tensor(np.asarray(cams, np.int64), device=device))
+
+
+def _shards(gf, g_pids, g_camids, devices, g_chunk: int, dist: str) -> list:
     """The gallery cut into ``len(devices)`` blocks of whole ``g_chunk``
-    tiles, each placed on its device once: views where the rows are
-    already there, a ragged tile's padded copy, zero tiles past the end."""
+    tiles, each placed on its device once (a view where the rows are
+    already there); shards past the last row hold none."""
     num_g = gf.shape[0]
     width = shard_width(num_g, len(devices), g_chunk)
-    pad_g = width * len(devices) - num_g
-
-    def padded(x, fill):
-        return torch.as_tensor(np.concatenate(
-            [np.asarray(x, np.int64), np.full(pad_g, fill, np.int64)]))
-
-    g_pids_p, g_cams_p = padded(g_pids, -1), padded(g_camids, -1)
-    g_valid = torch.arange(num_g + pad_g) < num_g
     out = []
     for s, dev in enumerate(devices):
-        lo = s * width
-        rows = gf[lo:lo + width]
-        tiles = _gallery_tiles(rows.to(dev), g_chunk) if len(rows) else []
-        if len(tiles) < width // g_chunk:
-            zero = gf.new_zeros((g_chunk, gf.shape[1]), device=dev)
-            tiles += [zero] * (width // g_chunk - len(tiles))
-        sl = slice(lo, lo + width)
-        out.append(_Shard(dev, lo, tiles, g_pids_p[sl].to(dev),
-                          g_cams_p[sl].to(dev), g_valid[sl].to(dev)))
+        lo, hi = min(s * width, num_g), min((s + 1) * width, num_g)
+        out.append(_placed(gf[lo:hi], g_pids[lo:hi], g_camids[lo:hi], dev,
+                           dist, g_chunk, j0=s * width))
     return out
-
-
-def _extract(qf_c, pos_c, sh: _Shard, dist: str):
-    """[Qc, H] fp32: each hit's distance read out of the score tile of
-    ``sh`` it lives in, 0 for hits in other shards."""
-    fn = get_dist_func(dist, eval_mode=True)
-    c_rows = sh.tiles[0].shape[0]
-    dpos = torch.zeros(pos_c.shape, dtype=torch.float32, device=sh.device)
-    for c, tile in enumerate(sh.tiles):
-        s = fn(qf_c, tile)                                  # [Qc, C] fp32
-        local = pos_c - (sh.j0 + c * c_rows)
-        inside = (local >= 0) & (local < c_rows)
-        dpos = torch.where(inside, s.gather(1, local.clamp(0, c_rows - 1)),
-                           dpos)
-    return dpos
-
-
-def _count(qf_c, qp_c, qc_c, pos_c, dpos, sh: _Shard, dist: str,
-           respect_camids: bool):
-    """[Qc, H] int32: the kept entries of ``sh`` ordered before each hit by
-    (distance, index); ``dpos`` is the extraction over all shards."""
-    fn = get_dist_func(dist, eval_mode=True)
-    c_rows = sh.tiles[0].shape[0]
-    cols = torch.arange(c_rows, device=sh.device)
-    pos_key = _order_key(dpos, pos_c)
-    ranks = torch.zeros(pos_c.shape, dtype=torch.int32, device=sh.device)
-    for c, tile in enumerate(sh.tiles):
-        s = fn(qf_c, tile)
-        sl = slice(c * c_rows, (c + 1) * c_rows)
-        match = sh.g_pids[None, sl] == qp_c[:, None]
-        if respect_camids:
-            same = ((sh.g_cams[None, sl] >> qc_c[:, None]) & 1) == 1
-        else:
-            same = sh.g_cams[None, sl] == qc_c[:, None]
-        keep = ~(match & same) & sh.g_valid[None, sl]
-        key = torch.where(keep,
-                          _order_key(s, cols + (sh.j0 + c * c_rows)), _NEVER)
-        for h0 in range(0, pos_c.shape[1], _H_CHUNK):
-            before = key[:, None, :] < pos_key[:, h0:h0 + _H_CHUNK, None]
-            ranks[:, h0:h0 + _H_CHUNK] += before.sum(dim=2,
-                                                     dtype=torch.int32)
-    return ranks
 
 
 def _summed(parts: list, home: torch.device) -> torch.Tensor:
@@ -200,31 +141,20 @@ def _summed(parts: list, home: torch.device) -> torch.Tensor:
     return out
 
 
-def _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards: list, dist: str,
-                  respect_camids: bool):
-    """The extract and count passes for one chunk of queries over the
-    gallery ``shards``: (dpos [Qc, H] fp32, ranks [Qc, H] int32) on the
-    first shard's device. Every shard's pass is enqueued before its
-    results are gathered."""
-    home = shards[0].device
-    with annotate("eval.extract"):
-        parts = []
-        for sh in shards:
-            with on_device(sh.device):
-                parts.append(_extract(qf_c.to(sh.device),
-                                      pos_c.to(sh.device), sh, dist))
-        with on_device(home):
-            dpos = _summed(parts, home)
-    with annotate("eval.count"):
-        parts = []
-        for sh in shards:
-            dev = sh.device
-            with on_device(dev):
-                parts.append(_count(qf_c.to(dev), qp_c.to(dev),
-                                    qc_c.to(dev), pos_c.to(dev),
-                                    dpos.to(dev), sh, dist, respect_camids))
-        with on_device(home):
-            return dpos, _summed(parts, home)
+def _each_shard(fn, queries: _Rows, shards: list, *per_query, **kw):
+    """``fn`` over every shard, the queries and ``per_query`` tensors moved
+    to its device, summed on the queries' device; every shard's launch is
+    enqueued before any result is gathered."""
+    q, parts = queries, []
+    for sh in shards:
+        dev = sh.device
+        with on_device(dev):
+            parts.append(fn(
+                q.x.to(dev), q.norms.to(dev),
+                sh.x, sh.norms, q.pids.to(dev), sh.pids, q.cams.to(dev),
+                sh.cams, *[t.to(dev) for t in per_query], j0=sh.j0, **kw))
+    with on_device(queries.device):
+        return _summed(parts, queries.device)
 
 
 class StreamRanks(NamedTuple):
@@ -249,10 +179,14 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
     there from wherever it lies (a host array goes straight to them).
 
     Under a running profiler it records the spans ``eval.positives``,
-    ``eval.place``, ``eval.extract`` and ``eval.count`` (one each per query
-    chunk) and ``eval.to_host``, and counts, from host values, the count
-    pass's compares: ``eval.pairs_compared`` (padded query rows x H x
-    padded gallery rows) and ``eval.pairs_useful`` (hits x G)."""
+    ``eval.place``, ``eval.extract``, ``eval.count`` and ``eval.to_host``
+    (one each), and counts, from host values: ``eval.pairs_compared``
+    (the pairs the count orders: real hits x gallery rows scanned) and
+    ``eval.pairs_useful`` (hits x G), equal since no hit slot or row is
+    padded, ``eval.entries_searched`` (the
+    kept entries under each query's farthest hit, which went to the
+    search: the sum of the farthest hits' ranks) and
+    ``eval.entries_scanned`` (Q x G)."""
     if mesh is None:
         gf = _as_f32(gf, device)
         devices = (gf.device,)
@@ -273,30 +207,32 @@ def compute_stream_ranks(qf, gf, q_pids, g_pids, q_camids, g_camids,
                                respect_camids)
     num_rel = (pos >= 0).sum(axis=1)
     with annotate("eval.place"):
-        shards = _shards(gf, g_pids, g_camids, devices, g_chunk)
+        shards = _shards(gf, g_pids, g_camids, devices, g_chunk, dist)
+        queries = _placed(qf, q_pids, q_camids, dev, dist, g_chunk)
         pos_d = torch.as_tensor(pos.astype(np.int64), device=dev)
-        qp_d = torch.as_tensor(q_pids.astype(np.int64), device=dev)
-        qc_d = torch.as_tensor(q_camids.astype(np.int64), device=dev)
-    g_rows = sum(len(sh.tiles) for sh in shards) * g_chunk
+        rel_d = torch.as_tensor(num_rel.astype(np.int32), device=dev)
+    kw = dict(dist=dist, respect_camids=respect_camids, g_chunk=g_chunk)
 
-    dpos_all, ranks_all = [], []
-    for s in range(0, num_q, _Q_CHUNK):
-        rows = min(_Q_CHUNK, num_q - s)
-        pad_q = _Q_CHUNK - rows
-        qf_c = torch.cat([qf[s:s + rows], qf.new_zeros((pad_q, qf.shape[1]))])
-        qp_c = torch.cat([qp_d[s:s + rows], qp_d.new_full((pad_q,), -2)])
-        qc_c = torch.cat([qc_d[s:s + rows], qc_d.new_zeros((pad_q,))])
-        pos_c = torch.cat([pos_d[s:s + rows],
-                           pos_d.new_full((pad_q, pos.shape[1]), -1)])
-        count("eval.pairs_compared", _Q_CHUNK * pos.shape[1] * g_rows)
-        count("eval.pairs_useful", int(num_rel[s:s + rows].sum()) * num_g)
-        dpos, ranks = _stream_ranks(qf_c, qp_c, qc_c, pos_c, shards, dist,
-                                    respect_camids)
-        dpos_all.append(dpos[:rows])
-        ranks_all.append(ranks[:rows])
+    with annotate("eval.extract"):
+        dpos = _each_shard(stream_extract, queries, shards, pos_d, rel_d,
+                           **kw)
+    with annotate("eval.count"):
+        real = pos_d >= 0
+        keys, order = torch.where(real, order_key(dpos, pos_d),
+                                  _NEVER).sort(dim=1)
+        hist = _each_shard(stream_count, queries, shards, keys, rel_d, **kw)
+        ranks = torch.zeros_like(hist).scatter_(
+            1, order, hist.cumsum(dim=1, dtype=torch.int32))
+        ranks = torch.where(real, ranks, 0)
     with annotate("eval.to_host"):
-        dpos = torch.cat(dpos_all).cpu().numpy()
-        ranks = torch.cat(ranks_all).cpu().numpy()
+        dpos = dpos.cpu().numpy()
+        ranks = ranks.cpu().numpy()
+        hits = int(num_rel.sum())
+        count("eval.pairs_compared", hits * num_g)
+        count("eval.pairs_useful", hits * num_g)
+        count("eval.entries_searched",
+              int(ranks.max(axis=1, initial=0).sum()))
+        count("eval.entries_scanned", num_q * num_g)
     return StreamRanks(pos=pos, dpos=dpos, ranks=ranks, num_rel=num_rel)
 
 

@@ -1,4 +1,4 @@
-from . import int8_conv, rerank, retrieval, retrieval_int8
+from . import int8_conv, rerank, retrieval, retrieval_int8, stream_rank
 from .int8_conv import (
     conv3x3_requant,
     conv3x3_requant_plain,
@@ -24,8 +24,14 @@ from .retrieval_int8 import (
     topk_retrieval_int8,
     topk_select_int8,
 )
+from .stream_rank import (
+    stream_count,
+    stream_count_plain,
+    stream_extract,
+    stream_extract_plain,
+)
 
-_MODULES = (retrieval, retrieval_int8, int8_conv)
+_MODULES = (retrieval, retrieval_int8, int8_conv, stream_rank)
 
 
 def launch_counts() -> dict:
@@ -56,6 +62,10 @@ __all__ = [
     "scores_i8",
     "scores_i8_plain",
     "scores_plain",
+    "stream_count",
+    "stream_count_plain",
+    "stream_extract",
+    "stream_extract_plain",
     "stream_topk",
     "stream_topk_plain",
     "topk_retrieval",

@@ -21,11 +21,12 @@ import time
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-_SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu")
+_SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu",
+            "stream_rank.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 6
+_ABI_VERSION = 7
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -78,6 +79,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_conv3x3_requant.restype = i
     lib.crt_conv3x3_requant.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
                                         i, i, p]
+    for name in ("crt_stream_extract", "crt_stream_count"):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = [p] * 11 + [i] * 7 + [p]
 
 
 def _compile(so: str) -> str:

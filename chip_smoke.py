@@ -49,9 +49,13 @@ bf16 autocast) and seeded random weights:
   cut of it held against the CPU;
 * evaluation at any gallery scale (phase 10): ``R1mAP`` on Market-1501's
   test split plus 500,000 distractors (1.74e9 cells) switches to the
-  streaming evaluator, held against the materialising path, the CPU and,
-  re-ranked in windows of 100, the stitched-order oracle. ONLY_TEST (phase
-  5) also runs windowed re-ranking and ``TEST.VISUALIZE``;
+  streaming evaluator (one launch of each of K7's two modes), held
+  against the materialising path, the CPU and, re-ranked in windows of
+  100, the stitched-order oracle; K7's two wrappers against their plain
+  versions on the cell's features (within rounding) and on them scaled
+  to integers (bit for bit), timed beside their bound and cuBLAS's fp32
+  GEMM. ONLY_TEST (phase 5) also runs windowed re-ranking and
+  ``TEST.VISUALIZE``;
 * serving artifacts (phase 11, ``inference/export.py``): the bf16 embedder
   (symbolic batch, programs for the card and the CPU), retrievers of phase
   4's gallery at k=100 (also re-ranked at load, r=100) and k=10, and the
@@ -168,7 +172,11 @@ KERNELS = {
                        "centroids_reid_tpu/ops/int8_conv.py:108"),
     "conv3x3_requant": ("int8_conv.cu",
                         "centroids_reid_tpu/ops/int8_conv.py:182"),
+    # K7's two modes: the JAX package's streaming evaluator is plain jnp
+    "stream_extract": ("stream_rank.cu", "none"),
+    "stream_count": ("stream_rank.cu", "none"),
 }
+K7_KERNELS = ("stream_extract", "stream_count")
 BF16_KERNELS = ("scores", "stream_topk", "kpass_topk")
 # (W, k) of each K3 launch on the paths against the 100,352-row gallery:
 # the group minima (100352 / 8 columns) and the gathered 8k columns, at
@@ -3879,6 +3887,121 @@ def _measured(name: str, fn, gpu: str):
     return res, secs, peak
 
 
+def _k7_ranks(extract, count, qf, gf, q_pids, g_pids, q_cams, g_cams):
+    """(dpos, ranks) of the whole cell, plain euclidean evaluation, through
+    ``extract`` and ``count``: K7's two wrappers or their plain versions,
+    the steps between them as ``compute_stream_ranks`` takes them."""
+    import torch
+
+    from centroids_reid_tpu_torch.metrics import streaming_eval as S
+    from centroids_reid_tpu_torch.ops.stream_rank import (
+        order_key,
+        prepare_rows,
+    )
+
+    dev = qf.device
+    pos = S._positives_table(q_pids, g_pids, q_cams, g_cams, False)
+    rel = torch.as_tensor((pos >= 0).sum(axis=1).astype(np.int32),
+                          device=dev)
+    pos = torch.as_tensor(pos.astype(np.int64), device=dev)
+    ints = [torch.as_tensor(np.asarray(x, np.int64), device=dev)
+            for x in (q_pids, g_pids, q_cams, g_cams)]
+    rows = (qf, prepare_rows(qf, "euclidean"), gf,
+            prepare_rows(gf, "euclidean"), *ints)
+    tail = (0, "euclidean", False, S._G_CHUNK)
+    dpos = extract(*rows, pos, rel, *tail)
+    real = pos >= 0
+    keys, order = torch.where(real, order_key(dpos, pos),
+                              S._NEVER).sort(dim=1)
+    hist = count(*rows, keys, rel, *tail)
+    ranks = torch.zeros_like(hist).scatter_(
+        1, order, hist.cumsum(dim=1, dtype=torch.int32))
+    return dpos, torch.where(real, ranks, 0), (rows, pos, keys, rel, tail)
+
+
+def phase_k7(f, pids_all, cams, gpu: str) -> dict:
+    """K7's two wrappers against their plain versions at the cell's shape
+    ([3368,2048] x [515913,2048] fp32, H 64): on the cell's features the
+    plain versions' cuBLAS tiles sum in another order, so the distances
+    differ by rounding and the APs are held within 1e-6; on the features
+    scaled by 64 and rounded to integers every fp32 value is an exact
+    integer, so the distances are held bit for bit and the ranks exactly.
+    Then each wrapper timed (CUDA events) beside its plain version, its
+    bound and cuBLAS's fp32 GEMM of the same operands. Returns {"errs",
+    "times"} for the kernels line."""
+    import torch
+
+    from centroids_reid_tpu_torch.metrics.streaming_eval import (
+        StreamRanks,
+        _hrank_lexsort,
+        _metrics_from_ranks,
+    )
+    from centroids_reid_tpu_torch.ops import stream_rank as K7
+
+    nq = MARKET[0]
+    args = (pids_all[:nq], pids_all[nq:], cams[:nq], cams[nq:])
+    kern = (K7.stream_extract, K7.stream_count)
+    plain = (K7.stream_extract_plain, K7.stream_count_plain)
+
+    def metrics(dpos, ranks, pos):
+        sr = StreamRanks(pos.cpu().numpy(), dpos.cpu().numpy(),
+                         ranks.cpu().numpy(),
+                         (pos >= 0).sum(dim=1).cpu().numpy())
+        return _metrics_from_ranks(sr.pos, sr.ranks,
+                                   _hrank_lexsort(sr.pos, sr.dpos),
+                                   sr.num_rel, args[0], 50)
+
+    errs = {}
+    for kind, x in (("the cell's features", f),
+                    ("the cell's features x 64, rounded", torch.round(
+                        f * 64))):
+        qf, gf = x[:nq], x[nq:]
+        dk, rk, (_, pos, _, _, _) = _k7_ranks(*kern, qf, gf, *args)
+        dp, rp, _ = _k7_ranks(*plain, qf, gf, *args)
+        valid = pos >= 0
+        d_err = (dk - dp).abs().max().item()
+        r_err = (rk - rp).abs().max().item()
+        differ = int((rk != rp)[valid].sum())
+        if kind.endswith("rounded"):
+            require(torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+                    and torch.equal(rk, rp),
+                    f"K7 on integer features: |dpos diff| {d_err}, "
+                    f"{differ} ranks differ")
+        else:
+            errs = {"stream_extract": d_err, "stream_count": float(r_err)}
+            mk, mp = metrics(dk, rk, pos), metrics(dp, rp, pos)
+            require(_metrics_equal(mk, mp),
+                    f"K7's APs differ from the plain versions' ({kind})")
+        log(f"K7 against its plain versions on {kind} ({nq} x "
+            f"{gf.shape[0]}, H {pos.shape[1]}): max |dpos diff| "
+            f"{d_err:.3e}, {differ} of {int(valid.sum())} hit ranks differ "
+            f"(max by {r_err})")
+    del x, dk, dp, rk, rp
+
+    qf, gf = f[:nq], f[nq:]
+    _, _, (rows, pos, keys, rel, tail) = _k7_ranks(*kern, qf, gf, *args)
+    ops = 2.0 * qf.shape[0] * gf.shape[0] * DIM
+    ints = nbytes(*rows) + nbytes(rel)
+    lib_ms = cuda_ms(lambda: torch.mm(qf, gf.T), iters=3, warmup=1)
+    times = {}
+    for name, k, p, hits in (("stream_extract", kern[0], plain[0], pos),
+                             ("stream_count", kern[1], plain[1], keys)):
+        k_ms = cuda_ms(lambda: k(*rows, hits, rel, *tail), iters=5,
+                       warmup=1)
+        p_ms = cuda_ms(lambda: p(*rows, hits, rel, *tail), iters=1,
+                       warmup=0)
+        # the [Q, H] output, 4 bytes a slot, written once
+        b_ms, b_by = bound(name, ints + nbytes(hits) + 4 * hits.numel(),
+                           ops, "fp32")
+        times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        log(f"{name} [{qf.shape[0]},{DIM}] x [{gf.shape[0]},{DIM}] fp32: "
+            f"{k_ms:.2f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.3f}"
+            f" of its bound {b_ms:.1f} ms), plain version {p_ms:.1f} ms, "
+            f"cuBLAS fp32 GEMM (torch.mm, TF32 off) {lib_ms:.2f} ms [{gpu}]")
+    return {"errs": errs, "times": times}
+
+
 def phase_eval_stream(gpu: str) -> dict:
     """Phase 10, cell eval-stream-market500k: ``R1mAP`` on Market-1501's test
     split with 500,000 distractors switches to the streaming evaluator by
@@ -3938,11 +4061,17 @@ def phase_eval_stream(gpu: str) -> dict:
         *a, **k)
     try:
         ev = R1mAP(nq)
+        torch.cuda.synchronize()
+        reset_launch_counts()
         m = run("R1mAP.compute, the whole cell (streaming by itself)",
                 lambda: ev.compute(f, pids_all, cams))
+        k7_launches = {n: launch_counts()[n] for n in K7_KERNELS}
     finally:
         r1_map.eval_func_streaming = real
     require(calls == [1], "R1mAP did not switch to the streaming evaluator")
+    require(k7_launches == {"stream_extract": 1, "stream_count": 1},
+            f"K7 launches in the whole cell's evaluation: {k7_launches}")
+    log(f"K7 launches in the whole cell's evaluation: {k7_launches}")
     require(np.isfinite(m.mAP) and 0 < m.mAP <= 1
             and len(m.single_performance) == nq, f"whole cell: {m.mAP}")
     log(f"eval-stream-market500k: mAP {m.mAP:.6f}, R1 {m.all_topk[0]:.6f}, "
@@ -4098,10 +4227,12 @@ def phase_eval_stream(gpu: str) -> dict:
             f"{ms * 1e3:.1f} us (graph replay), torch.topk {lib * 1e3:.1f} "
             f"us, bound {b / HBM_PEAK_GBS / 1e6 * 1e3:.1f} us by bytes "
             f"[{gpu}]")
+    k7 = phase_k7(f, pids_all, cams, gpu)
     return {"plain": measured["R1mAP.compute, the whole cell (streaming by "
                               "itself)"],
             "rerank": measured[f"R1mAP(rerank=True, rerank_window="
-                               f"{STREAM_R}), the whole cell"]}
+                               f"{STREAM_R}), the whole cell"],
+            "k7_launches": k7_launches, **k7}
 
 
 # -------------------------------------------------------- phase 12 ------
@@ -5367,9 +5498,12 @@ def main() -> int:
     # each kernel's launches from the path it was read on: K1 and K2 the
     # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
     # serving path, K5 and K6 the int8 serving path and phase 15's int8
-    # IBN embed (80x80, 40x40 and 20x20 feature maps)
+    # IBN embed (80x80, 40x40 and 20x20 feature maps), K7 phase 10's
+    # whole-cell evaluation
     for name, err in fashion["errs"].items():
         errs[name] = max(errs[name], err)
+    errs.update(stream["errs"])
+    times.update(stream["times"])
     launches = {
         "scores": state["launches"]["scores"],
         "stream_topk": state["launches"]["stream_topk"],
@@ -5380,6 +5514,7 @@ def main() -> int:
         + fashion["launches"]["matmul_requant"],
         "conv3x3_requant": int8_state["launches"]["conv3x3_requant"]
         + fashion["launches"]["conv3x3_requant"],
+        **stream["k7_launches"],
     }
     for name, embed in (("bf16", "cuDNN"), ("int8", "unfused int8 convs")):
         log(f"{name} evaluation kernel launches (no hand-written kernel: "

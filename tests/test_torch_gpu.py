@@ -8,7 +8,9 @@ imports no JAX, so it runs where JAX is absent:
 Integer-valued bf16 inputs make every dot product an exact fp32 integer,
 so K1, K2, K2u and K4 must equal their plain versions bit for bit; K3 is
 exact by construction; K5 and K6 accumulate exactly in int32 and round
-their epilogue op by op, so they equal their plain versions bit for bit.
+their epilogue op by op, so they equal their plain versions bit for bit;
+K7's fp32 euclidean distances of integer rows are exact, so its extracted
+distances and ranks equal its plain versions' bit for bit.
 The evaluation metrics and the wide-row selection run on the card against
 the same code on the CPU, the serving artifacts against the live path."""
 
@@ -1025,6 +1027,181 @@ def test_r1map_streaming_on_card_matches_materialising(cuda, rerank_window):
                                   ref.single_performance[:, 0])
     np.testing.assert_allclose(got.single_performance[:, 2],
                                ref.single_performance[:, 2], atol=1e-6)
+
+
+def _k7_set(seed, case):
+    """Integer-valued clustered rows for the distance-and-rank kernel K7,
+    with pids and cameras: 300 queries (five 64-row query tiles, the last
+    partial) over 3,077 rows (no multiple of the 256-row gallery tile).
+    "heavy": one pid owns 200 more rows, so H > 128."""
+    q, g = 300, 3077
+    rng = np.random.RandomState(seed)
+    f = _integer_clusters(seed, q + g, d=64, clusters=40)
+    pids = rng.randint(0, 80, q + g)
+    cams = rng.randint(0, 6, q + g)
+    if case == "heavy":
+        pids[q:q + 200] = 7
+        pids[:20] = 7
+    return f[:q], f[q:], pids[:q], pids[q:], cams[:q], cams[q:]
+
+
+def _k7_ranks(cuda, data, **kw):
+    """compute_stream_ranks on the card (K7's launches counted) and on the
+    CPU (its plain versions)."""
+    from centroids_reid_tpu_torch.metrics import compute_stream_ranks
+    from centroids_reid_tpu_torch.ops import stream_rank as K7
+
+    qf, gf, *rest = data
+    K7.reset_launch_counts()
+    card = compute_stream_ranks(torch.from_numpy(qf).to(cuda),
+                                torch.from_numpy(gf).to(cuda), *rest, **kw)
+    torch.cuda.synchronize()
+    launches = dict(K7.LAUNCHES)
+    kw.pop("mesh", None)
+    cpu = compute_stream_ranks(qf, gf, *rest, device="cpu", **kw)
+    return card, cpu, launches
+
+
+@pytest.mark.parametrize("respect", [False, True], ids=["camid", "bitmask"])
+@pytest.mark.parametrize("case", ["ragged", "heavy"])
+def test_stream_rank_kernel_equals_plain_bit_for_bit(cuda, respect, case):
+    """K7 against its plain versions through ``compute_stream_ranks``:
+    every fp32 euclidean value is an exact integer, so the extracted
+    distances and the ranks are equal outright, under both camid rules
+    (bitmask cameras 1 << cam under ``respect_camids``), and each rank is
+    the hit's position among the kept entries of the stable argsort. One
+    extract and one count launch for the whole query set."""
+    from centroids_reid_tpu_torch.metrics.r1_map import compute_distmat
+
+    qf, gf, qp, gp, qc, gc = _k7_set(50, case)
+    g_cams = (1 << gc) | (1 << ((gc + 1) % 6)) if respect else gc
+    card, cpu, launches = _k7_ranks(cuda, (qf, gf, qp, gp, qc, g_cams),
+                                    respect_camids=respect)
+    assert launches == {"stream_extract": 1, "stream_count": 1}
+    h = card.pos.shape[1]
+    assert h > 128 if case == "heavy" else h == 64
+    np.testing.assert_array_equal(card.pos, cpu.pos)
+    np.testing.assert_array_equal(card.dpos, cpu.dpos)
+    np.testing.assert_array_equal(card.ranks, cpu.ranks)
+    order = np.argsort(compute_distmat(qf, gf, device="cpu"), axis=1,
+                       kind="stable")
+    for q in range(len(qf)):
+        o = order[q]
+        same = (((g_cams[o] >> qc[q]) & 1) == 1 if respect
+                else g_cams[o] == qc[q])
+        keep = ~((gp[o] == qp[q]) & same)
+        rank_of = (np.cumsum(keep) - 1)[np.argsort(o)]
+        hits = card.pos[q][card.pos[q] >= 0]
+        np.testing.assert_array_equal(card.ranks[q, :len(hits)],
+                                      rank_of[hits])
+
+
+def test_stream_rank_kernel_cosine_aps_match_plain(cuda):
+    """Cosine on random unit rows: the kernel's normalised products round
+    unlike the CPU's, so the APs are held within 1e-6, the query ids and
+    CMC alike."""
+    from centroids_reid_tpu_torch.metrics import eval_func_streaming
+
+    rng = np.random.RandomState(51)
+    f = rng.randn(2200, 64).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    pids = rng.randint(0, 60, 2200)
+    cams = rng.randint(0, 6, 2200)
+    args = (pids[:200], pids[200:], cams[:200], cams[200:])
+    card = eval_func_streaming(torch.from_numpy(f[:200]).to(cuda),
+                               torch.from_numpy(f[200:]).to(cuda), *args,
+                               dist="cosine")
+    cpu = eval_func_streaming(f[:200], f[200:], *args, dist="cosine",
+                              device="cpu")
+    np.testing.assert_array_equal(card.single_performance[:, 0],
+                                  cpu.single_performance[:, 0])
+    np.testing.assert_allclose(card.single_performance[:, 2],
+                               cpu.single_performance[:, 2], atol=1e-6)
+    np.testing.assert_allclose(card.cmc, cpu.cmc, atol=1e-6)
+    assert abs(card.mAP - cpu.mAP) <= 1e-6
+
+
+def test_stream_rank_kernel_on_a_two_shard_card_mesh(cuda):
+    """Two shards on one card (the second starts at row 2,048, mid-way
+    through the 3,077): one extract and one count launch per shard, the
+    extractions summed before the count; ranks and distances equal the
+    CPU's unsharded ones."""
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
+    data = _k7_set(52, "ragged")
+    card, cpu, launches = _k7_ranks(
+        cuda, data, g_chunk=1024,
+        mesh=make_retrieval_mesh(devices=["cuda"] * 2))
+    assert launches == {"stream_extract": 2, "stream_count": 2}
+    np.testing.assert_array_equal(card.dpos, cpu.dpos)
+    np.testing.assert_array_equal(card.ranks, cpu.ranks)
+
+
+def test_stream_rank_kernel_orders_duplicates_by_index(cuda):
+    """Bit-identical copies of two hit rows with random fp32 values, before
+    and after each hit and across the kernel's 256-row gallery tiles
+    (255 | 256, 767 | 768), half of them hits too: equal distances, so
+    they count by index, exactly as the plain
+    version and as the stable argsort of float64 distances. Queries and
+    copies lie around one centre, 30 rows closer to it and the rest far
+    out, so no other row comes within rounding of a copy's distance. Each
+    distance is about 1.3 left of norms near 128, so the two devices'
+    values differ by a few units of 128's last place (1.5e-5): 1e-4."""
+    rng = np.random.RandomState(53)
+    q, g, d = 130, 1500, 64
+    c = rng.randn(d)
+    qf = (c + 0.1 * rng.randn(q, d)).astype(np.float32)
+    gf = (c + 3.0 * rng.randn(g, d)).astype(np.float32)
+    gf[300:330] = c + 0.02 * rng.randn(30, d)
+    qp, gp = np.full(q, 1), rng.randint(10, 40, g)
+    qc, gc = rng.randint(0, 6, q), rng.randint(0, 6, g)
+    for pid, hit, copies, queries in (
+            (1, 130, (0, 127, 128, 129, 131, 255, 256, 1499), slice(0, 60)),
+            (2, 700, (5, 699, 701, 767, 768, 1023), slice(60, q))):
+        gf[hit] = c + 0.1 * rng.randn(d)
+        gf[list(copies)] = gf[hit]
+        gp[hit] = pid
+        gp[list(copies[::2])] = pid
+        qp[queries] = pid
+    card, cpu, launches = _k7_ranks(cuda, (qf, gf, qp, gp, qc, gc))
+    assert launches == {"stream_extract": 1, "stream_count": 1}
+    np.testing.assert_array_equal(card.ranks, cpu.ranks)
+    np.testing.assert_allclose(card.dpos, cpu.dpos, rtol=0, atol=1e-4)
+    d64 = ((qf.astype(np.float64)[:, None, :] - gf[None]) ** 2).sum(axis=2)
+    for qi in range(q):
+        o = np.argsort(d64[qi], kind="stable")
+        keep = ~((gp[o] == qp[qi]) & (gc[o] == qc[qi]))
+        rank_of = (np.cumsum(keep) - 1)[np.argsort(o)]
+        hits = card.pos[qi][card.pos[qi] >= 0]
+        np.testing.assert_array_equal(card.ranks[qi, :len(hits)],
+                                      rank_of[hits])
+        assert len(set(card.dpos[qi, :len(hits)].tolist())) == 1
+    assert (card.num_rel > 2).sum() > q // 2
+
+
+def test_stream_rank_kernel_worst_case_every_row_searched(cuda):
+    """The queries' hits are the farthest rows of the gallery, so every kept
+    row falls under each query's farthest hit and is searched, and every
+    row but the hits lands in the first histogram slot: the kernel's
+    atomics at their most contended. A few queries have no hit. Integer
+    rows: equal to the CPU."""
+    rng = np.random.RandomState(54)
+    q, g, d = 260, 4100, 64
+    qf = rng.randint(-2, 3, (q, d)).astype(np.float32)
+    gf = rng.randint(-2, 3, (g, d)).astype(np.float32)
+    qp, gp = np.zeros(q, np.int64), np.full(g, 99)
+    qp[-5:] = 7
+    rows = rng.choice(g, 3, replace=False)
+    gp[rows] = 0
+    gf[rows] = 40.0 + rng.randint(-1, 2, (3, d))
+    qc, gc = rng.randint(0, 6, q), rng.randint(0, 6, g)
+    card, cpu, _ = _k7_ranks(cuda, (qf, gf, qp, gp, qc, gc))
+    np.testing.assert_array_equal(card.ranks, cpu.ranks)
+    np.testing.assert_array_equal(card.dpos, cpu.dpos)
+    far = np.where(card.pos >= 0, card.ranks, 0).max(axis=1)
+    with_hits = card.num_rel > 0
+    assert with_hits.sum() > q // 2 and not with_hits[-5:].any()
+    assert (far[with_hits] >= g - 3).all()
 
 
 @pytest.mark.parametrize("hw", [(256, 128), (32, 16)])

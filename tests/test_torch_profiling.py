@@ -4,13 +4,12 @@ and the spans and counters of the streaming evaluator, on the CPU.
 A span costs a flag check with no profiler running and records nothing;
 under a profiler it is a ``user_annotation`` of the exported trace, kept
 in memory on the trace's clock with the span that holds it. Counters
-count only under a profiler. An evaluation records its layer spans once
-each and its two passes once a query chunk, and the count pass's compares
-counted from host values agree with the positives table. Tracing leaves
-the metrics bit for bit as they are."""
+count only under a profiler. An evaluation records its layer spans and
+its two passes once each, and the count pass's counters, counted from
+host values, agree with the positives table and with a count by hand.
+Tracing leaves the metrics bit for bit as they are."""
 
 import json
-import math
 from collections import Counter
 from unittest import mock
 
@@ -117,29 +116,72 @@ def _small_tiles(g_chunk):
 def test_streaming_evaluation_spans_and_counters():
     q, g, g_chunk = 300, 500, 64
     feats, pid, cam = _reid_set(q, g)
-    r1 = R1mAP(q, streaming=True, device="cpu")
+    r1 = R1mAP(q, streaming=True, feat_norm=False, device="cpu")
     with _small_tiles(g_chunk), _cpu_profile():
         r1.compute(feats, pid, cam)
     names = Counter(s.name for s in profiling.spans())
-    chunks = math.ceil(q / S._Q_CHUNK)
     assert names == {"eval": 1, "eval.positives": 1, "eval.place": 1,
-                     "eval.extract": chunks, "eval.count": chunks,
+                     "eval.extract": 1, "eval.count": 1,
                      "eval.to_host": 1, "eval.metrics": 1}
     root = next(s for s in profiling.spans() if s.name == "eval")
     assert all(s.parent == root.index for s in profiling.spans()
                if s.name != "eval")
 
-    # by hand: each query's hits (same pid, another camera), H padded to
-    # whole compare tiles, 128 query rows a chunk, the gallery padded to
-    # whole score tiles
+    # by hand: each query's hits (same pid, another camera) against every
+    # gallery row; the rows searched are the farthest hits' ranks
     q_pid, g_pid, q_cam, g_cam = pid[:q], pid[q:], cam[:q], cam[q:]
     hits = ((g_pid[None, :] == q_pid[:, None])
             & (g_cam[None, :] != q_cam[:, None])).sum(axis=1)
-    h = math.ceil(hits.max() / S._H_CHUNK) * S._H_CHUNK
-    g_padded = math.ceil(g / g_chunk) * g_chunk
+    sr = S.compute_stream_ranks(feats[:q], feats[q:], q_pid, g_pid, q_cam,
+                                g_cam, g_chunk=g_chunk, device="cpu")
     assert profiling.counts() == {
-        "eval.pairs_compared": chunks * S._Q_CHUNK * h * g_padded,
-        "eval.pairs_useful": int(hits.sum()) * g}
+        "eval.pairs_compared": int(hits.sum()) * g,
+        "eval.pairs_useful": int(hits.sum()) * g,
+        "eval.entries_searched": int(np.where(sr.pos >= 0, sr.ranks, 0)
+                                     .max(axis=1).sum()),
+        "eval.entries_scanned": q * g}
+
+
+# A line of rows (the first coordinate; squared distances are exact
+# integers) with ties: q0 at 0 (pid 1, camera 0) has hits 0 (d 9, tied
+# with rows 2 and 4 after it) and 5 (d 36), row 3 its junk; q1 at 10
+# (pid 2, camera 1) has hit 7 (d 4, tied with row 9 after it), row 6 its
+# junk; q2 (pid 9) has none.
+_LINE_Q = ([0, 10, 5], [1, 2, 9], [0, 1, 0])
+_LINE_G = ([3, 1, -3, 2, 3, 6, 10, 12, 9, 8], [1, 5, 5, 1, 6, 1, 2, 2, 7, 7],
+           [1, 0, 0, 0, 2, 2, 1, 0, 1, 1])
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+@pytest.mark.parametrize("respect_camids", [False, True])
+def test_streaming_counters_by_hand(respect_camids, shards):
+    """q0's kept rows in order: 1 (d 1), 0, 2, 4 (d 9, by index), 5 (d 36),
+    ...: ranks 1 and 4, and 4 rows lie under its farthest hit; q1's: 8
+    (d 1), 7, 9 (d 4): rank 1, 1 row searched; q2 searches none. Cameras
+    as bitmasks under ``respect_camids``; two CPU shards of 8 and 2 rows."""
+    from centroids_reid_tpu_torch.parallel import make_retrieval_mesh
+
+    def rows(values):
+        f = np.zeros((len(values), 4), np.float32)
+        f[:, 0] = values
+        return f
+
+    (qv, qp, qc), (gv, gp, gc) = _LINE_Q, _LINE_G
+    g_cams = (1 << np.array(gc)) if respect_camids else np.array(gc)
+    mesh = make_retrieval_mesh(devices=["cpu"] * shards) if shards else None
+    with _cpu_profile():
+        sr = S.compute_stream_ranks(rows(qv), rows(gv), np.array(qp),
+                                    np.array(gp), np.array(qc), g_cams,
+                                    respect_camids=respect_camids, mesh=mesh,
+                                    g_chunk=4, device="cpu")
+    np.testing.assert_array_equal(sr.num_rel, [2, 1, 0])
+    np.testing.assert_array_equal(sr.pos[:, :2], [[0, 5], [7, -1],
+                                                  [-1, -1]])
+    np.testing.assert_array_equal(sr.ranks[:, :2], [[1, 4], [1, 0], [0, 0]])
+    np.testing.assert_array_equal(sr.dpos[:, :2], [[9, 36], [4, 0], [0, 0]])
+    assert profiling.counts() == {
+        "eval.pairs_compared": 3 * 10, "eval.pairs_useful": 3 * 10,
+        "eval.entries_searched": 4 + 1 + 0, "eval.entries_scanned": 3 * 10}
 
 
 @pytest.mark.parametrize("rerank_window", [0, 40])

@@ -26,6 +26,7 @@ from centroids_reid_tpu_torch.metrics import (
 from centroids_reid_tpu_torch.metrics import r1_map
 from centroids_reid_tpu_torch.metrics import streaming_eval as S
 from centroids_reid_tpu_torch.metrics.r1_map import compute_distmat
+from centroids_reid_tpu_torch.ops.stream_rank import order_key
 
 
 def _random_reid_set(seed, q=23, g=157, d=16, pids=9, cams=4):
@@ -188,11 +189,12 @@ def test_streaming_accepts_list_and_tensor_galleries():
     [0.0, -0.0, 1.5, -1.5, 3e-45, -3e-45, 2.0, 2.0, -7.25, float("inf")],
 ])
 def test_order_key_is_lexicographic(values):
-    """``_order_key`` orders (d, j) as the reference's float comparisons:
-    d first (-0.0 equal to +0.0), then j."""
+    """``order_key`` (the count's keys, ``ops/stream_rank.py``) orders
+    (d, j) as the reference's float comparisons: d first (-0.0 equal to
+    +0.0), then j."""
     d = torch.tensor(values, dtype=torch.float32)
     j = torch.arange(len(values)) * 7 % len(values)
-    key = S._order_key(d, j)
+    key = order_key(d, j)
     for a in range(len(values)):
         for b in range(len(values)):
             before = (d[a] < d[b]) | ((d[a] == d[b]) & (j[a] < j[b]))
