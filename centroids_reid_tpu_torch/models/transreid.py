@@ -26,8 +26,14 @@ The forward of one image batch:
   BNNecks (``TEST.NECK_FEAT before``) or after them (``after``), fp32.
 
 Attention is ``scaled_dot_product_attention`` (scale 1 / sqrt(head dim));
-with ``mixed_precision`` the model runs under bf16 autocast. Training
-(JPM's ID and triplet losses over the five branches) is not ported.
+with ``mixed_precision`` the model runs under bf16 autocast. Every
+LayerNorm runs with the residual add before it as one site
+(``ops/add_norm.py``: K8 on the card, today's ops on the CPU): the
+trunk carries each block's MLP branch to the next block's ``norm1``
+instead of adding it at the block's end, and a site that feeds a linear
+writes its output in autocast's dtype, as the linear would cast it.
+Training (JPM's ID and triplet losses over the five branches) is not
+ported.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.profiling import annotate
+from ..ops.add_norm import add_norm
+from ..utils.profiling import annotate, count
 
 # TransReID's factory names -> the widths of ``vit_pytorch.py``
 VIT_WIDTHS = {
@@ -108,6 +115,20 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def norm_site(x, delta, norm: nn.LayerNorm, to_linear: bool = True):
+    """One LayerNorm site: ``(x + delta, norm(x + delta))`` in one pass
+    (``delta`` None: no add). The output is written in the dtype its
+    consumer receives today: autocast's where it feeds a linear (``norm1``
+    -> qkv, ``norm2`` -> fc1), LayerNorm's own otherwise (``b1``'s and
+    ``b2``'s final norms: fp32 under autocast, else the stream's). Under a profiler ``vit.norms`` counts the site's
+    rows; K8's wrapper counts those it launched on as ``vit.norms_fused``."""
+    dev = x.device.type
+    dtype = (torch.get_autocast_dtype(dev)
+             if to_linear and torch.is_autocast_enabled(dev) else None)
+    count("vit.norms", x.numel() // x.shape[-1])
+    return add_norm(x, delta, norm.weight, norm.bias, norm.eps, dtype)
+
+
 class Block(nn.Module):
     """Pre-norm ViT block (LayerNorm eps 1e-6, exact GELU)."""
 
@@ -118,9 +139,17 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
+    def after_norm1(self, x, y):
+        """The block past its ``norm1`` site: ``x`` the residual stream,
+        ``y = norm1(x)`` -> (``x`` + the attention branch, the MLP branch,
+        not yet added)."""
+        x, y = norm_site(x, self.attn(y), self.norm2)
+        return x, self.mlp(y)
+
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x, y = norm_site(x, None, self.norm1)
+        x, m = self.after_norm1(x, y)
+        return x + m
 
 
 class TransReID(nn.Module):
@@ -152,16 +181,24 @@ class TransReID(nn.Module):
             return 0.0
         return self.sie_coe * self.sie_embed[cams]
 
-    def forward(self, x, cams=None):
+    def tokens(self, x, cams=None):
+        """(the residual stream after the first ``depth - 1`` blocks, the
+        last block's MLP branch still to add to it, or None)."""
         with annotate("vit.patch"):
             t = self.patch_embed(x)
             t = torch.cat((self.cls_token.expand(t.shape[0], -1, -1), t),
                           dim=1)
             t = t + self.pos_embed + self.side_info(cams)
+        pending = None
         with annotate("vit.blocks"):
             for blk in self.blocks[:-1]:
-                t = blk(t)
-        return t
+                t, y = norm_site(t, pending, blk.norm1)
+                t, pending = blk.after_norm1(t, y)
+        return t, pending
+
+    def forward(self, x, cams=None):
+        t, pending = self.tokens(x, cams)
+        return t if pending is None else t + pending
 
 
 def shuffle_unit(features, shift: int, group: int, begin: int = 1):
@@ -176,6 +213,16 @@ def shuffle_unit(features, shift: int, group: int, begin: int = 1):
         x = torch.cat([x, x[:, -2:-1, :]], dim=1)
     x = x.view(b, group, -1, d)
     return torch.transpose(x, 1, 2).contiguous().view(b, -1, d)
+
+
+def _branch(seq: nn.Sequential, x, delta=None):
+    """``b1`` or ``b2`` (a block, then the final LayerNorm) over ``x +
+    delta``: (``x + delta``, the final norm's fp32 tokens, as ``seq(x +
+    delta)``)."""
+    blk, norm = seq
+    x, y = norm_site(x, delta, blk.norm1)
+    s, m = blk.after_norm1(x, y)
+    return x, norm_site(s, m, norm, to_linear=False)[1]
 
 
 def _neck(dim: int) -> nn.BatchNorm1d:
@@ -242,7 +289,7 @@ class TransReIDModel(nn.Module):
         parts = x[:, :length * k].reshape(b, k, length, d)
         token = features[:, None, 0:1].expand(b, k, 1, d)
         seqs = torch.cat((token, parts), dim=2).reshape(b * k, length + 1, d)
-        return self.b2(seqs)[:, 0].reshape(b, k, d)
+        return _branch(self.b2, seqs)[1][:, 0].reshape(b, k, d)
 
     def features(self, x, cams=None):
         """(global feature [B, D], local features [B, k, D]), before the
@@ -251,9 +298,11 @@ class TransReIDModel(nn.Module):
             raise ValueError(
                 "TransReID with SIE (MODEL.SIE_CAMERA True) needs each "
                 "image's camera id: pass cams to embed")
-        f = self.base(x, cams)
+        t, pending = self.base.tokens(x, cams)
         with annotate("vit.global"):
-            g = self.b1(f)[:, 0]
+            # f: the backbone's tokens, which JPM reads too
+            f, g = _branch(self.b1, t, pending)
+            g = g[:, 0]
         with annotate("vit.jpm"):
             loc = self.jpm(f)
         return g, loc

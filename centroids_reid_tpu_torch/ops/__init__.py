@@ -1,4 +1,11 @@
-from . import int8_conv, rerank, retrieval, retrieval_int8, stream_rank
+from . import (
+    add_norm,
+    int8_conv,
+    rerank,
+    retrieval,
+    retrieval_int8,
+    stream_rank,
+)
 from .int8_conv import (
     conv3x3_requant,
     conv3x3_requant_plain,
@@ -31,7 +38,7 @@ from .stream_rank import (
     stream_extract_plain,
 )
 
-_MODULES = (retrieval, retrieval_int8, int8_conv, stream_rank)
+_MODULES = (retrieval, retrieval_int8, int8_conv, stream_rank, add_norm)
 
 
 def launch_counts() -> dict:

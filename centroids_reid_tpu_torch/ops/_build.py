@@ -22,11 +22,11 @@ from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu",
-            "stream_rank.cu")
+            "stream_rank.cu", "add_norm.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 7
+_ABI_VERSION = 8
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -83,6 +83,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.restype = i
         fn.argtypes = [p] * 11 + [i] * 7 + [p]
+    lib.crt_add_norm.restype = i
+    lib.crt_add_norm.argtypes = [p, i, p, i, p, p, p, p, i, i, i,
+                                 ctypes.c_float, p]
 
 
 def _compile(so: str) -> str:

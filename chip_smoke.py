@@ -56,6 +56,12 @@ bf16 autocast) and seeded random weights:
   to integers (bit for bit), timed beside their bound and cuBLAS's fp32
   GEMM. ONLY_TEST (phase 5) also runs windowed re-ranking and
   ``TEST.VISUALIZE``;
+* TransReID's LayerNorm sites (phase 3c): K8 (the residual add,
+  LayerNorm and cast in one pass) against its plain version at the two
+  site shapes of a 256-image batch, timed beside its bound, its plain
+  version and autocast's eager ops; ``extract_embeddings`` over three
+  card-resident batches of 256 with the benchmark cell's TransReID
+  (``create_model``), K8's launches and fused rows counted;
 * serving artifacts (phase 11, ``inference/export.py``): the bf16 embedder
   (symbolic batch, programs for the card and the CPU), retrievers of phase
   4's gallery at k=100 (also re-ranked at load, r=100) and k=10, and the
@@ -175,6 +181,8 @@ KERNELS = {
     # K7's two modes: the JAX package's streaming evaluator is plain jnp
     "stream_extract": ("stream_rank.cu", "none"),
     "stream_count": ("stream_rank.cu", "none"),
+    # K8: the JAX package has no ViT
+    "add_norm": ("add_norm.cu", "none"),
 }
 K7_KERNELS = ("stream_extract", "stream_count")
 BF16_KERNELS = ("scores", "stream_topk", "kpass_topk")
@@ -698,6 +706,140 @@ def phase_compare_int8() -> dict:
         "[4096,256]x[256,512] no ReLU (layer2 downsample): equal")
     torch.cuda.synchronize()
     return errs
+
+
+# K8's shapes at TransReID's batch of 256: (rows, what they are)
+K8_SHAPES = ((256 * 211, "[256, 211] tokens"),
+             (1024 * 53, "b2's [1024, 53] groups"))
+K8_WIDTH = 768
+K8_EMBED_BATCHES = 3   # of TEST.IMS_PER_BATCH (256) images
+K8_SITES = 28          # LayerNorm sites a TransReID batch: 25 + b2's 3
+# the benchmark cell market-transreid-eval's configuration
+K8_CONFIG = "portbench/configs/market-vit-transreid.json"
+
+
+def phase_k8(gpu: str) -> dict:
+    """K8 at TransReID's two site shapes ([54,016, 768] and [54,272, 768],
+    a bf16 branch, a bf16 output): held against its plain version (the
+    sum bit for bit, y within one bf16 ulp), then timed (CUDA events)
+    beside its bound, its plain version and autocast's eager add,
+    LayerNorm and cast (``library_ms``). Then the main path: the
+    benchmark cell's TransReID (ViT-B/16 at 256x128, SIE, JPM, bf16
+    autocast) built by ``create_model`` from the cell's configuration,
+    ``extract_embeddings`` over K8_EMBED_BATCHES card-resident batches:
+    K8_SITES launches a batch, every site's rows fused (``vit.norms_fused``
+    counted at the launch, against ``vit.norms`` at the sites). Returns
+    {"errs", "times", "launches"} for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine.evaluate import extract_embeddings
+    from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.utils import profiling
+
+    log("== phase 3c: K8 (residual add + LayerNorm + cast)")
+    d, bf16 = K8_WIDTH, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    errs, times = {"add_norm": 0.0}, {}
+    for rows, what in K8_SHAPES:
+        x = 2.0 * randn(rows, d) + randn(rows, 1)
+        delta = randn(rows, d).to(bf16)
+        w, b = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
+        s, y = K8.add_norm(x, delta, w, b, 1e-6, bf16)
+        ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, bf16)
+        require(torch.equal(s, ps), f"K8's sum differs from x + delta at "
+                f"{what}")
+        # one bf16 ulp at |y|, or 2e-6 near 0, where fp32 rounding of the
+        # statistics outweighs the spacing of bf16 values
+        err = (y.float() - py.float()).abs()
+        ulp = torch.ldexp(torch.ones_like(err),
+                          torch.frexp(py.float().abs())[1] - 8)
+        ulps = float((err / ulp.clamp_min(2e-6)).max())
+        differ = int((err > 0).sum())
+        require(ulps <= 1.0, f"K8's y {ulps} bf16 ulps from the plain "
+                f"version's at {what}")
+        errs["add_norm"] = max(errs["add_norm"], float(err.max()))
+        log(f"K8 against its plain version at [{rows}, {d}] ({what}): sum "
+            f"bit for bit; y max |diff| {float(err.max()):.3e}, at most "
+            f"one bf16 ulp (or 2e-6), {differ} of {y.numel()} values "
+            f"differ")
+
+        def autocast_chain():
+            with torch.autocast("cuda", dtype=bf16):
+                return F.layer_norm(x + delta, (d,), w, b, 1e-6).to(bf16)
+
+        k_ms, p_ms, lib_ms = time_pair(
+            "add_norm", lambda: K8.add_norm(x, delta, w, b, 1e-6, bf16),
+            lambda: K8.add_norm_plain(x, delta, w, b, 1e-6, bf16),
+            f"[{rows}, {d}] ({what})", library=autocast_chain)
+        # x and delta read, the sum and y written; about 9 fp32 operations
+        # an element (add, mean, variance, normalise, scale, shift)
+        b_ms, b_by = bound(f"add_norm [{rows}, {d}]",
+                           nbytes(x, delta, w, b, s, y), 9.0 * x.numel(),
+                           "fp32")
+        log(f"add_norm [{rows}, {d}]: {k_ms:.4f} ms, "
+            f"{nbytes(x, delta, s, y) / k_ms / 1e6:.0f} GB/s, "
+            f"{b_ms / k_ms:.3f} of its bound {b_ms:.4f} ms; plain "
+            f"{p_ms:.4f} ms, autocast's add + LayerNorm + cast {lib_ms:.4f} "
+            f"ms [{gpu}]")
+        if "add_norm" not in times:
+            host = host_us_per_launch(
+                lambda: K8.add_norm(x, delta, w, b, 1e-6, bf16))
+            log(f"add_norm: {host:.1f} us of host time a launch (enqueue, "
+                f"50 launches)")
+            times["add_norm"] = {"ms": k_ms, "plain_ms": p_ms,
+                                 "library_ms": lib_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "host_us": host}
+        del x, delta, s, y, ps, py, err, ulp
+
+    with open(K8_CONFIG) as f:
+        config = json.load(f)
+    cfg = get_default_cfg()
+    cfg.merge_from_list([str(v) for v in config["opts"]["eval"]])
+    cfg.freeze()
+    model = create_model(cfg, num_classes=0,
+                         generator=torch.Generator().manual_seed(SEED),
+                         cameras=int(config["gallery"]["cams"]))
+    model = model.cuda().to(memory_format=torch.channels_last).eval()
+    size, (h, w) = int(cfg.TEST.IMS_PER_BATCH), tuple(cfg.INPUT.SIZE_TEST)
+    rng = np.random.RandomState(SEED + 20)
+    loader = [{"images": torch.randint(0, 256, (size, h, w, 3),
+                                       dtype=torch.uint8, device="cuda"),
+               "pids": np.arange(size), "camids": rng.randint(0, 6, size),
+               "valid": np.ones(size, bool)}
+              for _ in range(K8_EMBED_BATCHES)]
+    extract_embeddings(model, cfg, loader[:1])   # warm
+    K8.reset_launch_counts()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        emb = extract_embeddings(model, cfg, loader)[0]
+    counts = profiling.counts()
+    profiling.reset()
+    launches = K8.LAUNCHES["add_norm"]
+    want = K8_EMBED_BATCHES * size * (25 * 211 + 3 * 4 * 53)
+    require(launches == K8_SITES * K8_EMBED_BATCHES
+            and counts.get("vit.norms") == want
+            and counts.get("vit.norms_fused") == want
+            and emb.shape == (K8_EMBED_BATCHES * size, model.emb_size)
+            and bool(np.isfinite(emb).all()),
+            f"extract_embeddings over {K8_EMBED_BATCHES} TransReID batches: "
+            f"{launches} K8 launches, {counts}, embeddings {emb.shape}")
+    log(f"extract_embeddings, the cell's TransReID (create_model; ViT-B/16, "
+        f"256x128, bf16 autocast), {K8_EMBED_BATCHES} batches of {size}: "
+        f"{launches} K8 launches ({launches // K8_EMBED_BATCHES} a batch), "
+        f"vit.norms_fused / vit.norms {counts['vit.norms_fused']} / "
+        f"{counts['vit.norms']}")
+    launches //= K8_EMBED_BATCHES   # the kernels line: launches a batch
+    del model, loader
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "launches": {"add_norm": launches}}
 
 
 RESIDUAL_GAIN = 0.1     # scale of each bottleneck's last BN
@@ -5476,6 +5618,8 @@ def main() -> int:
     k2u_err, k2u_launches = timed("3a", phase_compare_k2u)
     errs.update(k2u_err)
     errs.update(timed("3b", phase_compare_int8))
+    k8 = timed("3c", phase_k8, gpu_line())
+    errs.update(k8["errs"])
     with tempfile.TemporaryDirectory() as tmp:
         state = timed("4", phase_serve, tmp)
         int8_state = timed("4b", phase_serve_int8, state)
@@ -5499,11 +5643,12 @@ def main() -> int:
     # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
     # serving path, K5 and K6 the int8 serving path and phase 15's int8
     # IBN embed (80x80, 40x40 and 20x20 feature maps), K7 phase 10's
-    # whole-cell evaluation
+    # whole-cell evaluation, K8 phase 3c's extract_embeddings (a batch)
     for name, err in fashion["errs"].items():
         errs[name] = max(errs[name], err)
     errs.update(stream["errs"])
     times.update(stream["times"])
+    times.update(k8["times"])
     launches = {
         "scores": state["launches"]["scores"],
         "stream_topk": state["launches"]["stream_topk"],
@@ -5515,6 +5660,7 @@ def main() -> int:
         "conv3x3_requant": int8_state["launches"]["conv3x3_requant"]
         + fashion["launches"]["conv3x3_requant"],
         **stream["k7_launches"],
+        **k8["launches"],
     }
     for name, embed in (("bf16", "cuDNN"), ("int8", "unfused int8 convs")):
         log(f"{name} evaluation kernel launches (no hand-written kernel: "

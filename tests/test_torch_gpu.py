@@ -10,7 +10,9 @@ so K1, K2, K2u and K4 must equal their plain versions bit for bit; K3 is
 exact by construction; K5 and K6 accumulate exactly in int32 and round
 their epilogue op by op, so they equal their plain versions bit for bit;
 K7's fp32 euclidean distances of integer rows are exact, so its extracted
-distances and ranks equal its plain versions' bit for bit.
+distances and ranks equal its plain versions' bit for bit; K8's residual
+sum equals PyTorch's add bit for bit, and its LayerNorm, whose statistics
+are summed in another order, lies within one bf16 ulp of the eager ops.
 The evaluation metrics and the wide-row selection run on the card against
 the same code on the CPU, the serving artifacts against the live path."""
 
@@ -1505,3 +1507,232 @@ def test_nccl_step_at_world_one_equals_the_plain_step(cuda, tmp_path):
     assert plain.keys() == reduced.keys()
     for k in plain:
         assert torch.equal(plain[k], reduced[k]), k
+
+
+# K8: (rows, D, delta dtype, y dtype). TransReID's sites at the cell's
+# batch of 256: [256 x 211, 768] and b2's [1024 x 53, 768] with a bf16
+# branch and a bf16 output, no branch (block 0's and b2's norm1), an fp32
+# output (b1's and b2's final norms), all fp32 (autocast off); a ragged 7
+# rows (one part-filled block); the other built widths.
+K8_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
+            (1024 * 53, 768, torch.bfloat16, torch.bfloat16),
+            (7, 768, torch.bfloat16, torch.bfloat16),
+            (256 * 211, 768, None, torch.bfloat16),
+            (256 * 211, 768, torch.bfloat16, torch.float32),
+            (4096, 768, torch.float32, torch.float32),
+            (4096, 384, torch.bfloat16, torch.bfloat16),
+            (33, 384, None, torch.float32),
+            (4096, 1024, torch.float32, torch.bfloat16)]
+# A bf16 residual stream (a model cast wholly to bf16): bf16 x, weight
+# and bias, a bf16 branch or none, y bf16 (LayerNorm's own) or fp32.
+K8_BF16_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
+                 (1024 * 53, 768, None, torch.bfloat16),
+                 (7, 768, torch.bfloat16, torch.float32),
+                 (33, 384, torch.bfloat16, torch.bfloat16)]
+K8_FP32_ATOL = 2e-6   # y in fp32: the statistics summed in another order
+
+
+def _k8_inputs(cuda, rows, d, delta_dtype, seed=11, stream=torch.float32):
+    """(x with a per-row offset, as the residual stream has, the branch or
+    None, weight, bias); x, weight and bias in ``stream``'s type."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    x = 2.0 * randn(rows, d) + randn(rows, 1)
+    delta = None if delta_dtype is None else randn(rows, d).to(delta_dtype)
+    return (x.to(stream), delta, (1.0 + 0.1 * randn(d)).to(stream),
+            (0.1 * randn(d)).to(stream))
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    e = torch.frexp(v.float().abs())[1]
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("rows,d,delta_dtype,y_dtype", K8_CASES)
+def test_add_norm_kernel_matches_plain(cuda, rows, d, delta_dtype, y_dtype):
+    """K8 against ``add_norm_plain`` (the add, ``F.layer_norm`` and the
+    cast as eager ops) on the card: ``x + delta`` bit for bit; ``y``
+    within one bf16 ulp of the plain version's (or K8_FP32_ATOL where
+    that is less, near 0), or within K8_FP32_ATOL in fp32."""
+    _hold_k8_to_plain(*_k8_inputs(cuda, rows, d, delta_dtype), y_dtype)
+
+
+@pytest.mark.parametrize("rows,d,delta_dtype,y_dtype", K8_BF16_CASES)
+def test_add_norm_kernel_bf16_stream_matches_plain(cuda, rows, d,
+                                                   delta_dtype, y_dtype):
+    """K8 on a bf16 residual stream (bf16 x, weight and bias, as in a
+    TransReID cast wholly to bf16) against ``add_norm_plain``: the bf16
+    sum bit for bit (PyTorch's bf16 add rounds the fp32 sum to nearest
+    even, as K8 does), ``y`` as in the fp32 stream's cases. An fp32 ``y``
+    is LayerNorm's own only under autocast, so that case runs there."""
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=y_dtype == torch.float32):
+        _hold_k8_to_plain(*_k8_inputs(cuda, rows, d, delta_dtype,
+                                      stream=torch.bfloat16), y_dtype)
+
+
+def _hold_k8_to_plain(x, delta, w, b, y_dtype):
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    K8.reset_launch_counts()
+    s, y = K8.add_norm(x, delta, w, b, 1e-6, y_dtype)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES["add_norm"] == 1
+    ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, y_dtype)
+    assert torch.equal(s, ps) and s.dtype == x.dtype
+    if delta is None:
+        assert s is x
+    assert y.dtype == y_dtype and y.shape == x.shape
+    err = (y.float() - py.float()).abs()
+    if y_dtype == torch.bfloat16:
+        tol = _bf16_ulp(py).clamp_min(K8_FP32_ATOL)
+        assert bool((err <= tol).all()), float((err / tol).max())
+    else:
+        assert float(err.max()) <= K8_FP32_ATOL
+
+
+def test_add_norm_kernel_refuses_other_widths(cuda):
+    """A row width the kernel is not built for raises before a launch."""
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    x, delta, w, b = _k8_inputs(cuda, 16, 640, torch.bfloat16)
+    K8.reset_launch_counts()
+    with pytest.raises(ValueError, match="built for rows"):
+        K8.add_norm(x, delta, w, b, 1e-6, torch.bfloat16)
+    assert K8.LAUNCHES["add_norm"] == 0
+
+
+def test_transreid_embed_runs_k8_at_every_site(cuda, monkeypatch):
+    """One TransReID embed of a 4-image batch at the published widths
+    (ViT-B/16, 256x128, stride 12, SIE, JPM; seeded weights) on the card:
+    28 K8 launches and every site's rows fused (``vit.norms_fused`` ==
+    ``vit.norms``). In fp32 (autocast off, TF32 off) within 1e-4
+    (relative, per row) of the CPU. Under bf16 autocast within the
+    benchmark cell's ``emb_rel_err`` limit, 0.03, of the CPU's fp32, as
+    the same model with its sites on the eager ops (``add_norm_plain``
+    patched in, which fuses none) is, and of that eager run: a bf16
+    rounding that flips at
+    one site spreads through attention to the whole image, so the two
+    bf16 runs differ by bf16 noise, not by K8's fp32 rounding."""
+    from centroids_reid_tpu_torch.models import transreid as T
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.utils import profiling
+
+    m = T.init_transreid(T.TransReIDModel(cameras=6),
+                         torch.Generator().manual_seed(2)).eval()
+    x = torch.randn(4, 3, 256, 128, generator=torch.Generator().manual_seed(3))
+    cams = torch.tensor([0, 5, 2, 3])
+
+    def rel(a, b):
+        return float(((a.float() - b.float()).norm(dim=1)
+                      / b.float().norm(dim=1)).max())
+
+    def embed(mixed, device):
+        m.mixed_precision = mixed
+        with torch.no_grad():
+            return m.to(device).embed(x.to(device), cams.to(device))
+
+    K8.reset_launch_counts()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        fused = embed(True, cuda)
+        torch.cuda.synchronize()
+    counts = profiling.counts()
+    profiling.reset()
+    assert K8.LAUNCHES["add_norm"] == 28
+    assert counts["vit.norms"] == 25 * 4 * 211 + 3 * 16 * 53
+    assert counts["vit.norms_fused"] == counts["vit.norms"]
+    with monkeypatch.context() as mp, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        mp.setattr(T, "add_norm", K8.add_norm_plain)
+        eager = embed(True, cuda)
+        torch.cuda.synchronize()
+    counts = profiling.counts()
+    profiling.reset()
+    assert K8.LAUNCHES["add_norm"] == 28
+    # on the eager ops every site is counted and none fused
+    assert counts["vit.norms"] == 25 * 4 * 211 + 3 * 16 * 53
+    assert "vit.norms_fused" not in counts
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = embed(False, cuda).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cpu = embed(False, "cpu")
+    errs = (rel(card, cpu), rel(fused.cpu(), cpu), rel(eager.cpu(), cpu),
+            rel(fused, eager))
+    assert errs[0] < 1e-4, errs
+    assert max(errs[1:]) < 0.03, errs
+
+
+def test_bf16_trunk_embed_runs_k8_at_every_site(cuda, monkeypatch):
+    """The benchmark's ``control_bf16`` (``harness/evalembed.py::bf16_trunk``:
+    the cell's TransReID, made by ``create_model`` from the cell's
+    configuration, cast wholly to bf16, residual stream and LayerNorms
+    included, autocast off) embeds a batch of 4 through ``make_embed_fn``
+    on the card: 28 K8 launches on the bf16 stream, every site's rows
+    fused. Within the cell's ``emb_rel_err`` limit, 0.03 (relative, per
+    row), of the same bf16 model with its sites on the eager ops
+    (``add_norm_plain`` patched in, none fused): the two differ by bf16
+    roundings that flip at a site and spread, as the autocast case's do."""
+    import json
+    import os
+
+    from centroids_reid_tpu_torch.config import get_default_cfg
+    from centroids_reid_tpu_torch.engine.evaluate import make_embed_fn
+    from centroids_reid_tpu_torch.models import create_model
+    from centroids_reid_tpu_torch.models import transreid as T
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.utils import profiling
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench")
+    monkeypatch.syspath_prepend(bench)
+    from harness import evalembed
+
+    with open(os.path.join(bench, "configs",
+                           "market-vit-transreid.json")) as f:
+        config = json.load(f)
+    cfg = get_default_cfg()
+    cfg.merge_from_list([str(v) for v in config["opts"]["eval"]])
+    model = create_model(cfg, num_classes=0,
+                         generator=torch.Generator().manual_seed(2),
+                         cameras=6).to(cuda).eval()
+    low_cfg, low = evalembed.bf16_trunk(cfg, model)
+    del model
+    g = torch.Generator().manual_seed(3)
+    imgs = torch.randint(0, 256, (4, 256, 128, 3), generator=g,
+                         dtype=torch.uint8).to(cuda)
+    cams = torch.tensor([0, 5, 2, 3], device=cuda)
+    sites = 25 * 4 * 211 + 3 * 16 * 53
+
+    def embed():
+        K8.reset_launch_counts()
+        profiling.reset()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+            e = make_embed_fn(low, low_cfg)(imgs, cams)
+            torch.cuda.synchronize()
+        counts = profiling.counts()
+        profiling.reset()
+        return e, K8.LAUNCHES["add_norm"], counts
+
+    fused, launches, counts = embed()
+    assert next(low.parameters()).dtype == torch.bfloat16
+    assert launches == 28
+    assert counts["vit.norms"] == counts["vit.norms_fused"] == sites
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "add_norm", K8.add_norm_plain)
+        eager, launches, counts = embed()
+    assert launches == 0
+    assert counts["vit.norms"] == sites and "vit.norms_fused" not in counts
+    err = float(((fused.float() - eager.float()).norm(dim=1)
+                 / eager.float().norm(dim=1)).max())
+    print(f"bf16 trunk, K8 against the eager sites: {err:.3e}")
+    assert torch.isfinite(fused).all() and err < 0.03, err

@@ -186,7 +186,9 @@ def test_embed_path_passes_camera_ids(tiny):
 def test_embed_path_records_the_trunk_spans(tiny):
     """Under a profiler ``extract_embeddings`` is the root span ``embed``,
     the model's four spans run once a batch below it, and the counters
-    hold the real images and the rows launched."""
+    hold the real images, the rows launched and the LayerNorm sites' rows:
+    2 x (DEPTH - 1) + 3 sites over each batch's [4, 46] tokens, ``b2``'s 3
+    over its [16, 12] groups; on the CPU none is fused."""
     cfg = _cfg()
     m = create_model(cfg, cameras=6)
     imgs, cams = _images(10, (112, 64), 5), torch.arange(10) % 6
@@ -201,7 +203,9 @@ def test_embed_path_records_the_trunk_spans(tiny):
         kids = [s for s in spans if s.name == name]
         assert len(kids) == 3, name
         assert all(s.parent == roots[0].index for s in kids), name
-    assert profiling.counts() == {"embed.images": 10, "embed.rows": 12}
+    norms = 3 * ((2 * (DEPTH - 1) + 3) * 4 * 46 + 3 * 16 * 12)
+    assert profiling.counts() == {"embed.images": 10, "embed.rows": 12,
+                                  "vit.norms": norms}
     profiling.reset()
 
 
@@ -283,6 +287,153 @@ def test_published_widths():
     blk = m.base.blocks[0]
     assert blk.attn.num_heads == 12 and blk.mlp.fc1.out_features == 3072
     assert blk.norm1.eps == 1e-6 and m.emb_size == 3840
+
+
+def _residual(rows=6, d=D, seed=7):
+    """(x fp32 [2, rows, d], a branch fp32, the LayerNorm's weight and bias)
+    with a per-row offset, as the residual stream has."""
+    g = torch.Generator().manual_seed(seed)
+    x = 2.0 * torch.randn(2, rows, d, generator=g) + torch.randn(
+        2, rows, 1, generator=g)
+    return (x, torch.randn(2, rows, d, generator=g),
+            1.0 + 0.1 * torch.randn(d, generator=g),
+            0.1 * torch.randn(d, generator=g))
+
+
+@pytest.mark.parametrize("delta_dtype", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("y_dtype", [None, torch.float32, torch.bfloat16])
+def test_add_norm_plain_is_todays_ops(delta_dtype, y_dtype):
+    """``add_norm_plain`` (and ``add_norm`` on the CPU, which takes it and
+    launches nothing) gives bit for bit ``x + delta``, ``F.layer_norm``
+    and the cast; with no delta it returns x itself."""
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    x, b, w, bias = _residual()
+    delta = None if delta_dtype is None else b.to(delta_dtype)
+    s = x if delta is None else x + delta
+    y = torch.nn.functional.layer_norm(s, (D,), w, bias, 1e-6)
+    y = y if y_dtype is None else y.to(y_dtype)
+    K8.reset_launch_counts()
+    for fn in (K8.add_norm_plain, K8.add_norm):
+        got_s, got_y = fn(x, delta, w, bias, 1e-6, y_dtype)
+        assert torch.equal(got_s, s) and got_s.dtype == torch.float32
+        assert torch.equal(got_y, y) and got_y.dtype == y.dtype
+        if delta is None:
+            assert got_s is x
+    assert K8.LAUNCHES["add_norm"] == 0
+
+
+@pytest.mark.parametrize("delta", [True, False])
+@pytest.mark.parametrize("y_dtype", [None, torch.bfloat16])
+def test_add_norm_plain_on_a_bf16_stream(delta, y_dtype):
+    """On a bf16 residual stream (bf16 x, branch, weight and bias, a
+    model cast wholly to bf16) ``add_norm`` on the CPU is bit for bit the
+    bf16 add and ``F.layer_norm``, whose output is bf16 (None)."""
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    x, b, w, bias = (t.bfloat16() for t in _residual())
+    b = b if delta else None
+    s = x if b is None else x + b
+    y = torch.nn.functional.layer_norm(s, (D,), w, bias, 1e-6)
+    K8.reset_launch_counts()
+    got_s, got_y = K8.add_norm(x, b, w, bias, 1e-6, y_dtype)
+    assert got_s.dtype == torch.bfloat16 and torch.equal(got_s, s)
+    assert got_y.dtype == torch.bfloat16 and torch.equal(got_y, y)
+    assert K8.LAUNCHES["add_norm"] == 0
+
+
+@pytest.mark.parametrize("fault", ["width", "x_dtype", "delta_shape",
+                                   "y_dtype", "weight", "grad",
+                                   "bf16_stream_fp32_delta",
+                                   "weight_dtype", "bf16_stream_fp32_y"])
+def test_add_norm_kernel_refuses(fault):
+    """The kernel's wrapper refuses, before any launch, what K8 does not
+    take: a width it is not built for, a residual stream other than fp32
+    or bf16, a delta of another shape, y other than fp32 or bf16, a weight
+    of another width, tensors that need a gradient (K8 has no backward),
+    an fp32 delta on a bf16 stream (PyTorch would promote the sum to
+    fp32), a weight of another type than the stream, and an fp32 y of a
+    bf16 stream outside autocast (the eager LayerNorm's is bf16)."""
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    x, b, w, bias = _residual(d=768)
+    args = {"x": x, "delta": b.to(torch.bfloat16), "weight": w,
+            "bias": bias, "eps": 1e-6, "dtype": torch.bfloat16}
+    err = ValueError
+    if fault == "width":
+        x, b, w, bias = _residual(d=640)
+        args.update(x=x, delta=b, weight=w, bias=bias)
+    elif fault == "x_dtype":
+        args["x"], err = x.double(), TypeError
+    elif fault == "delta_shape":
+        args["delta"] = b[:, :3]
+    elif fault == "y_dtype":
+        args["dtype"], err = torch.float16, TypeError
+    elif fault == "weight":
+        args["weight"] = w[:384]
+    elif fault == "bf16_stream_fp32_delta":
+        args.update(x=x.bfloat16(), delta=b, weight=w.bfloat16(),
+                    bias=bias.bfloat16())
+    elif fault == "weight_dtype":
+        args["weight"] = w.bfloat16()
+    elif fault == "bf16_stream_fp32_y":
+        args.update(x=x.bfloat16(), weight=w.bfloat16(),
+                    bias=bias.bfloat16(), dtype=torch.float32)
+        err = TypeError
+    else:
+        args["x"], err = x.requires_grad_(), RuntimeError
+    with pytest.raises(err):
+        K8._launch(**args)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_block_forward_alone_is_unchanged(mixed):
+    """``Block.forward`` called alone gives bit for bit the composition it
+    had before the fused sites, ``x + attn(norm1(x))`` then ``+
+    mlp(norm2(x))``, with and without bf16 autocast."""
+    m = _model()
+    blk = m.base.blocks[1]
+    x = _residual(rows=46)[0]
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16,
+                                         enabled=mixed):
+        got = blk(x)
+        h = x + blk.attn(blk.norm1(x))
+        want = h + blk.mlp(blk.norm2(h))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_bf16_block_forward_alone_is_unchanged():
+    """A block cast wholly to bf16 (its residual stream too, as the
+    benchmark's bf16 control runs it) gives bit for bit the eager
+    composition in bf16."""
+    blk = _model().base.blocks[1].bfloat16()
+    x = _residual(rows=46)[0].bfloat16()
+    with torch.no_grad():
+        got = blk(x)
+        h = x + blk.attn(blk.norm1(x))
+        want = h + blk.mlp(blk.norm2(h))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+def test_trunk_counts_its_norm_sites():
+    """At the published depth and geometry (256x128, 211 tokens; narrow
+    widths for the CPU) ``vit.norms`` counts the rows of all 28 sites a
+    batch: 25 over [B, 211] (11 blocks x 2, ``b1``'s 3) and ``b2``'s 3 over
+    [4B, 53]; ``vit.norms_fused`` counts none on the CPU."""
+    m = T.TransReIDModel(img_size=(256, 128), embed_dim=D, depth=12,
+                         num_heads=HEADS, cameras=6)
+    T.init_transreid(m, torch.Generator().manual_seed(5)).eval()
+    imgs, cams = _images(2, (256, 128), 9), torch.tensor([1, 4])
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        _port(m, imgs, cams)
+    counts = profiling.counts()
+    profiling.reset()
+    assert counts["vit.norms"] == 25 * 2 * 211 + 3 * 8 * 53
+    assert counts.get("vit.norms_fused", 0) == 0
 
 
 def _raises(fn, what):
