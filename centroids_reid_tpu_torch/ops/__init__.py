@@ -1,4 +1,5 @@
 from . import (
+    _build,
     add_norm,
     int8_conv,
     rerank,
@@ -38,18 +39,15 @@ from .stream_rank import (
     stream_extract_plain,
 )
 
-_MODULES = (retrieval, retrieval_int8, int8_conv, stream_rank, add_norm)
-
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by wrapper name."""
-    return {name: n for m in _MODULES for name, n in m.LAUNCHES.items()}
+    return dict(_build.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for m in _MODULES:
-        m.reset_launch_counts()
+    _build.LAUNCHES.update(dict.fromkeys(_build.LAUNCHES, 0))
 
 
 __all__ = [

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``): the one
+place that knows how a hand-written kernel (K1-K8) is called.
 
 ``nvcc`` compiles each source for ``sm_90a`` (Hopper), all at once in
 parallel processes, and links the objects into one shared library with a
@@ -7,18 +8,29 @@ into ``ops/_build/`` (listed in ``.gitignore``), under a name keyed on a
 hash of every file under ``csrc/`` (the sources and the headers they
 include) and the compiler flags, so an edited source or header is rebuilt
 and an unchanged tree is reused.
+
+A wrapper takes its plain version for CPU tensors (``on_cpu``) and for CUDA
+tensors checks its operands, then calls ``launch``: the library's entry
+point ``crt_<name>`` on the current stream, without a synchronise, a raise
+on a non-zero return and one more in ``LAUNCHES[name]``. K5 and K6 are
+also PyTorch operators on ``LIB`` (``torch.ops.crt``), only because
+``torch.export`` records an operator as one node of a program
+(``inference/export.py``) where it cannot follow a ``ctypes`` call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu",
@@ -143,3 +155,69 @@ def load() -> ctypes.CDLL:
             raise RuntimeError(f"{so}: unexpected kernel ABI version")
         _lib = lib
     return _lib
+
+
+# kernel launches since the last reset (``ops.launch_counts``), by name
+LAUNCHES: Dict[str, int] = dict.fromkeys((
+    "scores", "stream_topk", "stream_topk_unpacked", "kpass_topk",
+    "scores_i8", "matmul_requant", "conv3x3_requant", "stream_extract",
+    "stream_count", "add_norm"), 0)
+
+# the operators ``torch.ops.crt.*`` (K5 and K6, ``int8_conv.py``)
+LIB = torch.library.Library("crt", "FRAGMENT")
+
+
+def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """True: all on the CPU (plain path). False: all on the current CUDA
+    device (kernel path). Anything else raises. None is skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(
+            f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no CUDA kernel for device {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        # the kernels launch on the current device's current stream
+        raise ValueError(f"tensors on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return False
+
+
+def check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """Refuse tensors that are not contiguous or do not start on a 16-byte
+    boundary (the kernels' 16-byte, TMA and cp.async loads)."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} must start on a 16-byte boundary")
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and on a 16-byte boundary, copied where it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of CUDA device ``device_index``, read once."""
+    with torch.cuda.device(device_index):
+        sms = load().crt_sm_count()
+    if sms < 1:
+        raise RuntimeError(f"cannot read the SM count of cuda:{device_index}")
+    return sms
+
+
+def launch(name: str, *args) -> None:
+    """Call ``crt_<name>(*args, stream)`` on the current device's current
+    stream, raise if it returns an error, and count the launch."""
+    # the raw handle, without building a Stream object: 0.2 against 7.9 us
+    # of host time a call
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    rc = getattr(load(), f"crt_{name}")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1

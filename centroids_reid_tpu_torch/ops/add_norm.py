@@ -21,38 +21,29 @@ bf16; the sum rounded to bf16 as PyTorch's bf16 add rounds it).
 for CPU tensors, so the CPU sees the same bits as before, and for CUDA
 tensors launches the kernel or raises. The kernel writes ``x_new`` bit for
 bit as PyTorch's add; its statistics are summed in another order than
-PyTorch's LayerNorm, so ``y`` can differ by fp32 rounding. The wrapper calls
-the library directly (no ``torch.library`` operator, no Triton: neither
-adds a first-call import or JIT to a process's set-up), does not
-synchronise, and adds one to ``LAUNCHES["add_norm"]`` a launch and, under a
-running profiler, the launch's rows to the counter ``vit.norms_fused``
-(the ViT's sites are K8's only callers). The kernel has no backward: it
-refuses tensors that need a gradient.
+PyTorch's LayerNorm, so ``y`` can differ by fp32 rounding. The wrapper
+launches through ``_build.launch`` (no Triton: it would add a JIT to a
+process's set-up), does not synchronise, and adds, under a running
+profiler, the launch's rows to the counter ``vit.norms_fused`` (the ViT's
+sites are K8's only callers). The kernel has no backward: it refuses
+tensors that need a gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import count
-from .retrieval import _check, _on_cpu
-from .stream_rank import _aligned
+from ._build import aligned, launch, on_cpu
 
-DIMS = (384, 768, 1024)   # the row widths the kernel is built for
+DIMS = (768,)   # the row widths the kernel is built for (ViT-B)
 _DELTA_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 _Y_TYPES = (torch.float32, torch.bfloat16)
 _STREAMS = {torch.float32: (None, torch.float32, torch.bfloat16),
             torch.bfloat16: (None, torch.bfloat16)}   # stream -> its deltas
-
-LAUNCHES: Dict[str, int] = {"add_norm": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def add_norm_plain(x: torch.Tensor, delta: Optional[torch.Tensor],
@@ -67,9 +58,7 @@ def add_norm_plain(x: torch.Tensor, delta: Optional[torch.Tensor],
 
 
 def _launch(x, delta, weight, bias, eps: float, dtype):
-    """Check the operands, then launch, check and count one K8 launch."""
-    from . import _build
-
+    """Check the operands, then launch K8."""
     d = x.shape[-1]
     if x.dtype not in _STREAMS:
         raise TypeError(f"K8 needs an fp32 or bf16 residual stream, got "
@@ -99,27 +88,21 @@ def _launch(x, delta, weight, bias, eps: float, dtype):
             for t in (x, delta, weight, bias)):
         raise RuntimeError("K8 has no backward: call it under no_grad or "
                            "inference_mode")
-    x = _aligned(x)
+    x = aligned(x)
     y = torch.empty_like(x, dtype=dtype)
     x_new = x
     if delta is not None:
-        delta = _aligned(delta)
+        delta = aligned(delta)
         x_new = torch.empty_like(x)
     if x.numel() == 0:
         return x_new, y
     rows = x.numel() // d
-    rc = _build.load().crt_add_norm(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        0 if delta is None else delta.data_ptr(),
-        _DELTA_KIND[None if delta is None else delta.dtype],
-        _aligned(weight).data_ptr(), _aligned(bias).data_ptr(),
-        x_new.data_ptr(), y.data_ptr(), int(dtype == torch.bfloat16),
-        rows, d, float(eps),
-        # the current stream's handle, as ``_stream()`` gives it, without
-        # building a Stream object: 0.2 against 7.9 us of host time a call
-        torch._C._cuda_getCurrentRawStream(x.get_device()))
-    _check(rc, "add_norm")
-    LAUNCHES["add_norm"] += 1
+    weight, bias = aligned(weight), aligned(bias)
+    launch("add_norm", x.data_ptr(), int(x.dtype == torch.bfloat16),
+           0 if delta is None else delta.data_ptr(),
+           _DELTA_KIND[None if delta is None else delta.dtype],
+           weight.data_ptr(), bias.data_ptr(), x_new.data_ptr(),
+           y.data_ptr(), int(dtype == torch.bfloat16), rows, d, float(eps))
     count("vit.norms_fused", rows)
     return x_new, y
 
@@ -134,8 +117,7 @@ def add_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
     LayerNorm's ``weight`` and ``bias`` [D] in the stream's type; ``y`` in
     ``dtype`` (fp32 or bf16; None is ``F.layer_norm``'s own: fp32 under
     autocast, else the stream's). The plain version for CPU tensors."""
-    ts = (x, weight, bias) if delta is None else (x, delta, weight, bias)
-    if _on_cpu(*ts):
+    if on_cpu(x, delta, weight, bias):
         return add_norm_plain(x, delta, weight, bias, eps, dtype)
     if dtype is None:
         dtype = (torch.float32 if torch.is_autocast_enabled(x.device.type)

@@ -33,24 +33,24 @@ workspace: nothing outlives a launch, so launches on any stream are
 independent.
 
 Each wrapper runs through a PyTorch operator, ``torch.ops.crt.
-matmul_requant`` and ``torch.ops.crt.conv3x3_requant`` (``torch.library.
-custom_op``, with a fake implementation that gives the int8 output's
-shape), so that ``torch.export`` records a launch as one node of the
-program (``inference/export.py``) where it cannot follow a ``ctypes`` call
-on ``data_ptr()``. The operator takes its plain version only for tensors
-on the CPU; for CUDA tensors it launches its kernel or raises. Each launch
-adds one to ``LAUNCHES[name]``.
+matmul_requant`` and ``torch.ops.crt.conv3x3_requant``, defined on
+``_build.LIB`` with a fake implementation that gives the int8 output's
+shape. They are operators only so that ``torch.export`` records a launch
+as one node of the program (``inference/export.py``) where it cannot
+follow a ``ctypes`` call on ``data_ptr()``; their schemas are those that
+artifacts on disk name. The operator takes its plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel
+(``_build.launch``) or raises.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .retrieval import _check, _on_cpu, _stream
+from ._build import LIB, check_aligned, launch, on_cpu, sm_count
 
 # the kernels' tile: 128 output rows, 128 input channels per stage (a
 # 64-channel K reads as one half-empty stage), 128 output channels (64
@@ -69,13 +69,6 @@ _N_TILE = 64
 _MAX_SPLITS = 2
 _STAGES_PER_SPLIT = 8
 _SLICE_MIN = 16   # columns of a split's epilogue slice (a 16-byte TMA box)
-
-LAUNCHES: Dict[str, int] = {"matmul_requant": 0, "conv3x3_requant": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _epilogue_plain(acc, scale, bias, relu: bool, res=None, res_scale=None):
@@ -148,33 +141,17 @@ def _requant_plan(m: int, n: int, stages: int, sms: int) -> Tuple[int, int]:
     return bn, splits
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    """The SM count of CUDA device ``device_index``, read once."""
-    from . import _build
-
-    with torch.cuda.device(device_index):
-        sms = _build.load().crt_sm_count()
-    if sms < 1:
-        raise RuntimeError("cannot read the device's SM count")
-    return sms
-
-
-def _launch(name: str, fn, x, w_packed, scale, bias, res, rs, relu, out,
+def _launch(name: str, x, w_packed, scale, bias, res, rs, relu, out,
             dims, m: int, k: int, n: int, taps: int) -> None:
-    """Plan, launch, check and count one K5 / K6 launch."""
+    """Plan one K5 / K6 launch (tile width, K splits) and make it."""
     if m == 0:
         return
     bn, splits = _requant_plan(m, n, _stages(k, taps),
-                               _sm_count(x.device.index))
-    rc = fn(
-        x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        None if res is None else res.data_ptr(),
-        None if rs is None else rs.data_ptr(), int(relu), out.data_ptr(),
-        *dims, k, n, bn, splits, _stream(),
-    )
-    _check(rc, name)
-    LAUNCHES[name] += 1
+                               sm_count(x.get_device()))
+    launch(name, x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+           bias.data_ptr(), None if res is None else res.data_ptr(),
+           None if rs is None else rs.data_ptr(), int(relu), out.data_ptr(),
+           *dims, k, n, bn, splits)
 
 
 # --------------------------------------------------------------- K5 ------
@@ -199,13 +176,9 @@ def _matmul_requant_impl(x: torch.Tensor, w: torch.Tensor,
                          w_packed: Optional[torch.Tensor]) -> torch.Tensor:
     """The body of the operator ``crt::matmul_requant``: the plain version
     for CPU tensors, else the kernel."""
-    tensors = [x, w, scale, bias] + [t for t in (res, w_packed)
-                                     if t is not None]
-    if _on_cpu(*tensors):
+    if on_cpu(x, w, scale, bias, res, w_packed):
         return matmul_requant_plain(x, w, scale, bias, res, res_scale, relu,
                                     w_packed)
-    from . import _build
-
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} x {tuple(w.shape)}")
     m, k = x.shape
@@ -213,16 +186,18 @@ def _matmul_requant_impl(x: torch.Tensor, w: torch.Tensor,
     rs = _check_requant_inputs(x, w, scale, bias, res, res_scale, (m, n))
     w_packed = _checked_packed(w, w_packed, (n, k))
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
-    _launch("matmul_requant", _build.load().crt_matmul_requant, x, w_packed,
-            scale, bias, res, rs, relu, out, (m,), m, k, n, 1)
+    _launch("matmul_requant", x, w_packed, scale, bias, res, rs, relu, out,
+            (m,), m, k, n, 1)
     return out
 
 
-_matmul_requant_op = torch.library.custom_op(
-    "crt::matmul_requant", _matmul_requant_impl, mutates_args=())
+LIB.define("matmul_requant(Tensor x, Tensor w, Tensor scale, Tensor bias, "
+           "Tensor? res, Tensor? res_scale, bool relu, Tensor? w_packed) "
+           "-> Tensor")
+LIB.impl("matmul_requant", _matmul_requant_impl, "CompositeExplicitAutograd")
 
 
-@_matmul_requant_op.register_fake
+@torch.library.register_fake("crt::matmul_requant", lib=LIB)
 def _(x, w, scale, bias, res, res_scale, relu, w_packed):
     return x.new_empty((x.shape[0], w.shape[-1]), dtype=torch.int8)
 
@@ -263,13 +238,9 @@ def _conv3x3_requant_impl(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
                           w_packed: Optional[torch.Tensor]) -> torch.Tensor:
     """The body of the operator ``crt::conv3x3_requant``: the plain version
     for CPU tensors, else the kernel."""
-    tensors = [x_nhwc, w_hwio, scale, bias] + [
-        t for t in (res_nhwc, w_packed) if t is not None]
-    if _on_cpu(*tensors):
+    if on_cpu(x_nhwc, w_hwio, scale, bias, res_nhwc, w_packed):
         return conv3x3_requant_plain(x_nhwc, w_hwio, scale, bias, res_nhwc,
                                      res_scale, relu, w_packed)
-    from . import _build
-
     if x_nhwc.dim() != 4 or tuple(w_hwio.shape[:2]) != (3, 3) \
             or w_hwio.dim() != 4 or x_nhwc.shape[3] != w_hwio.shape[2]:
         raise ValueError(f"shapes {tuple(x_nhwc.shape)} x "
@@ -280,17 +251,19 @@ def _conv3x3_requant_impl(x_nhwc: torch.Tensor, w_hwio: torch.Tensor,
                                res_scale, (b, h, wd, n))
     w_packed = _checked_packed(w_hwio, w_packed, (9, n, k))
     out = torch.empty((b, h, wd, n), dtype=torch.int8, device=x_nhwc.device)
-    _launch("conv3x3_requant", _build.load().crt_conv3x3_requant, x_nhwc,
-            w_packed, scale, bias, res_nhwc, rs, relu, out, (b, h, wd),
-            b * h * wd, k, n, 9)
+    _launch("conv3x3_requant", x_nhwc, w_packed, scale, bias, res_nhwc, rs,
+            relu, out, (b, h, wd), b * h * wd, k, n, 9)
     return out
 
 
-_conv3x3_requant_op = torch.library.custom_op(
-    "crt::conv3x3_requant", _conv3x3_requant_impl, mutates_args=())
+LIB.define("conv3x3_requant(Tensor x_nhwc, Tensor w_hwio, Tensor scale, "
+           "Tensor bias, Tensor? res_nhwc, Tensor? res_scale, bool relu, "
+           "Tensor? w_packed) -> Tensor")
+LIB.impl("conv3x3_requant", _conv3x3_requant_impl,
+         "CompositeExplicitAutograd")
 
 
-@_conv3x3_requant_op.register_fake
+@torch.library.register_fake("crt::conv3x3_requant", lib=LIB)
 def _(x_nhwc, w_hwio, scale, bias, res_nhwc, res_scale, relu, w_packed):
     return x_nhwc.new_empty((*x_nhwc.shape[:3], w_hwio.shape[-1]),
                             dtype=torch.int8)
@@ -324,9 +297,7 @@ def _checked_packed(w, w_packed, shape) -> torch.Tensor:
     if w_packed.dtype != torch.int8 or tuple(w_packed.shape) != shape:
         raise ValueError(f"w_packed must be int8 {shape}, got "
                          f"{w_packed.dtype} {tuple(w_packed.shape)}")
-    if not w_packed.is_contiguous() or w_packed.data_ptr() % 16:
-        raise ValueError("w_packed must be contiguous and start on a "
-                         "16-byte boundary")
+    check_aligned("w_packed", w_packed)
     return w_packed
 
 
@@ -357,11 +328,7 @@ def _check_requant_inputs(x, w, scale, bias, res, res_scale,
             raise ValueError("res needs res_scale")
         rs = _res_scale(res_scale, x).reshape(1)
         tensors.append(res)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("x, w, scale, bias and res must be contiguous")
     # TMA loads of x and w need 16-byte aligned bases; 8-byte loads of
     # scale and bias, 2-byte loads of res
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(
-            "x, w, scale, bias and res must start on a 16-byte boundary")
+    check_aligned("x, w, scale, bias and res", *tensors)
     return rs

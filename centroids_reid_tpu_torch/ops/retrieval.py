@@ -18,18 +18,18 @@ beside its plain PyTorch version:
   sends them to ``lax.top_k``.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches its kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+tensor it launches its kernel (``_build.launch``) or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from ._build import check_aligned, launch, on_cpu, sm_count
 
 _Q_TILE = 128
 _G_TILE = 1024
@@ -37,43 +37,6 @@ _G_TILE = 1024
 _SCORE_BUDGET_BYTES = 512 << 20
 _KPASS_MAX_W = 32768  # one fp32 row in shared memory (128 KB)
 _INF = float("inf")
-
-LAUNCHES: Dict[str, int] = {"scores": 0, "stream_topk": 0,
-                            "stream_topk_unpacked": 0, "kpass_topk": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True: all on the CPU (plain path). False: all on one CUDA device
-    (kernel path). Anything else raises."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(
-            f"tensors on different devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no retrieval kernel for device {dev}")
-    if dev.index is not None and dev.index != torch.cuda.current_device():
-        # the kernels launch on the current device's current stream
-        raise ValueError(f"tensors on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    return False
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
 
 def _check_score_inputs(qf, gf, gn_row) -> Tuple[int, int, int]:
     if qf.dtype != torch.bfloat16 or gf.dtype != torch.bfloat16:
@@ -91,12 +54,8 @@ def _check_score_inputs(qf, gf, gn_row) -> Tuple[int, int, int]:
             f"kernel tiles need Q % {_Q_TILE} == 0, G % 128 == 0 and "
             f"D % 32 == 0; got Q={q}, G={g}, D={d}"
         )
-    if not (qf.is_contiguous() and gf.is_contiguous()
-            and gn_row.is_contiguous()):
-        raise ValueError("q, g and gn_row must be contiguous")
     # the kernels read q and g with 16-byte loads and gn_row with float4s
-    if any(t.data_ptr() % 16 for t in (qf, gf, gn_row)):
-        raise ValueError("q, g and gn_row must start on a 16-byte boundary")
+    check_aligned("q, g and gn_row", qf, gf, gn_row)
     return q, g, d
 
 
@@ -109,18 +68,12 @@ def scores_plain(qf, gf, gn_row):
 
 def scores(qf, gf, gn_row):
     """K1: [Qp, D] x [Gp, D] bf16 (+ gn_row [1, Gp] fp32) -> fp32 [Qp, Gp]."""
-    if _on_cpu(qf, gf, gn_row):
+    if on_cpu(qf, gf, gn_row):
         return scores_plain(qf, gf, gn_row)
-    from . import _build
-
     q, g, d = _check_score_inputs(qf, gf, gn_row)
     out = torch.empty((q, g), dtype=torch.float32, device=qf.device)
-    rc = _build.load().crt_scores(
-        qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(), out.data_ptr(),
-        q, g, d, _stream(),
-    )
-    _check(rc, "scores")
-    LAUNCHES["scores"] += 1
+    launch("scores", qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(),
+           out.data_ptr(), q, g, d)
     return out
 
 
@@ -159,29 +112,18 @@ def stream_topk(qf, gf, gn_row, k: int, packed: bool = True):
     gallery tiles (a taken entry stays in its merge buffer at +inf)."""
     if not 1 <= k <= 32:
         raise ValueError(f"stream_topk needs 1 <= k <= 32, got {k}")
-    if _on_cpu(qf, gf, gn_row):
+    if on_cpu(qf, gf, gn_row):
         return stream_topk_plain(qf, gf, gn_row, k, packed)
-    from . import _build
-
     q, g, d = _check_score_inputs(qf, gf, gn_row)
     if k > g:
         raise ValueError(f"k={k} > gallery rows {g}")
-    lib = _build.load()
-    sms = lib.crt_sm_count()
-    if sms < 1:
-        raise RuntimeError("stream_topk: cannot read the device's SM count")
-    n_splits = _stream_splits(q, g, sms)
+    n_splits = _stream_splits(q, g, sm_count(qf.get_device()))
     part = torch.empty((q, n_splits, k), dtype=torch.int64, device=qf.device)
     val = torch.empty((q, k), dtype=torch.float32, device=qf.device)
     idx = torch.empty((q, k), dtype=torch.int64, device=qf.device)
-    launch, name = ((lib.crt_stream_topk, "stream_topk") if packed
-                    else (lib.crt_stream_topk_unpacked, "stream_topk_unpacked"))
-    rc = launch(
-        qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(), part.data_ptr(),
-        val.data_ptr(), idx.data_ptr(), q, g, d, k, n_splits, _stream(),
-    )
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    launch("stream_topk" if packed else "stream_topk_unpacked",
+           qf.data_ptr(), gf.data_ptr(), gn_row.data_ptr(), part.data_ptr(),
+           val.data_ptr(), idx.data_ptr(), q, g, d, k, n_splits)
     return val, idx
 
 
@@ -225,10 +167,8 @@ def kpass_topk(x, k: int):
     NaN: the TPU kernel's ``jnp.min`` propagates a NaN into every later
     pass; this one follows its plain version (torch.sort), which puts NaNs
     after +inf, each with its own column."""
-    if _on_cpu(x):
+    if on_cpu(x):
         return kpass_topk_plain(x, k)
-    from . import _build
-
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
             f"kpass_topk needs contiguous fp32 [Q, W], got {x.dtype} "
@@ -243,12 +183,8 @@ def kpass_topk(x, k: int):
     idx = torch.empty((q, k), dtype=torch.int64, device=x.device)
     if q:
         threads, n_sort, smem = _kpass_plan(w, k)
-        rc = _build.load().crt_kpass_topk(
-            x.data_ptr(), val.data_ptr(), idx.data_ptr(), q, w, k, threads,
-            n_sort, smem, _stream()
-        )
-        _check(rc, "kpass_topk")
-        LAUNCHES["kpass_topk"] += 1
+        launch("kpass_topk", x.data_ptr(), val.data_ptr(), idx.data_ptr(), q,
+               w, k, threads, n_sort, smem)
     return val, idx
 
 

@@ -13,37 +13,29 @@ against their own dequantized codes (capacity mode, ``gf32=None``, where
 the codes are the only resident gallery state).
 
 The wrapper takes its plain version only for a tensor on the CPU; for a
-CUDA tensor it launches K4 or raises. Each launch adds one to
-``LAUNCHES["scores_i8"]``.
+CUDA tensor it launches K4 (``_build.launch``) or raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ._build import check_aligned, launch, on_cpu, sm_count
 from .retrieval import (
     _G_TILE,
     _INF,
     _Q_TILE,
     _SCORE_BUDGET_BYTES,
-    _check,
     _finalize_distances,
     _hier_topk_build,
-    _on_cpu,
     _pad_rows,
-    _stream,
 )
 
-LAUNCHES: Dict[str, int] = {"scores_i8": 0}
 # K4's output tile: 256 gallery rows x 128 query rows
 _I8_TILE_G = 256
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES["scores_i8"] = 0
 
 
 class Int8Gallery(NamedTuple):
@@ -99,10 +91,8 @@ def scores_i8(qf, codes, s_row, gn_row):
     """K4: [Qp, D] bf16 x [Gp, D] int8 (+ s_row, gn_row [1, Gp] fp32) ->
     fp32 [Qp, Gp]. Kernel shapes: Qp % 128 == 0, Gp % 128 == 0,
     D % 32 == 0; contiguous, 16-byte aligned inputs."""
-    if _on_cpu(qf, codes, s_row, gn_row):
+    if on_cpu(qf, codes, s_row, gn_row):
         return scores_i8_plain(qf, codes, s_row, gn_row)
-    from . import _build
-
     if qf.dtype != torch.bfloat16 or codes.dtype != torch.int8:
         raise TypeError(
             f"bf16 q and int8 codes required, got {qf.dtype}, {codes.dtype}")
@@ -122,25 +112,13 @@ def scores_i8(qf, codes, s_row, gn_row):
             f"kernel tiles need Q % {_Q_TILE} == 0, G % 128 == 0 and "
             f"D % 32 == 0; got Q={q}, G={g}, D={d}"
         )
-    args = (qf, codes, s_row, gn_row)
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("q, codes, s_row and gn_row must be contiguous")
     # TMA reads q and codes from 16-byte aligned bases; s_row and gn_row
     # keep the same contract
-    if any(t.data_ptr() % 16 for t in args):
-        raise ValueError(
-            "q, codes, s_row and gn_row must start on a 16-byte boundary")
+    check_aligned("q, codes, s_row and gn_row", qf, codes, s_row, gn_row)
     out = torch.empty((q, g), dtype=torch.float32, device=qf.device)
-    lib = _build.load()
-    sms = lib.crt_sm_count()
-    if sms < 1:
-        raise RuntimeError("scores_i8: cannot read the device's SM count")
-    rc = lib.crt_scores_i8(
-        qf.data_ptr(), codes.data_ptr(), s_row.data_ptr(), gn_row.data_ptr(),
-        out.data_ptr(), q, g, d, _scores_i8_blocks(q, g, sms), _stream(),
-    )
-    _check(rc, "scores_i8")
-    LAUNCHES["scores_i8"] += 1
+    launch("scores_i8", qf.data_ptr(), codes.data_ptr(), s_row.data_ptr(),
+           gn_row.data_ptr(), out.data_ptr(), q, g, d,
+           _scores_i8_blocks(q, g, sm_count(qf.get_device())))
     return out
 
 

@@ -30,33 +30,21 @@ time, so no copy of the rows and no product as large as them exists.
 The plain versions are the same rule in torch, over tiles of ``g_chunk``
 gallery rows and ``_Q_CHUNK`` query rows: the count sorts nothing itself,
 it takes each kept row's key under the farthest hit to ``torch.
-searchsorted`` among the sorted hit keys and a bincount. Each wrapper runs
-through a PyTorch operator (``torch.ops.crt.stream_extract``, ``torch.ops.
-crt.stream_count``), so that a profiler's trace holds each call under its
-name; the operator takes its plain version only for CPU tensors, and for
-CUDA tensors launches its kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+searchsorted`` among the sorted hit keys and a bincount. Each wrapper
+takes its plain version only for CPU tensors, and for CUDA tensors launches
+its kernel (``_build.launch``) or raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 import torch.nn.functional as F
 
-from .retrieval import _check, _on_cpu, _stream
+from ._build import aligned, launch, on_cpu
 
 _Q_CHUNK = 128            # the plain versions' query rows per score tile
 _EPS = 1e-12              # losses/distances.py's cosine clamp
 _DISTS = ("euclidean", "cosine")
-
-LAUNCHES: Dict[str, int] = {"stream_extract": 0, "stream_count": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _cosine(dist: str) -> bool:
@@ -162,18 +150,10 @@ def stream_count_plain(q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys,
 
 # --------------------------------------------------------- kernel ------
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and on a 16-byte boundary (the kernel's cp.async)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _launch(name: str, q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, hits,
             num_rel, out, j0: int, cosine: bool,
             respect_camids: bool) -> None:
-    """Check the operands, then launch, check and count one K7 launch."""
-    from . import _build
-
+    """Check the operands, then launch K7 in mode ``name``."""
     if q.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"fp32 q and g required, got {q.dtype}, {g.dtype}")
     if q.dim() != 2 or g.dim() != 2 or q.shape[1] != g.shape[1]:
@@ -204,66 +184,12 @@ def _launch(name: str, q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, hits,
     pad = -q.shape[1] % 4
     if pad:                        # 16-byte chunks of D; zeros add nothing
         q, g = F.pad(q, (0, pad)), F.pad(g, (0, pad))
-    q, g = _aligned(q), _aligned(g)
+    q, g = aligned(q), aligned(g)
     ptrs = [t.contiguous() for t in (
         qn, gn, q_pids, g_pids, q_cams, g_cams, hits, num_rel)]
-    rc = getattr(_build.load(), f"crt_{name}")(
-        q.data_ptr(), g.data_ptr(), *[t.data_ptr() for t in ptrs],
-        out.data_ptr(), nq, ng, q.shape[1], hits.shape[1], j0, int(cosine),
-        int(respect_camids), _stream())
-    _check(rc, name)
-    LAUNCHES[name] += 1
-
-
-def _extract_impl(q: torch.Tensor, qn: torch.Tensor,
-                  g: torch.Tensor, gn: torch.Tensor,
-                  q_pids: torch.Tensor, g_pids: torch.Tensor,
-                  q_cams: torch.Tensor, g_cams: torch.Tensor,
-                  pos: torch.Tensor, num_rel: torch.Tensor, j0: int,
-                  dist: str, respect_camids: bool,
-                  g_chunk: int) -> torch.Tensor:
-    """The body of ``crt::stream_extract``: the plain version for CPU
-    tensors, else the kernel."""
-    args = (q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, pos, num_rel)
-    if _on_cpu(*args):
-        return stream_extract_plain(*args, j0, dist, respect_camids, g_chunk)
-    out = torch.zeros(pos.shape, dtype=torch.float32, device=pos.device)
-    _launch("stream_extract", *args, out, j0, _cosine(dist), respect_camids)
-    return out
-
-
-def _count_impl(q: torch.Tensor, qn: torch.Tensor,
-                g: torch.Tensor, gn: torch.Tensor,
-                q_pids: torch.Tensor, g_pids: torch.Tensor,
-                q_cams: torch.Tensor, g_cams: torch.Tensor,
-                keys: torch.Tensor, num_rel: torch.Tensor, j0: int,
-                dist: str, respect_camids: bool,
-                g_chunk: int) -> torch.Tensor:
-    """The body of ``crt::stream_count``: the plain version for CPU
-    tensors, else the kernel."""
-    args = (q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys, num_rel)
-    if _on_cpu(*args):
-        return stream_count_plain(*args, j0, dist, respect_camids, g_chunk)
-    out = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
-    _launch("stream_count", *args, out, j0, _cosine(dist), respect_camids)
-    return out
-
-
-# The operators are defined on a ``torch.library.Library`` and not with
-# ``torch.library.custom_op``, which runs each kernel under
-# ``torch._disable_dynamo``: its first call imports ``torch._dynamo`` (878
-# modules, 9.6-9.8 s of host time on the card's machine), which every
-# evaluating process would pay in its set-up. Nothing exports them, so
-# they need no fake implementation.
-_ARGS = ("Tensor q, Tensor qn, Tensor g, Tensor gn, Tensor q_pids, "
-         "Tensor g_pids, Tensor q_cams, Tensor g_cams, Tensor {hits}, "
-         "Tensor num_rel, int j0, str dist, bool respect_camids, "
-         "int g_chunk")
-_LIB = torch.library.Library("crt", "FRAGMENT")
-for _name, _hits, _impl in (("stream_extract", "pos", _extract_impl),
-                            ("stream_count", "keys", _count_impl)):
-    _LIB.define(f"{_name}({_ARGS.format(hits=_hits)}) -> Tensor")
-    _LIB.impl(_name, _impl, "CompositeExplicitAutograd")
+    launch(name, q.data_ptr(), g.data_ptr(), *[t.data_ptr() for t in ptrs],
+           out.data_ptr(), nq, ng, q.shape[1], hits.shape[1], j0,
+           int(cosine), int(respect_camids))
 
 
 def stream_extract(q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, pos,
@@ -274,9 +200,12 @@ def stream_extract(q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, pos,
     among the rows ``j0 ..`` of ``g``, 0 elsewhere. ``qn``, ``gn``: the
     rows' norms from ``prepare_rows``; pids and cameras int64 (camera bitmasks
     under ``respect_camids``). ``g_chunk``: the plain version's tile."""
-    return torch.ops.crt.stream_extract(
-        q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, pos, num_rel, int(j0),
-        str(dist), bool(respect_camids), int(g_chunk))
+    args = (q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, pos, num_rel)
+    if on_cpu(*args):
+        return stream_extract_plain(*args, j0, dist, respect_camids, g_chunk)
+    out = torch.zeros(pos.shape, dtype=torch.float32, device=pos.device)
+    _launch("stream_extract", *args, out, j0, _cosine(dist), respect_camids)
+    return out
 
 
 def stream_count(q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys,
@@ -286,6 +215,9 @@ def stream_count(q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys,
     under each query's farthest hit, by how many of its sorted hit
     ``keys`` [Q, H] (int64, ascending, ``num_rel`` real) lie at or below
     their key. Other arguments as ``stream_extract``."""
-    return torch.ops.crt.stream_count(
-        q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys, num_rel, int(j0),
-        str(dist), bool(respect_camids), int(g_chunk))
+    args = (q, qn, g, gn, q_pids, g_pids, q_cams, g_cams, keys, num_rel)
+    if on_cpu(*args):
+        return stream_count_plain(*args, j0, dist, respect_camids, g_chunk)
+    out = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    _launch("stream_count", *args, out, j0, _cosine(dist), respect_camids)
+    return out

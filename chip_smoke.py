@@ -621,8 +621,8 @@ def phase_compare_int8() -> dict:
     from centroids_reid_tpu_torch.ops import retrieval as R
     from centroids_reid_tpu_torch.ops import retrieval_int8 as R8
 
-    log("== phase 3b: int8 kernels (through the operators torch.ops.crt.*) "
-        "against their plain versions")
+    log("== phase 3b: int8 kernels (K4, and K5 and K6 through their "
+        "operators torch.ops.crt.*) against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     gp = -(-GALLERY_ROWS // R._G_TILE) * R._G_TILE   # 100352
     errs = {}
@@ -653,7 +653,7 @@ def phase_compare_int8() -> dict:
     # K5 and K6 at every shape of one 8-image embed call
     from centroids_reid_tpu_torch.ops import _build
 
-    sms = _build.load().crt_sm_count()
+    sms = _build.sm_count(torch.cuda.current_device())
     shapes = embed_requant_shapes(REQUEST)
     counts = {n: sum(c for (name, *_), c in shapes.items() if name == n)
               for n in ("matmul_requant", "conv3x3_requant")}
@@ -737,6 +737,7 @@ def phase_k8(gpu: str) -> dict:
     from centroids_reid_tpu_torch.engine.evaluate import extract_embeddings
     from centroids_reid_tpu_torch.models import create_model
     from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
     from centroids_reid_tpu_torch.utils import profiling
 
     log("== phase 3c: K8 (residual add + LayerNorm + cast)")
@@ -815,14 +816,14 @@ def phase_k8(gpu: str) -> dict:
                "valid": np.ones(size, bool)}
               for _ in range(K8_EMBED_BATCHES)]
     extract_embeddings(model, cfg, loader[:1])   # warm
-    K8.reset_launch_counts()
+    reset_launch_counts()
     profiling.reset()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
         emb = extract_embeddings(model, cfg, loader)[0]
     counts = profiling.counts()
     profiling.reset()
-    launches = K8.LAUNCHES["add_norm"]
+    launches = launch_counts()["add_norm"]
     want = K8_EMBED_BATCHES * size * (25 * 211 + 3 * 4 * 53)
     require(launches == K8_SITES * K8_EMBED_BATCHES
             and counts.get("vit.norms") == want
@@ -1762,7 +1763,7 @@ def phase_timing_requant(qfn, x) -> None:
     from centroids_reid_tpu_torch.ops import int8_conv as C
 
     mm, conv = C.matmul_requant, C.conv3x3_requant
-    sms = _build.load().crt_sm_count()
+    sms = _build.sm_count(torch.cuda.current_device())
     shapes = []
 
     def rec_mm(x, w, scale, bias, res=None, res_scale=None, relu=True,

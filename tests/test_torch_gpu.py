@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from centroids_reid_tpu_torch.ops import int8_conv as C
+from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
 from centroids_reid_tpu_torch.ops import retrieval as R
 from centroids_reid_tpu_torch.ops import retrieval_int8 as R8
 
@@ -61,10 +62,10 @@ def _real(g):
 @pytest.mark.parametrize("q,g,d", GEOMETRY)
 def test_scores_kernel_exact(cuda, q, g, d):
     qf, gf, gn = _inputs(cuda, q=q, g=g, d=d, real=_real(g))
-    R.reset_launch_counts()
+    reset_launch_counts()
     assert torch.equal(R.scores(qf, gf, gn), R.scores_plain(qf, gf, gn))
     torch.cuda.synchronize()
-    assert R.LAUNCHES["scores"] == 1
+    assert launch_counts()["scores"] == 1
 
 
 @pytest.mark.parametrize("k", [1, 10, 32])
@@ -96,6 +97,7 @@ def test_stream_grid_fills_one_wave(cuda):
 
     sms = _build.load().crt_sm_count()
     assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    assert _build.sm_count(torch.cuda.current_device()) == sms
     assert R._stream_splits(128, 100352, sms) == min(sms, 784)
     assert R._stream_splits(256, 128, sms) == 1
 
@@ -116,13 +118,13 @@ def test_stream_topk_kernel_sparse_rows(cuda):
 def test_stream_topk_unpacked_kernel_exact(cuda, k, q, g, d):
     """K2u: exact fp32 (score, column) order on integer inputs."""
     qf, gf, gn = _inputs(cuda, q=q, g=g, d=d, real=_real(g))
-    R.reset_launch_counts()
+    reset_launch_counts()
     v, i = R.stream_topk(qf, gf, gn, k, packed=False)
     rv, ri = R.stream_topk_plain(qf, gf, gn, k, packed=False)
     assert torch.equal(i, ri) and torch.equal(v, rv)
     torch.cuda.synchronize()
-    assert R.LAUNCHES["stream_topk_unpacked"] == 1
-    assert R.LAUNCHES["stream_topk"] == 0
+    assert launch_counts()["stream_topk_unpacked"] == 1
+    assert launch_counts()["stream_topk"] == 0
 
 
 def test_stream_topk_unpacked_kernel_sparse_rows_and_signed_zero(cuda):
@@ -148,10 +150,10 @@ def test_topk_retrieval_beyond_one_kpass_row_on_card(cuda):
     rng = np.random.RandomState(12)
     qf = rng.randint(-6, 7, (5, 8)).astype(np.float32)
     gf = rng.randint(-6, 7, (40960, 8)).astype(np.float32)
-    R.reset_launch_counts()
+    reset_launch_counts()
     d, i = R.topk_retrieval(torch.from_numpy(qf).to(cuda),
                             torch.from_numpy(gf).to(cuda), 5000)
-    assert R.LAUNCHES["kpass_topk"] == 1
+    assert launch_counts()["kpass_topk"] == 1
     rd, ri = R.topk_retrieval(torch.from_numpy(qf), torch.from_numpy(gf),
                               5000)
     np.testing.assert_array_equal(i, ri)
@@ -291,7 +293,7 @@ def test_scores_i8_kernel_matches_plain(cuda):
     summation order (rtol 1e-5); +inf pad columns equal."""
     codes, s_row, gn = _int8_gallery(cuda)
     rng = np.random.RandomState(6)
-    R8.reset_launch_counts()
+    reset_launch_counts()
     for q in (rng.randint(-3, 4, (256, 64)), rng.randn(256, 64)):
         qf = torch.from_numpy(q.astype(np.float32)).to(cuda, torch.bfloat16)
         got = R8.scores_i8(qf, codes, s_row, gn)
@@ -302,7 +304,7 @@ def test_scores_i8_kernel_matches_plain(cuda):
         if q.dtype.kind == "i":
             assert torch.equal(got, ref)
     torch.cuda.synchronize()
-    assert R8.LAUNCHES["scores_i8"] == 2
+    assert launch_counts()["scores_i8"] == 2
 
 
 @pytest.mark.parametrize("k,exact", [(10, True), (100, True), (10, False)])
@@ -346,13 +348,13 @@ def _requant_inputs(cuda, m, k, n, with_res, seed, res_shape=None):
 def test_matmul_requant_kernel_exact(cuda, m, k, n, relu, with_res):
     """K5 equals its plain version bit for bit, ragged M included."""
     x, w, scale, bias, res, rs = _requant_inputs(cuda, m, k, n, with_res, m)
-    C.reset_launch_counts()
+    reset_launch_counts()
     got = C.matmul_requant(x, w, scale, bias, res=res, res_scale=rs,
                            relu=relu)
     ref = C.matmul_requant_plain(x, w, scale, bias, res=res, res_scale=rs,
                                  relu=relu)
     assert torch.equal(got, ref)
-    assert C.LAUNCHES["matmul_requant"] == 1
+    assert launch_counts()["matmul_requant"] == 1
 
 
 @pytest.mark.parametrize("b,h,w,k,n", [(8, 64, 32, 64, 64),
@@ -419,20 +421,20 @@ def _k6(cuda, b, h, w, k, n, with_res, relu, seed, **kw):
 def test_matmul_requant_embed_shapes_exact(cuda, m, k, n, with_res, relu):
     """K5 at every shape of a batch-8 embed call and one of batch 256, with
     the plan's tile width and splits: bit for bit."""
-    C.reset_launch_counts()
+    reset_launch_counts()
     got, ref = _k5(cuda, m, k, n, with_res, relu, k + n)
     assert torch.equal(got, ref)
-    assert C.LAUNCHES["matmul_requant"] == 1
+    assert launch_counts()["matmul_requant"] == 1
 
 
 @pytest.mark.parametrize("b,h,w,k", K6_EMBED + [(256, 16, 8, 512)])
 def test_conv3x3_requant_embed_shapes_exact(cuda, b, h, w, k):
     """K6 at every shape of a batch-8 embed call (ReLU, no residual, as
     the trunk runs it) and one of batch 256: bit for bit."""
-    C.reset_launch_counts()
+    reset_launch_counts()
     got, ref = _k6(cuda, b, h, w, k, k, False, True, b + k)
     assert torch.equal(got, ref)
-    assert C.LAUNCHES["conv3x3_requant"] == 1
+    assert launch_counts()["conv3x3_requant"] == 1
 
 
 # (M, K, N, residual, ReLU): the 10 K5 shapes of one ResNet50-IBN-a embed
@@ -458,20 +460,20 @@ K6_IBN320 = [(8, 80, 80, 64), (8, 40, 40, 128), (8, 20, 20, 256),
 def test_matmul_requant_ibn320_shapes_exact(cuda, m, k, n, with_res, relu):
     """K5 at every shape of a batch-8 IBN-a 320x320 embed call and one of
     batch 256: bit for bit."""
-    C.reset_launch_counts()
+    reset_launch_counts()
     got, ref = _k5(cuda, m, k, n, with_res, relu, k + n + 1)
     assert torch.equal(got, ref)
-    assert C.LAUNCHES["matmul_requant"] == 1
+    assert launch_counts()["matmul_requant"] == 1
 
 
 @pytest.mark.parametrize("b,h,w,k", K6_IBN320 + [(256, 80, 80, 64)])
 def test_conv3x3_requant_ibn320_shapes_exact(cuda, b, h, w, k):
     """K6 at every shape of a batch-8 IBN-a 320x320 embed call (ReLU, no
     residual) and layer 1's at batch 256: bit for bit."""
-    C.reset_launch_counts()
+    reset_launch_counts()
     got, ref = _k6(cuda, b, h, w, k, k, False, True, b + h + k)
     assert torch.equal(got, ref)
-    assert C.LAUNCHES["conv3x3_requant"] == 1
+    assert launch_counts()["conv3x3_requant"] == 1
 
 
 def _forced_splits(monkeypatch, splits):
@@ -655,10 +657,10 @@ def test_kpass_topk_radix_exact(cuda, w, k, kind):
     x[0, :] = 1.5                      # a row of one repeated value
     x[1, :] = np.inf                   # a row of +inf but for a few
     x[1, ::max(1, w // 7)] = -1.0
-    R.reset_launch_counts()
+    reset_launch_counts()
     _assert_kpass_exact(torch.from_numpy(x).to(cuda), k)
     torch.cuda.synchronize()
-    assert R.LAUNCHES["kpass_topk"] == 1
+    assert launch_counts()["kpass_topk"] == 1
 
 
 @pytest.mark.parametrize("w,k", [(800, 100), (12544, 100), (1001, 26),
@@ -695,7 +697,7 @@ def test_scores_i8_tma_kernel_matches_plain(cuda, q, g, d):
     rng = np.random.RandomState(q + d)
     unit = rng.randn(q, d)
     unit /= np.linalg.norm(unit, axis=1, keepdims=True)
-    R8.reset_launch_counts()
+    reset_launch_counts()
     for qv in (rng.randint(-3, 4, (q, d)), unit):
         qf = torch.from_numpy(qv.astype(np.float32)).to(cuda, torch.bfloat16)
         got = R8.scores_i8(qf, codes, s_row, gn)
@@ -708,7 +710,7 @@ def test_scores_i8_tma_kernel_matches_plain(cuda, q, g, d):
             torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5,
                                        atol=1e-5)
     torch.cuda.synchronize()
-    assert R8.LAUNCHES["scores_i8"] == 2
+    assert launch_counts()["scores_i8"] == 2
 
 
 def test_scores_i8_tma_kernel_full_code_range(cuda):
@@ -881,10 +883,10 @@ def test_rerank_distmat_on_card_matches_cpu(cuda, dist):
 
     f = (_integer_clusters(20, 1200) if dist == "euclidean"
          else np.random.RandomState(20).randn(1200, 64).astype(np.float32))
-    R.reset_launch_counts()
+    reset_launch_counts()
     g = rerank_distmat(f[:200], f[200:], dist=dist, device=cuda)
     torch.cuda.synchronize()
-    assert g.device.type == "cuda" and R.LAUNCHES["kpass_topk"] == 1
+    assert g.device.type == "cuda" and launch_counts()["kpass_topk"] == 1
     g = g.cpu().numpy()
     c = rerank_distmat(f[:200], f[200:], dist=dist, device="cpu").numpy()
     np.testing.assert_allclose(g, c, rtol=0, atol=1e-5)
@@ -1048,17 +1050,16 @@ def _k7_set(seed, case):
 
 
 def _k7_ranks(cuda, data, **kw):
-    """compute_stream_ranks on the card (K7's launches counted) and on the
-    CPU (its plain versions)."""
+    """compute_stream_ranks on the card (the kernels it launched, counted)
+    and on the CPU (K7's plain versions)."""
     from centroids_reid_tpu_torch.metrics import compute_stream_ranks
-    from centroids_reid_tpu_torch.ops import stream_rank as K7
 
     qf, gf, *rest = data
-    K7.reset_launch_counts()
+    reset_launch_counts()
     card = compute_stream_ranks(torch.from_numpy(qf).to(cuda),
                                 torch.from_numpy(gf).to(cuda), *rest, **kw)
     torch.cuda.synchronize()
-    launches = dict(K7.LAUNCHES)
+    launches = {name: n for name, n in launch_counts().items() if n}
     kw.pop("mesh", None)
     cpu = compute_stream_ranks(qf, gf, *rest, device="cpu", **kw)
     return card, cpu, launches
@@ -1239,10 +1240,10 @@ def test_matmul_requant_operator_embed_shapes_exact(cuda, m, k, n, with_res,
     launch."""
     x, w, scale, bias, res, rs = _requant_inputs(cuda, m, k, n, with_res,
                                                  k + n + 1)
-    C.reset_launch_counts()
+    reset_launch_counts()
     got = torch.ops.crt.matmul_requant(x, w, scale, bias, res, rs, relu,
                                        C.pack_weight(w))
-    assert C.LAUNCHES["matmul_requant"] == 1
+    assert launch_counts()["matmul_requant"] == 1
     assert torch.equal(got, C.matmul_requant_plain(
         x, w, scale, bias, res=res, res_scale=rs, relu=relu))
 
@@ -1253,10 +1254,10 @@ def test_conv3x3_requant_operator_embed_shapes_exact(cuda, b, h, w, k):
         cuda, b * h * w, 9 * k, k, True, b + k + 1, res_shape=(b, h, w, k))
     x = x[:, :k].reshape(b, h, w, k).contiguous()
     wt = wt.reshape(3, 3, k, k)
-    C.reset_launch_counts()
+    reset_launch_counts()
     got = torch.ops.crt.conv3x3_requant(x, wt, scale, bias, res, rs, True,
                                         C.pack_weight(wt))
-    assert C.LAUNCHES["conv3x3_requant"] == 1
+    assert launch_counts()["conv3x3_requant"] == 1
     assert torch.equal(got, C.conv3x3_requant_plain(
         x, wt, scale, bias, res_nhwc=res, res_scale=rs))
 
@@ -1296,15 +1297,15 @@ def test_int8_artifact_on_card_equals_live_qfn(cuda, tmp_path):
         live = qfn(imgs)
         live = (live / live.norm(dim=1, keepdim=True)).cpu().numpy()
     torch.cuda.synchronize()
-    C.reset_launch_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         qfn(imgs)
     torch.cuda.synchronize()
-    live_launches = dict(C.LAUNCHES)
-    C.reset_launch_counts()
+    live_launches = launch_counts()
+    reset_launch_counts()
     got = emb.embed(imgs)
     torch.cuda.synchronize()
-    assert dict(C.LAUNCHES) == live_launches
+    assert launch_counts() == live_launches
     assert live_launches["matmul_requant"] > 0
     assert live_launches["conv3x3_requant"] > 0
     np.testing.assert_array_equal(got, live)
@@ -1401,11 +1402,11 @@ def test_sharded_topk_on_a_four_shard_card_mesh(cuda, bf16, k):
     gf = torch.from_numpy(rng.randint(-2, 3, (70000, 64)).astype(np.float32))
     if bf16:
         qf, gf = qf.bfloat16(), gf.bfloat16()
-    R.reset_launch_counts()
+    reset_launch_counts()
     v, i = sharded_topk(qf, gf.to(cuda), k,
                         make_retrieval_mesh(devices=[cuda] * 4))
     torch.cuda.synchronize()
-    launches = dict(R.LAUNCHES)
+    launches = launch_counts()
     rv, ri = sharded_topk(qf, gf, k, make_retrieval_mesh(devices=["cpu"] * 4))
     np.testing.assert_array_equal(i, ri)
     np.testing.assert_array_equal(v, rv)
@@ -1513,22 +1514,22 @@ def test_nccl_step_at_world_one_equals_the_plain_step(cuda, tmp_path):
 # batch of 256: [256 x 211, 768] and b2's [1024 x 53, 768] with a bf16
 # branch and a bf16 output, no branch (block 0's and b2's norm1), an fp32
 # output (b1's and b2's final norms), all fp32 (autocast off); a ragged 7
-# rows (one part-filled block); the other built widths.
+# rows (one part-filled block); other row counts and type mixes.
 K8_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
             (1024 * 53, 768, torch.bfloat16, torch.bfloat16),
             (7, 768, torch.bfloat16, torch.bfloat16),
             (256 * 211, 768, None, torch.bfloat16),
             (256 * 211, 768, torch.bfloat16, torch.float32),
             (4096, 768, torch.float32, torch.float32),
-            (4096, 384, torch.bfloat16, torch.bfloat16),
-            (33, 384, None, torch.float32),
-            (4096, 1024, torch.float32, torch.bfloat16)]
+            (4096, 768, torch.bfloat16, torch.bfloat16),
+            (33, 768, None, torch.float32),
+            (4096, 768, torch.float32, torch.bfloat16)]
 # A bf16 residual stream (a model cast wholly to bf16): bf16 x, weight
 # and bias, a bf16 branch or none, y bf16 (LayerNorm's own) or fp32.
 K8_BF16_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
                  (1024 * 53, 768, None, torch.bfloat16),
                  (7, 768, torch.bfloat16, torch.float32),
-                 (33, 384, torch.bfloat16, torch.bfloat16)]
+                 (33, 768, torch.bfloat16, torch.bfloat16)]
 K8_FP32_ATOL = 2e-6   # y in fp32: the statistics summed in another order
 
 
@@ -1578,10 +1579,10 @@ def test_add_norm_kernel_bf16_stream_matches_plain(cuda, rows, d,
 def _hold_k8_to_plain(x, delta, w, b, y_dtype):
     from centroids_reid_tpu_torch.ops import add_norm as K8
 
-    K8.reset_launch_counts()
+    reset_launch_counts()
     s, y = K8.add_norm(x, delta, w, b, 1e-6, y_dtype)
     torch.cuda.synchronize()
-    assert K8.LAUNCHES["add_norm"] == 1
+    assert launch_counts()["add_norm"] == 1
     ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, y_dtype)
     assert torch.equal(s, ps) and s.dtype == x.dtype
     if delta is None:
@@ -1595,15 +1596,17 @@ def _hold_k8_to_plain(x, delta, w, b, y_dtype):
         assert float(err.max()) <= K8_FP32_ATOL
 
 
-def test_add_norm_kernel_refuses_other_widths(cuda):
-    """A row width the kernel is not built for raises before a launch."""
+@pytest.mark.parametrize("d", [640, 384])
+def test_add_norm_kernel_refuses_other_widths(cuda, d):
+    """A row width the kernel is not built for (384: ViT-S's, which no
+    configuration runs) raises before a launch."""
     from centroids_reid_tpu_torch.ops import add_norm as K8
 
-    x, delta, w, b = _k8_inputs(cuda, 16, 640, torch.bfloat16)
-    K8.reset_launch_counts()
+    x, delta, w, b = _k8_inputs(cuda, 16, d, torch.bfloat16)
+    reset_launch_counts()
     with pytest.raises(ValueError, match="built for rows"):
         K8.add_norm(x, delta, w, b, 1e-6, torch.bfloat16)
-    assert K8.LAUNCHES["add_norm"] == 0
+    assert launch_counts()["add_norm"] == 0
 
 
 def test_transreid_embed_runs_k8_at_every_site(cuda, monkeypatch):
@@ -1636,7 +1639,7 @@ def test_transreid_embed_runs_k8_at_every_site(cuda, monkeypatch):
         with torch.no_grad():
             return m.to(device).embed(x.to(device), cams.to(device))
 
-    K8.reset_launch_counts()
+    reset_launch_counts()
     profiling.reset()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]):
@@ -1644,7 +1647,7 @@ def test_transreid_embed_runs_k8_at_every_site(cuda, monkeypatch):
         torch.cuda.synchronize()
     counts = profiling.counts()
     profiling.reset()
-    assert K8.LAUNCHES["add_norm"] == 28
+    assert launch_counts()["add_norm"] == 28
     assert counts["vit.norms"] == 25 * 4 * 211 + 3 * 16 * 53
     assert counts["vit.norms_fused"] == counts["vit.norms"]
     with monkeypatch.context() as mp, torch.profiler.profile(
@@ -1654,7 +1657,7 @@ def test_transreid_embed_runs_k8_at_every_site(cuda, monkeypatch):
         torch.cuda.synchronize()
     counts = profiling.counts()
     profiling.reset()
-    assert K8.LAUNCHES["add_norm"] == 28
+    assert launch_counts()["add_norm"] == 28
     # on the eager ops every site is counted and none fused
     assert counts["vit.norms"] == 25 * 4 * 211 + 3 * 16 * 53
     assert "vit.norms_fused" not in counts
@@ -1713,7 +1716,7 @@ def test_bf16_trunk_embed_runs_k8_at_every_site(cuda, monkeypatch):
     sites = 25 * 4 * 211 + 3 * 16 * 53
 
     def embed():
-        K8.reset_launch_counts()
+        reset_launch_counts()
         profiling.reset()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU]):
@@ -1721,7 +1724,7 @@ def test_bf16_trunk_embed_runs_k8_at_every_site(cuda, monkeypatch):
             torch.cuda.synchronize()
         counts = profiling.counts()
         profiling.reset()
-        return e, K8.LAUNCHES["add_norm"], counts
+        return e, launch_counts()["add_norm"], counts
 
     fused, launches, counts = embed()
     assert next(low.parameters()).dtype == torch.bfloat16

@@ -10,6 +10,11 @@ multiply-add, which rounds once instead of twice, so against the JAX
 kernels the reference test's bound holds: at most one quantum, on under 1%
 of the elements."""
 
+import os
+import subprocess
+import sys
+import textwrap
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +22,10 @@ import torch
 
 from centroids_reid_tpu.ops import int8_conv as J
 from centroids_reid_tpu_torch.ops import int8_conv as R
+from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
+from conftest import cpu_subprocess_env
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _oracle(acc, scale, bias, relu, res=None, res_scale=None):
@@ -59,10 +68,10 @@ def test_matmul_requant_plain(relu, with_res):
     x = rng.randint(-127, 128, (m, k)).astype(np.int8)
     w = rng.randint(-127, 128, (k, n)).astype(np.int8)
     scale, bias, res, rs = _epilogue_inputs(rng, n, with_res, (m, n))
-    R.reset_launch_counts()
+    reset_launch_counts()
     got = R.matmul_requant(_t(x), _t(w), _t(scale), _t(bias), res=_t(res),
                            res_scale=rs, relu=relu).numpy()
-    assert R.LAUNCHES == {"matmul_requant": 0, "conv3x3_requant": 0}
+    assert not any(launch_counts().values())
     acc = x.astype(np.int64) @ w.astype(np.int64)
     np.testing.assert_array_equal(got, _oracle(acc, scale, bias, relu, res,
                                                rs))
@@ -140,3 +149,40 @@ def test_epilogue_rounds_half_away_from_zero_and_clips():
     assert got.tolist() == [[0, 1, -1, 2, -2, 127, -127, 2]]
     got = R._epilogue_plain(acc, scale, bias, relu=True)
     assert got.tolist() == [[0, 1, 0, 2, 0, 127, 0, 2]]
+
+
+def test_first_int8_calls_import_no_dynamo():
+    """The first calls of K5's and K6's operators, on CPU tensors in a fresh
+    process, leave ``torch._dynamo`` unimported: its import would add
+    seconds to the set-up of every process that embeds in int8."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from centroids_reid_tpu_torch.ops import conv3x3_requant, matmul_requant
+        i8 = dict(dtype=torch.int8)
+        scale, bias = torch.full((64,), 1e-3), torch.zeros(64)
+        matmul_requant(torch.ones((8, 64), **i8), torch.ones((64, 64), **i8),
+                       scale, bias)
+        conv3x3_requant(torch.ones((1, 4, 4, 64), **i8),
+                        torch.ones((3, 3, 64, 64), **i8), scale, bias)
+        print("torch._dynamo" in sys.modules)
+    """)
+    proc = subprocess.run([sys.executable, "-c", script],
+                          env=cpu_subprocess_env(), capture_output=True,
+                          text=True, timeout=300, cwd=_REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False"]
+
+
+def test_operator_schemas_are_those_artifacts_name():
+    """``torch.ops.crt`` holds K5's and K6's operators with the schemas
+    that serving artifacts written by ``inference/export.py`` name, so
+    artifacts written before stay loadable."""
+    assert str(torch.ops.crt.matmul_requant.default._schema) == (
+        "crt::matmul_requant(Tensor x, Tensor w, Tensor scale, Tensor bias, "
+        "Tensor? res, Tensor? res_scale, bool relu, Tensor? w_packed) "
+        "-> Tensor")
+    assert str(torch.ops.crt.conv3x3_requant.default._schema) == (
+        "crt::conv3x3_requant(Tensor x_nhwc, Tensor w_hwio, Tensor scale, "
+        "Tensor bias, Tensor? res_nhwc, Tensor? res_scale, bool relu, "
+        "Tensor? w_packed) -> Tensor")

@@ -307,20 +307,21 @@ def test_add_norm_plain_is_todays_ops(delta_dtype, y_dtype):
     launches nothing) gives bit for bit ``x + delta``, ``F.layer_norm``
     and the cast; with no delta it returns x itself."""
     from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
 
     x, b, w, bias = _residual()
     delta = None if delta_dtype is None else b.to(delta_dtype)
     s = x if delta is None else x + delta
     y = torch.nn.functional.layer_norm(s, (D,), w, bias, 1e-6)
     y = y if y_dtype is None else y.to(y_dtype)
-    K8.reset_launch_counts()
+    reset_launch_counts()
     for fn in (K8.add_norm_plain, K8.add_norm):
         got_s, got_y = fn(x, delta, w, bias, 1e-6, y_dtype)
         assert torch.equal(got_s, s) and got_s.dtype == torch.float32
         assert torch.equal(got_y, y) and got_y.dtype == y.dtype
         if delta is None:
             assert got_s is x
-    assert K8.LAUNCHES["add_norm"] == 0
+    assert launch_counts()["add_norm"] == 0
 
 
 @pytest.mark.parametrize("delta", [True, False])
@@ -330,16 +331,17 @@ def test_add_norm_plain_on_a_bf16_stream(delta, y_dtype):
     model cast wholly to bf16) ``add_norm`` on the CPU is bit for bit the
     bf16 add and ``F.layer_norm``, whose output is bf16 (None)."""
     from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.ops import launch_counts, reset_launch_counts
 
     x, b, w, bias = (t.bfloat16() for t in _residual())
     b = b if delta else None
     s = x if b is None else x + b
     y = torch.nn.functional.layer_norm(s, (D,), w, bias, 1e-6)
-    K8.reset_launch_counts()
+    reset_launch_counts()
     got_s, got_y = K8.add_norm(x, b, w, bias, 1e-6, y_dtype)
     assert got_s.dtype == torch.bfloat16 and torch.equal(got_s, s)
     assert got_y.dtype == torch.bfloat16 and torch.equal(got_y, y)
-    assert K8.LAUNCHES["add_norm"] == 0
+    assert launch_counts()["add_norm"] == 0
 
 
 @pytest.mark.parametrize("fault", ["width", "x_dtype", "delta_shape",
