@@ -50,7 +50,6 @@ device of the gallery is the one shard.
 
 from __future__ import annotations
 
-from collections import defaultdict
 from typing import NamedTuple
 
 import numpy as np
@@ -77,25 +76,35 @@ def _positives_table(q_pids, g_pids, q_camids, g_camids,
     """[Q, H] gallery indices of each query's hits (same pid, kept under the
     camid-removal rule), ascending, -1 padded; H is padded to whole
     ``_H_CHUNK`` tiles, as the JAX package's table. With ``respect_camids``
-    the gallery camids are bitmasks and removal is set membership."""
-    by_pid = defaultdict(list)
-    for j, p in enumerate(np.asarray(g_pids).tolist()):
-        by_pid[int(p)].append(j)
-    g_camids = np.asarray(g_camids)
-    lists = []
-    for qi in range(len(q_pids)):
-        cand = by_pid.get(int(q_pids[qi]), [])
-        qc = int(q_camids[qi])
-        if respect_camids:
-            hits = [j for j in cand if not ((int(g_camids[j]) >> qc) & 1)]
-        else:
-            hits = [j for j in cand if int(g_camids[j]) != qc]
-        lists.append(hits)
-    h = max([len(x) for x in lists] + [1])
+    the gallery camids are bitmasks and removal is set membership.
+
+    Vectorised over a stable sort of the gallery pids: each query's
+    candidates are its pid's run of that order (ascending indices), laid
+    end to end in one flat array, so memory is O(candidates) however the
+    pids are spread."""
+    q_pids = np.asarray(q_pids, np.int64)
+    g_pids = np.asarray(g_pids, np.int64)
+    q_camids = np.asarray(q_camids, np.int64)
+    g_camids = np.asarray(g_camids, np.int64)
+    order = np.argsort(g_pids, kind="stable")
+    sorted_pids = g_pids[order]
+    lo = np.searchsorted(sorted_pids, q_pids, "left")
+    n = np.searchsorted(sorted_pids, q_pids, "right") - lo
+    # query row of each candidate, and its place in ``order``: lo of its
+    # query plus its offset within the query's run
+    row = np.repeat(np.arange(len(q_pids)), n)
+    cand = order[np.arange(row.size) + np.repeat(lo - (np.cumsum(n) - n), n)]
+    if respect_camids:
+        keep = ((g_camids[cand] >> q_camids[row]) & 1) == 0
+    else:
+        keep = g_camids[cand] != q_camids[row]
+    row, cand = row[keep], cand[keep]
+    hits = np.bincount(row, minlength=len(q_pids))
+    h = max(int(hits.max(initial=0)), 1)
     h += (-h) % _H_CHUNK
     pos = np.full((len(q_pids), h), -1, np.int32)
-    for qi, x in enumerate(lists):
-        pos[qi, :len(x)] = x
+    col = np.arange(row.size) - np.repeat(np.cumsum(hits) - hits, hits)
+    pos[row, col] = cand
     return pos
 
 

@@ -54,8 +54,8 @@ bf16 autocast) and seeded random weights:
   100, the stitched-order oracle; K7's two wrappers against their plain
   versions on the cell's features (within rounding) and on them scaled
   to integers (bit for bit), timed beside their bound and cuBLAS's fp32
-  GEMM. ONLY_TEST (phase 5) also runs windowed re-ranking and
-  ``TEST.VISUALIZE``;
+  GEMM, and the host's positives table at the cell's labels. ONLY_TEST
+  (phase 5) also runs windowed re-ranking and ``TEST.VISUALIZE``;
 * TransReID's LayerNorm sites (phase 3c): K8 (the residual add,
   LayerNorm and cast in one pass) against its plain version at the two
   site shapes of a 256-image batch, timed beside its bound, its plain
@@ -4070,7 +4070,8 @@ def phase_k7(f, pids_all, cams, gpu: str) -> dict:
     scaled by 64 and rounded to integers every fp32 value is an exact
     integer, so the distances are held bit for bit and the ranks exactly.
     Then each wrapper timed (CUDA events) beside its plain version, its
-    bound and cuBLAS's fp32 GEMM of the same operands. Returns {"errs",
+    bound and cuBLAS's fp32 GEMM of the same operands, and the host's
+    positives table at the cell's labels (host clock). Returns {"errs",
     "times"} for the kernels line."""
     import torch
 
@@ -4078,6 +4079,7 @@ def phase_k7(f, pids_all, cams, gpu: str) -> dict:
         StreamRanks,
         _hrank_lexsort,
         _metrics_from_ranks,
+        _positives_table,
     )
     from centroids_reid_tpu_torch.ops import stream_rank as K7
 
@@ -4142,6 +4144,16 @@ def phase_k7(f, pids_all, cams, gpu: str) -> dict:
             f"{k_ms:.2f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.3f}"
             f" of its bound {b_ms:.1f} ms), plain version {p_ms:.1f} ms, "
             f"cuBLAS fp32 GEMM (torch.mm, TF32 off) {lib_ms:.2f} ms [{gpu}]")
+    table_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _positives_table(*args, False)
+        table_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"_positives_table at the cell's labels ({nq} x {len(args[1])}) "
+        "on the host clock: " + ", ".join(f"{ms:.2f}" for ms in table_ms)
+        + f" ms in 5 calls, beside extract "
+        f"{times['stream_extract']['ms']:.2f} ms and count "
+        f"{times['stream_count']['ms']:.2f} ms (CUDA events) [{gpu}]")
     return {"errs": errs, "times": times}
 
 

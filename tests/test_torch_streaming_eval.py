@@ -14,6 +14,7 @@ import torch
 
 from centroids_reid_tpu.metrics import eval_func_streaming as jax_streaming
 from centroids_reid_tpu.metrics.streaming_eval import (
+    _positives_table as jax_positives_table,
     compute_stream_ranks as jax_stream_ranks,
 )
 from centroids_reid_tpu_torch.metrics import (
@@ -183,6 +184,117 @@ def test_streaming_accepts_list_and_tensor_galleries():
                                             device="cpu"))
     _assert_same(m_arr, eval_func_streaming(torch.from_numpy(qf),
                                             torch.from_numpy(gf), *rest))
+
+
+def _labels(seed, q=29, g=211, pids=9, cams=6):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, pids, q), rng.randint(0, pids, g),
+            rng.randint(0, cams, q), rng.randint(0, cams, g))
+
+
+def _bitmask_labels():
+    """Query cameras 0-62 against random int64 masks over bits 0-62."""
+    rng = np.random.RandomState(21)
+    q_pids, g_pids, _, _ = _labels(21)
+    return (q_pids, g_pids, rng.randint(0, 63, len(q_pids)),
+            rng.randint(0, np.iinfo(np.int64).max, len(g_pids),
+                        dtype=np.int64))
+
+
+def _pid_heavy_labels():
+    """One pid holds 3 * _H_CHUNK + 40 rows, spread through the gallery,
+    so a query of it has hits in three tiles or more."""
+    rng = np.random.RandomState(22)
+    g_pids = rng.randint(1, 6, 3 * S._H_CHUNK + 120)
+    g_pids[rng.permutation(len(g_pids))[:3 * S._H_CHUNK + 40]] = 0
+    q_pids = np.array([0, 0, 3, 0, 5, 1, 0])
+    return (q_pids, g_pids, rng.randint(0, 3, len(q_pids)),
+            rng.randint(0, 3, len(g_pids)))
+
+
+def _pid_heavy_bitmask_labels():
+    """The pid-heavy gallery, each row's mask one bit of cameras 0-2."""
+    q_pids, g_pids, q_cams, _ = _pid_heavy_labels()
+    rng = np.random.RandomState(26)
+    return q_pids, g_pids, q_cams, 1 << rng.randint(0, 3, len(g_pids))
+
+
+def _absent_labels():
+    q_pids, g_pids, q_cams, g_cams = _labels(23)
+    q_pids[::3] = 40 + np.arange(len(q_pids[::3]))
+    return q_pids, g_pids, q_cams, g_cams
+
+
+def _junk_labels():
+    """Junk (-1) and distractor (0) gallery rows, and queries of pid 0."""
+    q_pids, g_pids, q_cams, g_cams = _labels(24)
+    g_pids[::4] = -1
+    g_pids[1::5] = 0
+    q_pids[:3] = 0
+    return q_pids, g_pids, q_cams, g_cams
+
+
+def _no_hit_labels():
+    q_pids, g_pids, q_cams, g_cams = _labels(25)
+    return q_pids + 100, g_pids, q_cams, g_cams
+
+
+def _empty_query_labels():
+    q_pids, g_pids, q_cams, g_cams = _labels(27)
+    return q_pids[:0], g_pids, q_cams[:0], g_cams
+
+
+_TABLE_CASES = {
+    "plain_cameras": (lambda: _labels(20), False),
+    "respect_camids_bitmasks": (_bitmask_labels, True),
+    "pid_heavy": (_pid_heavy_labels, False),
+    "pid_heavy_bitmasks": (_pid_heavy_bitmask_labels, True),
+    "absent_query_pids": (_absent_labels, False),
+    "junk_and_distractors": (_junk_labels, False),
+    "no_query_has_a_hit": (_no_hit_labels, False),
+    "empty_query_set": (_empty_query_labels, False),
+    "lists": (lambda: tuple(x.tolist() for x in _labels(28)), False),
+    "int32_arrays": (
+        lambda: tuple(x.astype(np.int32) for x in _labels(29)), False),
+}
+
+
+def _same_table(labels, respect):
+    got = S._positives_table(*labels, respect)
+    ref = jax_positives_table(*labels, respect)
+    assert got.dtype == ref.dtype == np.int32
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(_TABLE_CASES))
+def test_positives_table_equals_jax(case):
+    """The vectorised table equals the JAX package's loop: values, shape
+    and dtype."""
+    make, respect = _TABLE_CASES[case]
+    got = _same_table(make(), respect)
+    assert got.shape[1] % S._H_CHUNK == 0
+    if case.startswith("pid_heavy"):
+        assert (got >= 0).sum(axis=1).max() > 2 * S._H_CHUNK
+    if case == "no_query_has_a_hit":
+        assert got.shape[1] == S._H_CHUNK and (got == -1).all()
+    if case == "empty_query_set":
+        assert got.shape == (0, S._H_CHUNK)
+
+
+def test_positives_table_at_the_cell_layout():
+    """market-r50-eval500k's labels: 3,368 queries, 15,913 gallery rows
+    over 750 ids, then 500,000 distractors of one pid, 6 cameras."""
+    rng = np.random.RandomState(30)
+    nq, ng, ids, distractors = 3368, 15913, 750, 500_000
+    q_pids = rng.randint(0, ids, nq)
+    g_pids = np.concatenate([rng.randint(0, ids, ng),
+                             np.full(distractors, ids)])
+    labels = (q_pids, g_pids, rng.randint(0, 6, nq),
+              rng.randint(0, 6, ng + distractors))
+    got = _same_table(labels, False)
+    assert got.shape == (nq, S._H_CHUNK) and (got >= 0).any()
 
 
 @pytest.mark.parametrize("values", [
