@@ -39,6 +39,10 @@ def get_default_cfg() -> ConfigNode:
     _C.MODEL.SHIFT_NUM = 5
     _C.MODEL.SHUFFLE_GROUP = 2
     _C.MODEL.DEVIDE_LENGTH = 4
+    # SOLIDER-REID's Swin (a swin_* TRANSFORMER_TYPE; models/swin.py):
+    # lambda of its semantic controller, < 0 leaves the controller out. No
+    # other model reads it.
+    _C.MODEL.SEMANTIC_WEIGHT = 1.0
 
     # ------------------------------------------------------------------ INPUT
     _C.INPUT = ConfigNode()

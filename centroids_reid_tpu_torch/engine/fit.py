@@ -41,7 +41,7 @@ from ..data import TrainLoader, init_dataset
 from ..data.device_data import bank_size_mb, build_image_bank, plan_to_arrays
 from ..models import create_model
 from ..models.convert import backbone_state_dict, load_torch_file
-from ..models.transreid import is_transreid, refuse
+from ..models.transreid import family, is_transformer, refuse
 from ..parallel.mesh import (
     local_groups,
     process_count,
@@ -118,10 +118,10 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
     """Train, validate, checkpoint, then the final double test. Returns the
     last validation's metrics and the double test's (``test_centroids_*``,
     ``test_plain_*``), or ``preempted`` when a SIGTERM stopped the run."""
-    if is_transreid(cfg):
-        refuse("fit", "its training (JPM's ID and triplet losses over the "
-               "five branches) is not ported; evaluate a TransReID "
-               "checkpoint with TEST.ONLY_TEST True")
+    if is_transformer(cfg):
+        refuse("fit", "its training (TransReID's JPM ID and triplet losses "
+               "over five branches, SOLIDER-REID's recipe) is not ported; "
+               "evaluate a checkpoint with TEST.ONLY_TEST True", family(cfg))
     if cfg.DATALOADER.SAMPLER != "random_identity":
         raise NotImplementedError(
             f"Unknown sampler {cfg.DATALOADER.SAMPLER!r}; only "

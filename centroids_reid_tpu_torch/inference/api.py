@@ -27,7 +27,8 @@ from ..models.convert import (
 )
 from ..models.transreid import (
     checkpoint_cameras,
-    is_transreid,
+    family,
+    is_transformer,
     load_transreid_state_dict,
     refuse,
 )
@@ -44,16 +45,17 @@ def load_inference_model(cfg, device="cuda") -> torch.nn.Module:
     ``fc_query``, and ``batch_stats``; the optimizer state is not decoded).
     Keys a reference file lacks keep their seed-0 init, as the reference
     ``load_param`` copies key by key. Channels-last memory format, which
-    cuDNN's convolutions prefer. TransReID (``MODEL.NAME transformer``)
-    loads its own ``.pth`` by its names, with SIE sized by the file."""
+    cuDNN's convolutions prefer. A transformer (``MODEL.NAME
+    transformer``: TransReID, or SOLIDER-REID's Swin) loads its own
+    ``.pth`` by its names, with TransReID's SIE sized by the file."""
     path = cfg.MODEL.PRETRAIN_PATH
     if not path:
         raise ValueError("MODEL.PRETRAIN_PATH must point to a checkpoint")
-    if is_transreid(cfg):
+    if is_transformer(cfg):
         if os.path.isdir(path):
-            refuse("a checkpoint directory", "fit trains no TransReID and "
-                   "the JAX package has no transformer; give TransReID's "
-                   ".pth file")
+            refuse("a checkpoint directory", "fit trains no transformer and "
+                   "the JAX package has none; give the checkpoint's .pth "
+                   "file", family(cfg))
         sd = load_torch_file(path)
         model = create_model(cfg, num_classes=0,
                              cameras=checkpoint_cameras(sd))

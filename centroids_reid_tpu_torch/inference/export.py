@@ -116,7 +116,8 @@ def _export_programs(model, cfg, item_shape, batch_size, platforms, *,
     """One ``torch.export`` program per device type in ``platforms``.
     Returns ``({type: blob}, {type: export seconds}, (emb_dim, dtype))``."""
     refuse_model(model, "export", "a serving program takes images alone, "
-                 "and SIE needs each image's camera id")
+                 "and TransReID's SIE needs each image's camera id; no "
+                 "transformer's serving program is ported")
     blobs, seconds, out = {}, {}, None
     for platform in platforms:
         device = torch.device(platform)

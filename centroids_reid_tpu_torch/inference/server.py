@@ -545,7 +545,7 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     from pathlib import Path
 
     from ..config import get_default_cfg
-    from ..models.transreid import is_transreid, refuse
+    from ..models.transreid import family, is_transformer, refuse
     from .api import load_inference_model
     from .service import SEARCH_WHY, RetrievalService
 
@@ -651,8 +651,8 @@ def build_from_args(argv=None) -> RetrievalHTTPServer:
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
-    if is_transreid(cfg):
-        refuse("the HTTP server", SEARCH_WHY)
+    if is_transformer(cfg):
+        refuse("the HTTP server", SEARCH_WHY, family(cfg))
     mesh = None
     if cfg.TPU.SHARDED_RETRIEVAL:
         # a mesh over the cards when at least two are visible, as the

@@ -23,7 +23,7 @@ from ..data.transforms import (
     normalize_batch,
     normalize_yuv420_batch,
 )
-from ..models.transreid import is_transreid, refuse
+from ..models.transreid import family, is_transformer, refuse
 from ..ops.rerank import _WIN_CHUNK, _windowed, _windowed_feats
 from ..ops.retrieval import (
     _G_TILE,
@@ -46,9 +46,10 @@ from ..parallel.retrieval import (
 )
 from .api import load_inference_model
 
-# why the /search service and the HTTP front refuse TransReID
+# why the /search service and the HTTP front refuse a transformer
 SEARCH_WHY = ("a /search request carries images and no camera id, which "
-              "SIE needs")
+              "TransReID's SIE needs, and no transformer's serving path is "
+              "ported")
 
 
 def ranked_query(e, gf, gf32, gn, k: int):
@@ -233,8 +234,8 @@ class RetrievalService:
                  rerank_window: int = 0, rerank_k1: int = 20,
                  rerank_k2: int = 6, rerank_lambda: float = 0.3,
                  int8_calib_imgs=None, int8_qfn=None):
-        if is_transreid(cfg):
-            refuse("the /search service", SEARCH_WHY)
+        if is_transformer(cfg):
+            refuse("the /search service", SEARCH_WHY, family(cfg))
         if mesh is not None and mesh.shape[GALLERY_AXIS] < 2:
             mesh = None
         if use_int8_gallery and mesh is not None:

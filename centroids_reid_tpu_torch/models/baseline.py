@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from .resnet import backbone_emb_size, build_backbone, random_init_
-from .transreid import is_transreid, make_transreid
+from .swin import is_swin, make_swin
+from .transreid import is_transformer, make_transreid
 
 
 class ReidModel(nn.Module):
@@ -63,11 +64,14 @@ def create_model(cfg, num_classes: int = 0,
                  generator: Optional[torch.Generator] = None,
                  cameras: int = 0):
     """The model ``MODEL.NAME`` names (a ``ReidModel``, or with
-    ``transformer`` TransReID's ``TransReIDModel``, whose SIE needs the
-    dataset's camera count ``cameras``), initialised from ``generator``
-    (seed 0 when None), in eval mode on the CPU."""
-    if is_transreid(cfg):
-        model = make_transreid(cfg, num_classes, cameras, generator)
+    ``transformer`` the one ``MODEL.TRANSFORMER_TYPE`` names: TransReID's
+    ``TransReIDModel``, whose SIE needs the dataset's camera count
+    ``cameras``, or for a ``swin_*`` type SOLIDER-REID's ``SwinReID``),
+    initialised from ``generator`` (seed 0 when None), in eval mode on the
+    CPU."""
+    if is_transformer(cfg):
+        model = (make_swin(cfg, num_classes, generator) if is_swin(cfg)
+                 else make_transreid(cfg, num_classes, cameras, generator))
         _check_emb_size(cfg, model.emb_size)
         return model
     _check_emb_size(cfg, backbone_emb_size(cfg.MODEL.NAME))

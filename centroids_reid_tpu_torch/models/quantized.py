@@ -41,8 +41,9 @@ import torch.nn.functional as F
 from .resnet import _ARCHS
 from .transreid import refuse_model
 
-_INT8_WHY = ("the int8 engine folds a ResNet's convs and BNs; a ViT's "
-             "linears, LayerNorms and attention are not quantized")
+_INT8_WHY = ("the int8 engine folds a ResNet's convs and BNs; a "
+             "transformer's linears, LayerNorms and attention are not "
+             "quantized")
 
 _EPS = 1e-5  # BN epsilon of every norm in resnet.py
 

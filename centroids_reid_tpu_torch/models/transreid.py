@@ -55,22 +55,36 @@ VIT_WIDTHS = {
                                            patch_size=16),
 }
 
-NAME = "transformer"   # MODEL.NAME of TransReID's transformer models
+NAME = "transformer"   # MODEL.NAME of the transformer models
+TRANSREID = "TransReID"
+SWIN = "Swin (SOLIDER-REID)"   # models/swin.py
 
 
-def is_transreid(cfg) -> bool:
+def is_transformer(cfg) -> bool:
+    """``MODEL.NAME transformer``: TransReID's ViT or, by
+    ``MODEL.TRANSFORMER_TYPE``, SOLIDER-REID's Swin (``family``)."""
     return cfg.MODEL.NAME == NAME
 
 
-def refuse(what: str, why: str):
-    """Raise for a path that does not run TransReID."""
+def family(cfg) -> str:
+    """The transformer ``cfg`` names (a ``swin_*`` type: Swin), as errors
+    name it."""
+    return (SWIN if str(cfg.MODEL.TRANSFORMER_TYPE).startswith("swin_")
+            else TRANSREID)
+
+
+def refuse(what: str, why: str, model: str = TRANSREID):
+    """Raise for a path that does not run ``model``."""
     raise NotImplementedError(
-        f"{what} does not run TransReID (MODEL.NAME {NAME}): {why}")
+        f"{what} does not run {model} (MODEL.NAME {NAME}): {why}")
 
 
 def refuse_model(model, what: str, why: str) -> None:
-    if isinstance(model, TransReIDModel):
-        refuse(what, why)
+    """``refuse`` for a transformer model (its ``FAMILY``); a ResNet
+    passes."""
+    name = getattr(model, "FAMILY", None)
+    if name is not None:
+        refuse(what, why, name)
 
 
 class PatchEmbedOverlap(nn.Module):
@@ -236,6 +250,8 @@ class TransReIDModel(nn.Module):
     and the JPM branch ``b2``, five BNNecks (bias frozen) and, with
     ``num_classes`` > 0, five bias-free classifiers (held for state-dict
     compatibility; evaluation never runs them)."""
+
+    FAMILY = TRANSREID
 
     def __init__(self, img_size: Sequence[int] = (256, 128),
                  patch_size: int = 16, stride: Sequence[int] = (12, 12),
@@ -419,9 +435,10 @@ def checkpoint_cameras(sd) -> int:
     return 0 if e is None else int(e.shape[0])
 
 
-def load_transreid_state_dict(model: TransReIDModel, sd) -> TransReIDModel:
-    """Load a TransReID state dict (strict; classifiers may be absent
-    from an inference model's view)."""
+def load_transreid_state_dict(model, sd):
+    """Load a TransReID state dict, or SOLIDER-REID's into its Swin
+    (``models/swin.py``, the same layout of names): strict; classifiers
+    may be absent from an inference model's view."""
     sd = transreid_state_dict(sd)
     if model.num_classes == 0:
         sd = {k: v for k, v in sd.items() if not k.startswith("classifier")}

@@ -1,13 +1,14 @@
-"""The residual add, LayerNorm and cast of a ViT block's pre-norm site
-(Hopper), K8.
+"""The residual add, LayerNorm and cast of a transformer block's pre-norm
+site (Hopper), K8.
 
-It replaces no TPU kernel: the JAX package has no ViT. TransReID's blocks
-(``models/transreid.py``) under bf16 autocast keep the residual stream and
-the LayerNorms in fp32 and cast each LayerNorm's output to bf16 for the
-next linear: an add, a LayerNorm and a cast, three memory-bound passes of
-24 bytes an element. One hand-written CUDA kernel (``csrc/add_norm.cu``)
-makes one pass of 12 (x and a bf16 delta read, x_new and a bf16 y
-written): 498 MB, 0.149 ms at 3.35 TB/s, at TransReID's [54,016, 768].
+It replaces no TPU kernel: the JAX package has no transformer. TransReID's
+blocks (``models/transreid.py``) and Swin's (``models/swin.py``) under
+bf16 autocast keep the residual stream and the LayerNorms in fp32 and cast
+each LayerNorm's output to bf16 for the next linear: an add, a LayerNorm
+and a cast, three memory-bound passes of 24 bytes an element. One
+hand-written CUDA kernel (``csrc/add_norm.cu``) makes one pass of 12 (x
+and a bf16 delta read, x_new and a bf16 y written): 498 MB, 0.149 ms at
+3.35 TB/s, at TransReID's [54,016, 768].
 
 ``add_norm(x, delta, weight, bias, eps, dtype)`` returns ``(x_new, y)``:
 ``x_new = x + delta`` in the residual stream's type (``x`` itself when
@@ -24,9 +25,9 @@ bit as PyTorch's add; its statistics are summed in another order than
 PyTorch's LayerNorm, so ``y`` can differ by fp32 rounding. The wrapper
 launches through ``_build.launch`` (no Triton: it would add a JIT to a
 process's set-up), does not synchronise, and adds, under a running
-profiler, the launch's rows to the counter ``vit.norms_fused`` (the ViT's
-sites are K8's only callers). The kernel has no backward: it refuses
-tensors that need a gradient.
+profiler, the launch's rows to the counter ``vit.norms_fused`` (the
+transformers' sites are K8's only callers). The kernel has no backward:
+it refuses tensors that need a gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ import torch.nn.functional as F
 from ..utils.profiling import count
 from ._build import aligned, launch, on_cpu
 
-DIMS = (768,)   # the row widths the kernel is built for (ViT-B)
+# the row widths the kernel is built for: ViT-B's 768; Swin-B's 128-1024
+# (blocks, norm3) and 512-2048 (patch merging)
+DIMS = (128, 256, 512, 768, 1024, 2048)
 _DELTA_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 _Y_TYPES = (torch.float32, torch.bfloat16)
 _STREAMS = {torch.float32: (None, torch.float32, torch.bfloat16),

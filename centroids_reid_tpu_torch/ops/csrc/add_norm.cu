@@ -6,8 +6,9 @@
 //                     statistics, y written in fp32 or bf16, in one pass
 //                     over each row
 //
-// It replaces no TPU kernel: the JAX package has no ViT. It was added for
-// TransReID's blocks (models/transreid.py), where bf16 autocast keeps the
+// It replaces no TPU kernel: the JAX package has no transformer. It was
+// added for TransReID's blocks (models/transreid.py) and runs every
+// LayerNorm of Swin's too (models/swin.py), where bf16 autocast keeps the
 // residual stream and the LayerNorms in fp32 and casts each LayerNorm's
 // output to bf16 for the next linear: three memory-bound passes a site
 // (the add: read 4 + 2 B, write 4; the LayerNorm: read 4, write 4; the
@@ -29,8 +30,15 @@
 // holds 8 rows (256 threads); the grid one block per 8 rows, 6,752 blocks
 // at 54,016 rows, so the card has many warps of loads in flight on every
 // SM. D is a template parameter, so the loops unroll and the register
-// arrays have fixed sizes; only 768 (ViT-B, TransReID's) is dispatched, and
-// another width is added with the configuration that runs it.
+// arrays have fixed sizes. The widths dispatched are those of the
+// configurations that run it: 768 (ViT-B, TransReID's) and Swin-B's 128,
+// 256, 512 and 1,024 (its blocks and norm3) and 512, 1,024 and 2,048 (its
+// patch merging's 4C). Every width takes the same layout, one warp a row:
+// at 128 a row is 16 chunks, so half the lanes hold none (the row is 512
+// or 256 bytes, less than a warp's 16-byte accesses cover); at 2,048 a lane
+// holds 8 chunks, 64 fp32 values: ptxas gives 193-195 registers (an fp32
+// stream) and up to 255 (a bf16 stream with a branch), the most a thread
+// of a 256-thread block may hold, and no spill at any width.
 //
 // The residual stream is fp32 (autocast's) or bf16 (a model cast wholly to
 // bf16, as the benchmark's bf16 control runs it): a bf16 stream has bf16
@@ -264,7 +272,8 @@ extern "C" {
 
 // x_bf16: the stream's type (x, w, b, x_out) is bf16 (1) or fp32 (0);
 // delta_kind: 0 none (x_out not written), 1 fp32 (fp32 stream only), 2
-// bf16; y_bf16: y's type is bf16 (1) or fp32 (0). D must be 768.
+// bf16; y_bf16: y's type is bf16 (1) or fp32 (0). D must be 128, 256,
+// 512, 768, 1024 or 2048.
 int crt_add_norm(const void* x, int x_bf16, const void* delta,
                  int delta_kind, const void* w, const void* b, void* x_out,
                  void* y, int y_bf16, int rows, int D, float eps,
@@ -276,8 +285,15 @@ int crt_add_norm(const void* x, int x_bf16, const void* delta,
   if (rows == 0) return 0;
   const Params p{x, delta, w, b, x_out, y, rows, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 768) return (int)cudaErrorInvalidValue;
-  return launch_delta<768>(p, x_bf16, delta_kind, y_bf16, s);
+  switch (D) {
+    case 128: return launch_delta<128>(p, x_bf16, delta_kind, y_bf16, s);
+    case 256: return launch_delta<256>(p, x_bf16, delta_kind, y_bf16, s);
+    case 512: return launch_delta<512>(p, x_bf16, delta_kind, y_bf16, s);
+    case 768: return launch_delta<768>(p, x_bf16, delta_kind, y_bf16, s);
+    case 1024: return launch_delta<1024>(p, x_bf16, delta_kind, y_bf16, s);
+    case 2048: return launch_delta<2048>(p, x_bf16, delta_kind, y_bf16, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -708,28 +708,46 @@ def phase_compare_int8() -> dict:
     return errs
 
 
-# K8's shapes at TransReID's batch of 256: (rows, what they are)
-K8_SHAPES = ((256 * 211, "[256, 211] tokens"),
-             (1024 * 53, "b2's [1024, 53] groups"))
-K8_WIDTH = 768
+# K8's site shapes at a batch of 256: (rows, width, a bf16 branch added or
+# none, y in bf16 or fp32, what they are); TransReID's first (the kernels
+# line reads the first), then Swin-B's at 384x128
+K8_SHAPES = ((256 * 211, 768, True, True, "[256, 211] tokens"),
+             (1024 * 53, 768, True, True, "b2's [1024, 53] groups"),
+             (256 * 3072, 128, False, False, "Swin patch norm"),
+             (256 * 3072, 128, True, True, "Swin stage-1 blocks"),
+             (256 * 768, 256, True, True, "Swin stage-2 blocks"),
+             (256 * 768, 512, False, True, "Swin merge 1 (4C)"),
+             (256 * 192, 512, True, True, "Swin stage-3 blocks"),
+             (256 * 192, 1024, False, True, "Swin merge 2 (4C)"),
+             (256 * 48, 1024, True, True, "Swin stage-4 blocks"),
+             (256 * 48, 1024, True, False, "Swin norm3"),
+             (256 * 48, 2048, False, True, "Swin merge 3 (4C)"))
 K8_EMBED_BATCHES = 3   # of TEST.IMS_PER_BATCH (256) images
-K8_SITES = 28          # LayerNorm sites a TransReID batch: 25 + b2's 3
-# the benchmark cell market-transreid-eval's configuration
-K8_CONFIG = "portbench/configs/market-vit-transreid.json"
+# the benchmark cells market-transreid-eval's and market-swin-eval's
+# configurations: (file, LayerNorm sites a batch, rows of those sites an
+# image)
+K8_CONFIGS = (("portbench/configs/market-vit-transreid.json", 28,
+               25 * 211 + 3 * 4 * 53),   # 25 over the tokens, b2's 3
+              ("portbench/configs/market-swin-solider.json", 53,
+               # the patch norm, two a block, three merges, norm3
+               3072 + 2 * (2 * 3072 + 2 * 768 + 18 * 192 + 2 * 48)
+               + 768 + 192 + 48 + 48))
 
 
 def phase_k8(gpu: str) -> dict:
     """K8 at TransReID's two site shapes ([54,016, 768] and [54,272, 768],
-    a bf16 branch, a bf16 output): held against its plain version (the
-    sum bit for bit, y within one bf16 ulp), then timed (CUDA events)
-    beside its bound, its plain version and autocast's eager add,
-    LayerNorm and cast (``library_ms``). Then the main path: the
-    benchmark cell's TransReID (ViT-B/16 at 256x128, SIE, JPM, bf16
-    autocast) built by ``create_model`` from the cell's configuration,
-    ``extract_embeddings`` over K8_EMBED_BATCHES card-resident batches:
-    K8_SITES launches a batch, every site's rows fused (``vit.norms_fused``
-    counted at the launch, against ``vit.norms`` at the sites). Returns
-    {"errs", "times", "launches"} for the kernels line."""
+    a bf16 branch, a bf16 output) and Swin-B's nine (widths 128 to 2,048,
+    with or without a branch, y bf16 or fp32): held against its plain
+    version (the sum bit for bit, y within one bf16 ulp, or 2e-6 in fp32),
+    then timed (CUDA events) beside its bound, its plain version and
+    autocast's eager add, LayerNorm and cast (``library_ms``). Then the
+    main path: each benchmark cell's transformer (TransReID's ViT-B/16 at
+    256x128, SIE, JPM; Swin-B at 384x128; bf16 autocast) built by
+    ``create_model`` from the cell's configuration, ``extract_embeddings``
+    over K8_EMBED_BATCHES card-resident batches: its sites' launches a
+    batch, every site's rows fused (``vit.norms_fused`` counted at the
+    launch, against ``vit.norms`` at the sites). Returns {"errs", "times",
+    "launches"} for the kernels line (TransReID's launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -741,30 +759,34 @@ def phase_k8(gpu: str) -> dict:
     from centroids_reid_tpu_torch.utils import profiling
 
     log("== phase 3c: K8 (residual add + LayerNorm + cast)")
-    d, bf16 = K8_WIDTH, torch.bfloat16
+    bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     errs, times = {"add_norm": 0.0}, {}
-    for rows, what in K8_SHAPES:
+    for rows, d, branch, y_bf16, what in K8_SHAPES:
         x = 2.0 * randn(rows, d) + randn(rows, 1)
-        delta = randn(rows, d).to(bf16)
+        delta = randn(rows, d).to(bf16) if branch else None
         w, b = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
-        s, y = K8.add_norm(x, delta, w, b, 1e-6, bf16)
-        ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, bf16)
+        ty = bf16 if y_bf16 else torch.float32
+        s, y = K8.add_norm(x, delta, w, b, 1e-6, ty)
+        ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, ty)
         require(torch.equal(s, ps), f"K8's sum differs from x + delta at "
                 f"{what}")
         # one bf16 ulp at |y|, or 2e-6 near 0, where fp32 rounding of the
-        # statistics outweighs the spacing of bf16 values
+        # statistics outweighs the spacing of bf16 values; an fp32 y
+        # within 2e-6
         err = (y.float() - py.float()).abs()
         ulp = torch.ldexp(torch.ones_like(err),
                           torch.frexp(py.float().abs())[1] - 8)
+        if not y_bf16:
+            ulp = torch.zeros_like(ulp)
         ulps = float((err / ulp.clamp_min(2e-6)).max())
         differ = int((err > 0).sum())
-        require(ulps <= 1.0, f"K8's y {ulps} bf16 ulps from the plain "
-                f"version's at {what}")
+        require(ulps <= 1.0, f"K8's y {ulps} bf16 ulps (or 2e-6) from the "
+                f"plain version's at {what}")
         errs["add_norm"] = max(errs["add_norm"], float(err.max()))
         log(f"K8 against its plain version at [{rows}, {d}] ({what}): sum "
             f"bit for bit; y max |diff| {float(err.max()):.3e}, at most "
@@ -773,25 +795,27 @@ def phase_k8(gpu: str) -> dict:
 
         def autocast_chain():
             with torch.autocast("cuda", dtype=bf16):
-                return F.layer_norm(x + delta, (d,), w, b, 1e-6).to(bf16)
+                s = x if delta is None else x + delta
+                return F.layer_norm(s, (d,), w, b, 1e-6).to(ty)
 
         k_ms, p_ms, lib_ms = time_pair(
-            "add_norm", lambda: K8.add_norm(x, delta, w, b, 1e-6, bf16),
-            lambda: K8.add_norm_plain(x, delta, w, b, 1e-6, bf16),
+            "add_norm", lambda: K8.add_norm(x, delta, w, b, 1e-6, ty),
+            lambda: K8.add_norm_plain(x, delta, w, b, 1e-6, ty),
             f"[{rows}, {d}] ({what})", library=autocast_chain)
-        # x and delta read, the sum and y written; about 9 fp32 operations
-        # an element (add, mean, variance, normalise, scale, shift)
-        b_ms, b_by = bound(f"add_norm [{rows}, {d}]",
-                           nbytes(x, delta, w, b, s, y), 9.0 * x.numel(),
-                           "fp32")
-        log(f"add_norm [{rows}, {d}]: {k_ms:.4f} ms, "
-            f"{nbytes(x, delta, s, y) / k_ms / 1e6:.0f} GB/s, "
+        # x and delta read, the sum (with a branch) and y written; about 9
+        # fp32 operations an element (add, mean, variance, normalise,
+        # scale, shift)
+        moved = [x, w, b, y] + ([delta, s] if branch else [])
+        b_ms, b_by = bound(f"add_norm [{rows}, {d}]", nbytes(*moved),
+                           9.0 * x.numel(), "fp32")
+        log(f"add_norm [{rows}, {d}] ({what}): {k_ms:.4f} ms, "
+            f"{nbytes(*moved) / k_ms / 1e6:.0f} GB/s, "
             f"{b_ms / k_ms:.3f} of its bound {b_ms:.4f} ms; plain "
             f"{p_ms:.4f} ms, autocast's add + LayerNorm + cast {lib_ms:.4f} "
             f"ms [{gpu}]")
         if "add_norm" not in times:
             host = host_us_per_launch(
-                lambda: K8.add_norm(x, delta, w, b, 1e-6, bf16))
+                lambda: K8.add_norm(x, delta, w, b, 1e-6, ty))
             log(f"add_norm: {host:.1f} us of host time a launch (enqueue, "
                 f"50 launches)")
             times["add_norm"] = {"ms": k_ms, "plain_ms": p_ms,
@@ -799,48 +823,56 @@ def phase_k8(gpu: str) -> dict:
                                  "bound_by": b_by, "host_us": host}
         del x, delta, s, y, ps, py, err, ulp
 
-    with open(K8_CONFIG) as f:
-        config = json.load(f)
-    cfg = get_default_cfg()
-    cfg.merge_from_list([str(v) for v in config["opts"]["eval"]])
-    cfg.freeze()
-    model = create_model(cfg, num_classes=0,
-                         generator=torch.Generator().manual_seed(SEED),
-                         cameras=int(config["gallery"]["cams"]))
-    model = model.cuda().to(memory_format=torch.channels_last).eval()
-    size, (h, w) = int(cfg.TEST.IMS_PER_BATCH), tuple(cfg.INPUT.SIZE_TEST)
-    rng = np.random.RandomState(SEED + 20)
-    loader = [{"images": torch.randint(0, 256, (size, h, w, 3),
-                                       dtype=torch.uint8, device="cuda"),
-               "pids": np.arange(size), "camids": rng.randint(0, 6, size),
-               "valid": np.ones(size, bool)}
-              for _ in range(K8_EMBED_BATCHES)]
-    extract_embeddings(model, cfg, loader[:1])   # warm
-    reset_launch_counts()
-    profiling.reset()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]):
-        emb = extract_embeddings(model, cfg, loader)[0]
-    counts = profiling.counts()
-    profiling.reset()
-    launches = launch_counts()["add_norm"]
-    want = K8_EMBED_BATCHES * size * (25 * 211 + 3 * 4 * 53)
-    require(launches == K8_SITES * K8_EMBED_BATCHES
-            and counts.get("vit.norms") == want
-            and counts.get("vit.norms_fused") == want
-            and emb.shape == (K8_EMBED_BATCHES * size, model.emb_size)
-            and bool(np.isfinite(emb).all()),
-            f"extract_embeddings over {K8_EMBED_BATCHES} TransReID batches: "
-            f"{launches} K8 launches, {counts}, embeddings {emb.shape}")
-    log(f"extract_embeddings, the cell's TransReID (create_model; ViT-B/16, "
-        f"256x128, bf16 autocast), {K8_EMBED_BATCHES} batches of {size}: "
-        f"{launches} K8 launches ({launches // K8_EMBED_BATCHES} a batch), "
-        f"vit.norms_fused / vit.norms {counts['vit.norms_fused']} / "
-        f"{counts['vit.norms']}")
-    launches //= K8_EMBED_BATCHES   # the kernels line: launches a batch
-    del model, loader
-    torch.cuda.empty_cache()
-    return {"errs": errs, "times": times, "launches": {"add_norm": launches}}
+    per_batch = []
+    for path, sites, rows in K8_CONFIGS:
+        with open(path) as f:
+            config = json.load(f)
+        cfg = get_default_cfg()
+        cfg.merge_from_list([str(v) for v in config["opts"]["eval"]])
+        cfg.freeze()
+        model = create_model(cfg, num_classes=0,
+                             generator=torch.Generator().manual_seed(SEED),
+                             cameras=int(config["gallery"]["cams"]))
+        model = model.cuda().to(memory_format=torch.channels_last).eval()
+        size, (h, w) = (int(cfg.TEST.IMS_PER_BATCH),
+                        tuple(cfg.INPUT.SIZE_TEST))
+        rng = np.random.RandomState(SEED + 20)
+        loader = [{"images": torch.randint(0, 256, (size, h, w, 3),
+                                           dtype=torch.uint8, device="cuda"),
+                   "pids": np.arange(size),
+                   "camids": rng.randint(0, 6, size),
+                   "valid": np.ones(size, bool)}
+                  for _ in range(K8_EMBED_BATCHES)]
+        extract_embeddings(model, cfg, loader[:1])   # warm
+        reset_launch_counts()
+        profiling.reset()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+            emb = extract_embeddings(model, cfg, loader)[0]
+        counts = profiling.counts()
+        profiling.reset()
+        launches = launch_counts()["add_norm"]
+        want = K8_EMBED_BATCHES * size * rows
+        name = config["name"]
+        require(launches == sites * K8_EMBED_BATCHES
+                and counts.get("vit.norms") == want
+                and counts.get("vit.norms_fused") == want
+                and emb.shape == (K8_EMBED_BATCHES * size, model.emb_size)
+                and bool(np.isfinite(emb).all()),
+                f"extract_embeddings over {K8_EMBED_BATCHES} {name} "
+                f"batches: {launches} K8 launches, {counts}, embeddings "
+                f"{emb.shape}")
+        log(f"extract_embeddings, the {name} cell's model (create_model, "
+            f"{h}x{w}, bf16 autocast), {K8_EMBED_BATCHES} batches of "
+            f"{size}: {launches} K8 launches "
+            f"({launches // K8_EMBED_BATCHES} a batch), vit.norms_fused / "
+            f"vit.norms {counts['vit.norms_fused']} / {counts['vit.norms']}")
+        per_batch.append(launches // K8_EMBED_BATCHES)
+        del model, loader
+        torch.cuda.empty_cache()
+    # the kernels line: TransReID's launches a batch
+    return {"errs": errs, "times": times,
+            "launches": {"add_norm": per_batch[0]}}
 
 
 RESIDUAL_GAIN = 0.1     # scale of each bottleneck's last BN

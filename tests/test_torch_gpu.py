@@ -1523,13 +1523,31 @@ K8_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
             (4096, 768, torch.float32, torch.float32),
             (4096, 768, torch.bfloat16, torch.bfloat16),
             (33, 768, None, torch.float32),
-            (4096, 768, torch.float32, torch.bfloat16)]
+            (4096, 768, torch.float32, torch.bfloat16),
+            # Swin-B's sites at 384x128, batch 256 (market-swin-eval): the
+            # patch norm (no branch, fp32 y), the blocks of each stage, the
+            # merges' 4C norms (no branch), norm3 (fp32 y); ragged rows
+            (256 * 3072, 128, None, torch.float32),
+            (256 * 3072, 128, torch.bfloat16, torch.bfloat16),
+            (256 * 768, 256, torch.bfloat16, torch.bfloat16),
+            (256 * 768, 512, None, torch.bfloat16),
+            (256 * 192, 512, torch.bfloat16, torch.bfloat16),
+            (256 * 192, 1024, None, torch.bfloat16),
+            (256 * 48, 1024, torch.bfloat16, torch.bfloat16),
+            (256 * 48, 1024, torch.bfloat16, torch.float32),
+            (256 * 48, 2048, None, torch.bfloat16),
+            (33, 128, torch.bfloat16, torch.bfloat16),
+            (7, 2048, torch.float32, torch.float32)]
 # A bf16 residual stream (a model cast wholly to bf16): bf16 x, weight
 # and bias, a bf16 branch or none, y bf16 (LayerNorm's own) or fp32.
 K8_BF16_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
                  (1024 * 53, 768, None, torch.bfloat16),
                  (7, 768, torch.bfloat16, torch.float32),
-                 (33, 768, torch.bfloat16, torch.bfloat16)]
+                 (33, 768, torch.bfloat16, torch.bfloat16),
+                 # Swin-B's, as its bf16 control runs them
+                 (256 * 3072, 128, torch.bfloat16, torch.bfloat16),
+                 (256 * 48, 2048, None, torch.bfloat16),
+                 (256 * 48, 1024, torch.bfloat16, torch.float32)]
 K8_FP32_ATOL = 2e-6   # y in fp32: the statistics summed in another order
 
 
@@ -1739,3 +1757,78 @@ def test_bf16_trunk_embed_runs_k8_at_every_site(cuda, monkeypatch):
                  / eager.float().norm(dim=1)).max())
     print(f"bf16 trunk, K8 against the eager sites: {err:.3e}")
     assert torch.isfinite(fused).all() and err < 0.03, err
+
+
+def _swin_limit():
+    """The cell market-swin-eval's ``emb_rel_err`` limit."""
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench", "limits", "market-swin-eval.json")
+    with open(path) as f:
+        return float(json.load(f)["emb_rel_err"])
+
+
+def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
+    """One Swin-B embed (SOLIDER-REID's trunk at the published widths,
+    384x128, seeded weights) of a 4-image batch on the card: 53 K8
+    launches (the patch norm, two a block, three merges, norm3) and every
+    site's rows fused (``vit.norms_fused`` == ``vit.norms``), at widths
+    128 to 2,048. In fp32 (autocast off, TF32 off) within 1e-4 (relative,
+    per row) of the CPU. Under bf16 autocast within the benchmark cell's
+    ``emb_rel_err`` limit of the CPU's fp32, as the same model with its
+    sites on the eager ops (``add_norm_plain`` patched in, none fused)
+    is."""
+    from centroids_reid_tpu_torch.models import swin as S
+    from centroids_reid_tpu_torch.models import transreid as T
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.utils import profiling
+
+    m = S.init_swin(S.SwinReID(), torch.Generator().manual_seed(2)).eval()
+    x = torch.randn(4, 3, 384, 128,
+                    generator=torch.Generator().manual_seed(3))
+    sites = 4 * (3072 + 2 * (2 * 3072 + 2 * 768 + 18 * 192 + 2 * 48)
+                 + 768 + 192 + 48 + 48)
+
+    def rel(a, b):
+        return float(((a.float() - b.float()).norm(dim=1)
+                      / b.float().norm(dim=1)).max())
+
+    def embed(mixed, device):
+        m.mixed_precision = mixed
+        with torch.no_grad():
+            return m.to(device).embed(x.to(device))
+
+    def traced(mixed):
+        reset_launch_counts()
+        profiling.reset()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+            e = embed(mixed, cuda)
+            torch.cuda.synchronize()
+        counts = profiling.counts()
+        profiling.reset()
+        return e, launch_counts()["add_norm"], counts
+
+    fused, launches, counts = traced(True)
+    assert launches == 53
+    assert counts["vit.norms"] == counts["vit.norms_fused"] == sites
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "add_norm", K8.add_norm_plain)
+        eager, launches, counts = traced(True)
+    assert launches == 0
+    assert counts["vit.norms"] == sites and "vit.norms_fused" not in counts
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = embed(False, cuda).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    cpu = embed(False, "cpu")
+    errs = (rel(card, cpu), rel(fused.cpu(), cpu), rel(eager.cpu(), cpu))
+    print(f"Swin-B embed: card fp32, fused bf16, eager bf16 against the "
+          f"CPU's fp32: {errs}")
+    assert errs[0] < 1e-4, errs
+    assert max(errs[1:]) < _swin_limit(), errs
+

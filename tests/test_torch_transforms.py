@@ -97,8 +97,9 @@ def test_native_copy_decodes_as_the_jax_package_and_builds_its_own_library():
                                  "320_resnet50_ibn_a.yml"])
 def test_config_copy_matches_jax(yml):
     """The same defaults, the same YAML files and the same opts merge to
-    the same tree, less the port's TransReID keys (the JAX package has no
-    transformer), which keep TransReID's own defaults."""
+    the same tree, less the port's transformer keys (the JAX package has no
+    transformer), which keep TransReID's own defaults, and Swin's
+    ``SEMANTIC_WEIGHT``."""
     from centroids_reid_tpu.config import get_default_cfg as jcfg
     from centroids_reid_tpu_torch.config import get_default_cfg
 
@@ -114,10 +115,12 @@ def test_config_copy_matches_jax(yml):
     assert got == ref and got.dump() == ref.dump()
 
 
-# the port's TransReID keys and their defaults (TransReID config/defaults.py)
+# the port's transformer keys and their defaults (TransReID config/
+# defaults.py; SEMANTIC_WEIGHT, read by Swin alone, the port's)
 _TRANSREID_KEYS = {
     ("MODEL", "TRANSFORMER_TYPE"): "None", ("MODEL", "STRIDE_SIZE"): [16, 16],
     ("MODEL", "SIE_CAMERA"): False, ("MODEL", "SIE_COE"): 3.0,
     ("MODEL", "JPM"): False, ("MODEL", "RE_ARRANGE"): True,
     ("MODEL", "SHIFT_NUM"): 5, ("MODEL", "SHUFFLE_GROUP"): 2,
-    ("MODEL", "DEVIDE_LENGTH"): 4, ("TEST", "NECK_FEAT"): "after"}
+    ("MODEL", "DEVIDE_LENGTH"): 4, ("TEST", "NECK_FEAT"): "after",
+    ("MODEL", "SEMANTIC_WEIGHT"): 1.0}
