@@ -38,11 +38,13 @@ The forward of one image batch (``MODEL.SEMANTIC_WEIGHT`` is lambda):
   ``norm0``-``norm2`` feed no embedding: they are held, as published, and
   not run.
 
-Window attention is ``scaled_dot_product_attention`` with the bias and the
-shift mask as its additive ``attn_mask``. The port's pad, roll and
-partition are one pad and one row gather (``window_geometry``), and
-reverse, unroll and crop one gather back: the same rows in the same
-places. With ``mixed_precision`` the trunk runs under bf16 autocast, the
+A block's window attention (``ops/window_attn.py``, K9 on the card) takes
+qkv of the real tokens alone: a padded token's q, k and v are the qkv
+bias (what a zero row gives), its pad, roll and partition are the token
+order of ``window_geometry``, the relative-position bias and shift mask
+one fp32 table a block (``window_mask``), and it writes each real token's
+output in its own row, so proj runs on the real rows too. With
+``mixed_precision`` the trunk runs under bf16 autocast, the
 residual stream and LayerNorms in fp32, as TransReID's
 (``models/transreid.py``). Every LayerNorm is a ``norm_site`` (K8 on the
 card): a block's ``norm1`` with the previous block's MLP branch added
@@ -60,8 +62,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..ops.window_attn import window_attention
 from ..utils.profiling import annotate, count
 from .transreid import SWIN, _neck, family, is_transformer, norm_site, refuse
 
@@ -73,10 +75,6 @@ SWIN_WIDTHS = {
 
 SHIFT_FILL = -100.0   # mmdet's mask between tokens of different regions
 _MASK_ALIGN = 16      # attn_mask rows: memory-efficient SDPA's alignment
-# SDPA with an additive mask over 49-token windows, head width 32: the
-# memory-efficient kernel took 0.46 ms where cuDNN's, the default, took
-# 0.84 (stage 3 at batch 256, H100); the CPU takes the math path
-_BACKENDS = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
 
 
 def is_swin(cfg) -> bool:
@@ -85,10 +83,11 @@ def is_swin(cfg) -> bool:
 
 class Windows(NamedTuple):
     """Where a block's windows lie on an ``h`` x ``w`` map padded to ``hp``
-    x ``wp``: ``order`` [windows * N] the padded map's row (``y * wp +
-    x``) of each window token, after the roll; ``inverse`` [h * w] the
-    window token of each real token; ``region`` [windows, N, N] the shift
-    mask (0 or ``SHIFT_FILL``), None for a block that does not shift."""
+    x ``wp``: ``order`` [windows * N] (int32) the padded map's row (``y *
+    wp + x``) of each window token, after the roll; ``inverse`` [h * w]
+    (int32) the window token of each real token; ``region`` [windows, N,
+    N] the shift mask (0 or ``SHIFT_FILL``), None for a block that does
+    not shift."""
 
     h: int
     w: int
@@ -135,7 +134,8 @@ def _geometry(h: int, w: int, window: int, shift: int,
         region = torch.zeros(lab.shape + lab.shape[-1:])
         region.masked_fill_(lab[:, None, :] != lab[:, :, None], SHIFT_FILL)
         region = region.to(device)
-    return Windows(h, w, hp, wp, order.to(device), inverse.to(device), region)
+    return Windows(h, w, hp, wp, order.to(device, torch.int32),
+                   inverse.to(device, torch.int32), region)
 
 
 def window_mask(bias: torch.Tensor, region: Optional[torch.Tensor], b: int,
@@ -158,16 +158,6 @@ def window_mask(bias: torch.Tensor, region: Optional[torch.Tensor], b: int,
     return m.view(-1, heads, n, n)
 
 
-def gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``x[:, index]`` for x [B, M, C]: each row moved as 8-byte words
-    where it is a whole number of them (``index_select`` moves one element
-    a thread; bf16 rows as int64 took 0.18 ms where bf16 took 0.27, stage
-    3 at batch 256, H100)."""
-    if x.is_contiguous() and x.shape[-1] * x.element_size() % 8 == 0:
-        return x.view(torch.int64).index_select(1, index).view(x.dtype)
-    return x.index_select(1, index)
-
-
 def relative_position_index(window: int) -> torch.Tensor:
     """mmdet's ``WindowMSA`` index [N, N] into the bias table
     (``double_step_seq`` and its flip)."""
@@ -178,7 +168,7 @@ def relative_position_index(window: int) -> torch.Tensor:
 
 class WindowMSA(nn.Module):
     """mmdet's ``WindowMSA``: qkv, the bias table and proj (scale head
-    width^-0.5, SDPA's own)."""
+    width^-0.5); ``ShiftWindowMSA`` runs them."""
 
     def __init__(self, dim: int, num_heads: int, window: int):
         super().__init__()
@@ -198,21 +188,12 @@ class WindowMSA(nn.Module):
             self.relative_position_index.view(-1)].view(n, n, -1).permute(
                 2, 0, 1)
 
-    def forward(self, x, mask):
-        """x: window tokens [B * windows, N, C]; mask: ``window_mask``."""
-        bw, n, c = x.shape
-        qkv = self.qkv(x).reshape(bw, n, 3, self.num_heads,
-                                  c // self.num_heads).permute(2, 0, 3, 1, 4)
-        with sdpa_kernel(_BACKENDS):
-            o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
-                                               attn_mask=mask)
-        return self.proj(o.transpose(1, 2).reshape(bw, n, c))
-
 
 class ShiftWindowMSA(nn.Module):
     """mmdet's ``ShiftWindowMSA``: the attention branch of a block, from
-    pad to crop. Counts ``swin.tokens`` (real tokens entering window
-    attention) and ``swin.window_tokens`` (the same, padding included)."""
+    pad to crop, as qkv over the real tokens, ``window_attention`` and
+    proj. Counts ``swin.tokens`` (real tokens entering window attention)
+    and ``swin.window_tokens`` (the same, padding included)."""
 
     def __init__(self, dim: int, num_heads: int, window: int, shift: int):
         super().__init__()
@@ -223,16 +204,17 @@ class ShiftWindowMSA(nn.Module):
     def forward(self, y, hw: Tuple[int, int]):
         """y: the normalised tokens [B, H * W, C] -> the branch, the same
         shape, in the dtype of proj's output."""
-        b, _, c = y.shape
+        b = y.shape[0]
         g = window_geometry(hw[0], hw[1], self.window, self.shift, y.device)
         count("swin.tokens", b * g.h * g.w)
         count("swin.window_tokens", b * g.hp * g.wp)
-        padded = F.pad(y.view(b, g.h, g.w, c),
-                       (0, 0, 0, g.wp - g.w, 0, g.hp - g.h))
-        win = gather_rows(padded.view(b, g.hp * g.wp, c), g.order)
-        mask = window_mask(self.w_msa.position_bias(), g.region, b, y.dtype)
-        out = self.w_msa(win.view(-1, self.window ** 2, c), mask)
-        return gather_rows(out.view(b, -1, c), g.inverse)
+        msa = self.w_msa
+        qkv = msa.qkv(y)
+        # one table a block, batch-free: bias (+ shift mask) in fp32
+        table = window_mask(msa.position_bias(), g.region, 1, torch.float32)
+        o = window_attention(qkv, msa.qkv.bias.to(qkv.dtype), table, g,
+                             msa.num_heads)
+        return msa.proj(o)
 
 
 class FFN(nn.Module):

@@ -6,6 +6,7 @@ from . import (
     retrieval,
     retrieval_int8,
     stream_rank,
+    window_attn,
 )
 from .int8_conv import (
     conv3x3_requant,
@@ -38,6 +39,7 @@ from .stream_rank import (
     stream_extract,
     stream_extract_plain,
 )
+from .window_attn import window_attention, window_attention_plain
 
 
 def launch_counts() -> dict:
@@ -77,4 +79,6 @@ __all__ = [
     "topk_retrieval_int8",
     "topk_select",
     "topk_select_int8",
+    "window_attention",
+    "window_attention_plain",
 ]

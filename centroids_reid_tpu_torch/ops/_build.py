@@ -1,5 +1,5 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``): the one
-place that knows how a hand-written kernel (K1-K8) is called.
+place that knows how a hand-written kernel (K1-K9) is called.
 
 ``nvcc`` compiles each source for ``sm_90a`` (Hopper), all at once in
 parallel processes, and links the objects into one shared library with a
@@ -34,11 +34,11 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu",
-            "stream_rank.cu", "add_norm.cu")
+            "stream_rank.cu", "add_norm.cu", "window_attn.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 8
+_ABI_VERSION = 9
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -98,6 +98,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_add_norm.restype = i
     lib.crt_add_norm.argtypes = [p, i, p, i, p, p, p, p, i, i, i,
                                  ctypes.c_float, p]
+    lib.crt_window_attn.restype = i
+    lib.crt_window_attn.argtypes = [p, p, p, ctypes.c_longlong, i, i, p, p,
+                                    i, i, i, i, i, i, p]
 
 
 def _compile(so: str) -> str:
@@ -161,7 +164,7 @@ def load() -> ctypes.CDLL:
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "scores", "stream_topk", "stream_topk_unpacked", "kpass_topk",
     "scores_i8", "matmul_requant", "conv3x3_requant", "stream_extract",
-    "stream_count", "add_norm"), 0)
+    "stream_count", "add_norm", "window_attn"), 0)
 
 # the operators ``torch.ops.crt.*`` (K5 and K6, ``int8_conv.py``)
 LIB = torch.library.Library("crt", "FRAGMENT")

@@ -770,7 +770,7 @@ int launch_stream_topk(const void* q, const void* g, const float* gn,
 
 extern "C" {
 
-int crt_abi_version() { return 8; }
+int crt_abi_version() { return 9; }
 
 // The SM count of the current device (cudaDevAttrMultiProcessorCount), from
 // which the wrapper plans K2's persistent grid; -1 on error.

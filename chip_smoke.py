@@ -61,7 +61,12 @@ bf16 autocast) and seeded random weights:
   site shapes of a 256-image batch, timed beside its bound, its plain
   version and autocast's eager ops; ``extract_embeddings`` over three
   card-resident batches of 256 with the benchmark cell's TransReID
-  (``create_model``), K8's launches and fused rows counted;
+  (``create_model``), K8's launches and fused rows counted, and with its
+  Swin-B (384x128), K8's and K9's launches and fused rows and tokens;
+* Swin's window attention (phase 3d): K9 against its plain version at
+  the four stage shapes of a 256-image batch (shifted blocks), timed
+  beside its byte bound, its plain version and the memory-efficient SDPA
+  over the gathered windows; ptxas's report for K9 (no spill);
 * serving artifacts (phase 11, ``inference/export.py``): the bf16 embedder
   (symbolic batch, programs for the card and the CPU), retrievers of phase
   4's gallery at k=100 (also re-ranked at load, r=100) and k=10, and the
@@ -183,6 +188,8 @@ KERNELS = {
     "stream_count": ("stream_rank.cu", "none"),
     # K8: the JAX package has no ViT
     "add_norm": ("add_norm.cu", "none"),
+    # K9: the JAX package has no Swin
+    "window_attn": ("window_attn.cu", "none"),
 }
 K7_KERNELS = ("stream_extract", "stream_count")
 BF16_KERNELS = ("scores", "stream_topk", "kpass_topk")
@@ -746,8 +753,10 @@ def phase_k8(gpu: str) -> dict:
     ``create_model`` from the cell's configuration, ``extract_embeddings``
     over K8_EMBED_BATCHES card-resident batches: its sites' launches a
     batch, every site's rows fused (``vit.norms_fused`` counted at the
-    launch, against ``vit.norms`` at the sites). Returns {"errs", "times",
-    "launches"} for the kernels line (TransReID's launches)."""
+    launch, against ``vit.norms`` at the sites); Swin's 24 K9 launches a
+    batch, every real token's window attention fused (``swin.wmsa_fused``
+    against ``swin.tokens``). Returns {"errs", "times", "launches"} for
+    the kernels line (TransReID's K8 launches, Swin's K9)."""
     import torch
     import torch.nn.functional as F
 
@@ -823,7 +832,7 @@ def phase_k8(gpu: str) -> dict:
                                  "bound_by": b_by, "host_us": host}
         del x, delta, s, y, ps, py, err, ulp
 
-    per_batch = []
+    per_batch, k9_launches = [], 0
     for path, sites, rows in K8_CONFIGS:
         with open(path) as f:
             config = json.load(f)
@@ -868,11 +877,140 @@ def phase_k8(gpu: str) -> dict:
             f"({launches // K8_EMBED_BATCHES} a batch), vit.norms_fused / "
             f"vit.norms {counts['vit.norms_fused']} / {counts['vit.norms']}")
         per_batch.append(launches // K8_EMBED_BATCHES)
+        if "swin.tokens" in counts:
+            # every Swin block's window attention on K9, every real token
+            k9 = launch_counts()["window_attn"]
+            require(k9 == K9_BLOCKS * K8_EMBED_BATCHES
+                    and counts.get("swin.wmsa_fused") == counts[
+                        "swin.tokens"],
+                    f"extract_embeddings over {K8_EMBED_BATCHES} {name} "
+                    f"batches: {k9} K9 launches, {counts}")
+            share = 100.0 * counts["swin.wmsa_fused"] / counts["swin.tokens"]
+            log(f"  {k9} K9 launches ({k9 // K8_EMBED_BATCHES} a batch), "
+                f"swin.wmsa_fused / swin.tokens "
+                f"{counts['swin.wmsa_fused']} / {counts['swin.tokens']} "
+                f"({share:.1f} %)")
+            k9_launches = k9 // K8_EMBED_BATCHES
         del model, loader
         torch.cuda.empty_cache()
-    # the kernels line: TransReID's launches a batch
+    # the kernels line: TransReID's K8 launches a batch, Swin's K9
     return {"errs": errs, "times": times,
-            "launches": {"add_norm": per_batch[0]}}
+            "launches": {"add_norm": per_batch[0],
+                         "window_attn": k9_launches}}
+
+
+# K9's shapes at a batch of 256: Swin-B's four stage maps at 384x128 and
+# their heads (width 32); its blocks a batch
+K9_STAGES = (((96, 32), 4), ((48, 16), 8), ((24, 8), 16), ((12, 4), 32))
+K9_BLOCKS = 24
+K9_TOL = 2.0 ** -8   # of the largest |v|: P and o rounded to bf16
+
+
+def _k9_spills() -> None:
+    """Log ptxas's report for K9 and require that it spills nothing."""
+    from centroids_reid_tpu_torch.ops import _build
+
+    if not _build.build_log:
+        log("  K9: the library was built by an earlier process, no ptxas "
+            "report here")
+        return
+    ours, report = False, []
+    for line in _build.build_log.splitlines():
+        named = re.search(r"entry function '(\w+)'", line)
+        if named:
+            ours = "window_attn_kernel" in named.group(1)
+        elif ours and ("spill" in line or "Used" in line):
+            report.append(line.split(":", 1)[-1].strip())
+    log(f"  ptxas window_attn_kernel: {'; '.join(report)}")
+    require(report and all("0 bytes spill stores, 0 bytes spill loads" in r
+                           for r in report if "spill" in r),
+            f"K9 spills: {report}")
+
+
+def phase_k9(gpu: str) -> dict:
+    """K9 at Swin-B's four stage shapes at a batch of 256, shifted blocks
+    (a bias + shift-mask table per window): held against its plain version
+    in fp32 on the same bf16 qkv (within K9_TOL of the largest |v|), then
+    timed (CUDA events) beside its byte bound ((3C + C) x 2 bytes a real
+    token), its plain version in bf16 and the memory-efficient SDPA over
+    the gathered windows with the mask materialised per image, as the path
+    before K9 ran it (``library_ms``: the port never calls it). ptxas must
+    report no spill in K9. Returns {"errs", "times"} for the kernels line
+    (stage 3's times)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from centroids_reid_tpu_torch.models import swin as S
+    from centroids_reid_tpu_torch.ops import window_attn as WA
+
+    log("== phase 3d: K9 (Swin window attention)")
+    _k9_spills()
+    bf16, b = torch.bfloat16, 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    errs, times = {"window_attn": 0.0}, {}
+    for (h, w), heads in K9_STAGES:
+        c = 32 * heads
+        qkv = torch.randn(b, h * w, 3 * c, generator=gen,
+                          device="cuda").to(bf16)
+        bias = (0.5 * torch.randn(3 * c, generator=gen,
+                                  device="cuda")).to(bf16)
+        msa = S.WindowMSA(c, heads, 7).cuda()
+        with torch.no_grad():
+            msa.relative_position_bias_table.normal_(0.0, 1.0, generator=gen)
+            rel = msa.position_bias()
+        g = S.window_geometry(h, w, 7, 3, torch.device("cuda"))
+        table = S.window_mask(rel, g.region, 1, torch.float32)
+        shape = f"[{b}, {h}x{w}, {heads} heads]"
+        o = WA.window_attention(qkv, bias, table, g, heads)
+        want = WA.window_attention_plain(qkv.float(), bias.float(), table, g,
+                                         heads)
+        v = qkv.view(b, h * w, 3, c)[:, :, 2]
+        vmax = max(float(v.abs().max()), float(bias[2 * c:].abs().max()))
+        err = float((o.float() - want).abs().max())
+        require(err <= K9_TOL * vmax and bool(torch.isfinite(o).all()),
+                f"K9 at {shape}: max |diff| {err} against the plain "
+                f"version, over 2^-8 of max |v| {vmax}")
+        errs["window_attn"] = max(errs["window_attn"], err)
+        log(f"K9 against its plain version (fp32) at {shape}: max |diff| "
+            f"{err:.3e} ({err / vmax:.2e} of max |v|)")
+        del want
+
+        # the path before K9: the gathered windows and the per-image mask
+        # (made once, not timed), the memory-efficient SDPA alone
+        windows = g.order.numel() // 49
+        q, k, vv = WA.window_tokens(qkv, bias, g).view(
+            b * windows, 49, 3, heads, 32).permute(2, 0, 3, 1, 4)
+        mask = S.window_mask(rel, g.region, b, bf16)
+
+        def library():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(q, k, vv,
+                                                      attn_mask=mask)
+
+        k_ms, p_ms, lib_ms = time_pair(
+            "window_attn", lambda: WA.window_attention(qkv, bias, table, g,
+                                                       heads),
+            lambda: WA.window_attention_plain(qkv, bias, table, g, heads),
+            shape, library=library)
+        moved = nbytes(qkv, o)
+        flops = 4.0 * b * windows * heads * 49 * 49 * 32
+        b_ms, b_by = bound(f"window_attn {shape}", moved, flops, "bf16")
+        log(f"window_attn {shape}: {k_ms:.4f} ms, "
+            f"{moved / k_ms / 1e6:.0f} GB/s, {b_ms / k_ms:.3f} of its bound "
+            f"{b_ms:.4f} ms; plain {p_ms:.4f} ms, memory-efficient SDPA "
+            f"over the gathered windows {lib_ms:.4f} ms [{gpu}]")
+        if heads == 16:
+            host = host_us_per_launch(
+                lambda: WA.window_attention(qkv, bias, table, g, heads))
+            log(f"window_attn: {host:.1f} us of host time a launch "
+                f"(enqueue, 50 launches)")
+            times["window_attn"] = {"ms": k_ms, "plain_ms": p_ms,
+                                    "library_ms": lib_ms, "bound_ms": b_ms,
+                                    "bound_by": b_by, "host_us": host}
+        del qkv, o, q, k, vv, mask
+        torch.cuda.empty_cache()
+    return {"errs": errs, "times": times}
 
 
 RESIDUAL_GAIN = 0.1     # scale of each bottleneck's last BN
@@ -5665,6 +5803,8 @@ def main() -> int:
     errs.update(timed("3b", phase_compare_int8))
     k8 = timed("3c", phase_k8, gpu_line())
     errs.update(k8["errs"])
+    k9 = timed("3d", phase_k9, gpu_line())
+    errs.update(k9["errs"])
     with tempfile.TemporaryDirectory() as tmp:
         state = timed("4", phase_serve, tmp)
         int8_state = timed("4b", phase_serve_int8, state)
@@ -5688,12 +5828,14 @@ def main() -> int:
     # bf16 serving path, K2u its entry point, K3 get_similar, K4 the int8
     # serving path, K5 and K6 the int8 serving path and phase 15's int8
     # IBN embed (80x80, 40x40 and 20x20 feature maps), K7 phase 10's
-    # whole-cell evaluation, K8 phase 3c's extract_embeddings (a batch)
+    # whole-cell evaluation, K8 and K9 phase 3c's extract_embeddings (a
+    # batch)
     for name, err in fashion["errs"].items():
         errs[name] = max(errs[name], err)
     errs.update(stream["errs"])
     times.update(stream["times"])
     times.update(k8["times"])
+    times.update(k9["times"])
     launches = {
         "scores": state["launches"]["scores"],
         "stream_topk": state["launches"]["stream_topk"],

@@ -1775,14 +1775,18 @@ def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
     384x128, seeded weights) of a 4-image batch on the card: 53 K8
     launches (the patch norm, two a block, three merges, norm3) and every
     site's rows fused (``vit.norms_fused`` == ``vit.norms``), at widths
-    128 to 2,048. In fp32 (autocast off, TF32 off) within 1e-4 (relative,
-    per row) of the CPU. Under bf16 autocast within the benchmark cell's
-    ``emb_rel_err`` limit of the CPU's fp32, as the same model with its
-    sites on the eager ops (``add_norm_plain`` patched in, none fused)
-    is."""
+    128 to 2,048; 24 K9 launches (one a block) and every real token's
+    window attention fused (``swin.wmsa_fused`` == ``swin.tokens``), with
+    no SDPA, plain window attention or row gather on the way. In fp32
+    (autocast off, TF32 off), where K9 refuses the fp32 qkv and its plain
+    version is patched in, within 1e-4 (relative, per row) of the CPU.
+    Under bf16 autocast within the benchmark cell's ``emb_rel_err`` limit
+    of the CPU's fp32, as the same model with its sites on the eager ops
+    (``add_norm_plain`` patched in, none fused) is."""
     from centroids_reid_tpu_torch.models import swin as S
     from centroids_reid_tpu_torch.models import transreid as T
     from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.ops import window_attn as WA
     from centroids_reid_tpu_torch.utils import profiling
 
     m = S.init_swin(S.SwinReID(), torch.Generator().manual_seed(2)).eval()
@@ -1790,6 +1794,10 @@ def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
                     generator=torch.Generator().manual_seed(3))
     sites = 4 * (3072 + 2 * (2 * 3072 + 2 * 768 + 18 * 192 + 2 * 48)
                  + 768 + 192 + 48 + 48)
+    tokens = 4 * (2 * 3072 + 2 * 768 + 18 * 192 + 2 * 48)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA Swin block left K9")
 
     def rel(a, b):
         return float(((a.float() - b.float()).norm(dim=1)
@@ -1809,20 +1817,30 @@ def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
             torch.cuda.synchronize()
         counts = profiling.counts()
         profiling.reset()
-        return e, launch_counts()["add_norm"], counts
+        return e, launch_counts(), counts
 
-    fused, launches, counts = traced(True)
-    assert launches == 53
+    with monkeypatch.context() as mp:
+        for name in ("window_attention_plain", "gather_rows"):
+            mp.setattr(WA, name, refuse)
+        mp.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                   refuse)
+        fused, launches, counts = traced(True)
+    assert launches["add_norm"] == 53 and launches["window_attn"] == 24
     assert counts["vit.norms"] == counts["vit.norms_fused"] == sites
+    assert counts["swin.tokens"] == counts["swin.wmsa_fused"] == tokens
     with monkeypatch.context() as mp:
         mp.setattr(T, "add_norm", K8.add_norm_plain)
         eager, launches, counts = traced(True)
-    assert launches == 0
+    assert launches["add_norm"] == 0 and launches["window_attn"] == 24
     assert counts["vit.norms"] == sites and "vit.norms_fused" not in counts
+    with pytest.raises(TypeError, match="bf16 qkv"):
+        embed(False, cuda)
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        card = embed(False, cuda).cpu()
+        with monkeypatch.context() as mp:
+            mp.setattr(S, "window_attention", WA.window_attention_plain)
+            card = embed(False, cuda).cpu()
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     cpu = embed(False, "cpu")
@@ -1832,3 +1850,144 @@ def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
     assert errs[0] < 1e-4, errs
     assert max(errs[1:]) < _swin_limit(), errs
 
+
+
+# K9: Swin-B's four stage maps at 384x128 and their heads (width 32)
+K9_STAGES = [((96, 32), 4), ((48, 16), 8), ((24, 8), 16), ((12, 4), 32)]
+# K9 against its plain version on the same bf16 qkv widened to fp32 (the
+# fp32 table both): K9 rounds P to bf16, which moves o by at most 2^-9 of
+# the largest |v| (the weights sum to one), and o to bf16, 2^-9 of |o| <=
+# max |v|; its sums run in another order (fp32, far below that)
+K9_TOL = 2.0 ** -8
+
+
+def _k9_block(cuda, heads, shift, seed=21):
+    """A ``ShiftWindowMSA`` at head width 32 on the card, seeded as
+    ``init_swin`` draws it: linears N(0, 0.02) with nonzero biases, the
+    bias table N(0, 1)."""
+    from centroids_reid_tpu_torch.models import swin as S
+
+    blk = S.ShiftWindowMSA(32 * heads, heads, 7, shift)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+        blk.w_msa.relative_position_bias_table.normal_(0.0, 1.0,
+                                                       generator=g)
+    return blk.to(cuda).eval()
+
+
+def _k9_operands(cuda, b, hw, heads, shift, seed=22):
+    """(qkv, bias, table, geometry): random bf16 qkv [b, h * w, 3C] and
+    bias, the block's fp32 table as ``ShiftWindowMSA`` builds it."""
+    from centroids_reid_tpu_torch.models import swin as S
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c3 = 96 * heads
+    qkv = torch.randn(b, hw[0] * hw[1], c3, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    bias = (0.5 * torch.randn(c3, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    blk = _k9_block(cuda, heads, shift)
+    g = S.window_geometry(hw[0], hw[1], 7, shift, cuda)
+    with torch.no_grad():
+        table = S.window_mask(blk.w_msa.position_bias(), g.region, 1,
+                              torch.float32)
+    return qkv, bias, table, g
+
+
+def _hold_k9_to_plain(o, qkv, bias, table, g, heads):
+    """K9's ``o`` within K9_TOL x max |v| of the plain version in fp32 on
+    the same operands; every row written and finite."""
+    from centroids_reid_tpu_torch.ops import window_attn as WA
+
+    want = WA.window_attention_plain(qkv.float(), bias.float(), table, g,
+                                     heads)
+    v = qkv.view(*qkv.shape[:2], 3, -1)[:, :, 2]
+    vmax = max(float(v.abs().max()), float(bias[2 * bias.numel() // 3:]
+                                           .abs().max()))
+    err = float((o.float() - want).abs().max())
+    assert o.dtype == torch.bfloat16 and o.shape == want.shape
+    assert bool(torch.isfinite(o).all())
+    assert err <= K9_TOL * vmax, (err, vmax)
+    return err
+
+
+@pytest.mark.parametrize("b", [256, 3])
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("hw,heads", K9_STAGES)
+def test_window_attn_kernel_matches_plain(cuda, hw, heads, shift, b):
+    """K9 at each stage of Swin-B at 384x128, shifted and not, at the
+    cell's batch of 256 and a ragged 3 (one part-filled block of images),
+    against ``window_attention_plain``: one launch, within K9_TOL."""
+    from centroids_reid_tpu_torch.ops import window_attn as WA
+
+    qkv, bias, table, g = _k9_operands(cuda, b, hw, heads, shift)
+    reset_launch_counts()
+    with torch.no_grad():
+        o = WA.window_attention(qkv, bias, table, g, heads)
+    torch.cuda.synchronize()
+    assert launch_counts()["window_attn"] == 1
+    _hold_k9_to_plain(o, qkv, bias, table, g, heads)
+
+
+def test_padded_qkv_rows_are_the_bias_on_card(cuda):
+    """Under bf16 autocast on the card a zero row through qkv (cuBLAS with
+    its bias epilogue) is ``bf16(bias)`` bit for bit: what K9 reads for a
+    padded token."""
+    blk = _k9_block(cuda, 16, 3)
+    y = torch.zeros(4, 392, 512, device=cuda)
+    y[:, :192] = torch.randn(4, 192, 512, device=cuda)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        qkv = blk.w_msa.qkv(y)
+    rows = qkv[:, 192:]
+    assert torch.equal(rows, blk.w_msa.qkv.bias.to(torch.bfloat16)
+                       .expand_as(rows))
+
+
+@pytest.mark.parametrize("kind", ["mask", "bias", "pad"])
+def test_window_attn_kernel_sees_each_planted_fault(cuda, monkeypatch, kind):
+    """Each of the benchmark's planted trunk faults that acts on window
+    attention (``harness/evalembed_swin.py::_plant``: the shift mask
+    dropped, the bias zeroed, the padded keys masked) reaches K9 through
+    the block's ``window_mask``, ``position_bias`` and
+    ``window_geometry``: on a shifted stage-3 block under bf16 autocast,
+    K9's output under the fault matches the plain version on the same
+    faulted operands and lies far from the sound output."""
+    import contextlib
+    import os
+
+    from centroids_reid_tpu_torch.models import swin as S
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench")
+    monkeypatch.syspath_prepend(bench)
+    from harness import evalembed_swin
+
+    blk = _k9_block(cuda, 16, 3)
+    y = torch.randn(8, 192, 512, generator=torch.Generator().manual_seed(5))
+    y = y.to(cuda, torch.bfloat16)
+    real = S.window_attention
+
+    def run(plant):
+        seen = []
+
+        def spy(*args):
+            seen.append((real(*args), args))
+            return seen[-1][0]
+
+        reset_launch_counts()
+        with plant, monkeypatch.context() as mp, torch.no_grad(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            mp.setattr(S, "window_attention", spy)
+            blk(y, (24, 8))
+        torch.cuda.synchronize()
+        assert launch_counts()["window_attn"] == 1 and len(seen) == 1
+        return seen[0]
+
+    sound, _ = run(contextlib.nullcontext())
+    fault, (qkv, bias, table, g, heads) = run(evalembed_swin._plant(kind))
+    _hold_k9_to_plain(fault, qkv, bias, table, g, heads)
+    moved = float((fault.float() - sound.float()).abs().max())
+    vmax = float(qkv.view(8, 192, 3, -1)[:, :, 2].abs().max())
+    assert moved > 10 * K9_TOL * vmax, (kind, moved, vmax)

@@ -285,7 +285,8 @@ def test_embed_path_records_the_trunk_spans(tiny):
     three ``swin.merge`` and one ``swin.head``; ``swin.tokens`` counts the
     real tokens entering window attention, ``swin.window_tokens`` the
     padded ones; ``vit.norms`` every site's rows (the patch norm, two a
-    block, the merges, ``norm3``); none fused on the CPU."""
+    block, the merges, ``norm3``); none fused on the CPU, neither a site
+    nor a window attention (``swin.wmsa_fused``)."""
     cfg = _cfg()
     m = create_model(cfg)
     imgs, cams = _images(10, seed=5), torch.arange(10) % 6
@@ -313,6 +314,7 @@ def test_embed_path_records_the_trunk_spans(tiny):
              + sum(h * w for h, w in maps[1:]) + maps[-1][0] * maps[-1][1])
     assert counts["vit.norms"] == rows * norms
     assert "vit.norms_fused" not in counts
+    assert "swin.wmsa_fused" not in counts
     assert counts["embed.images"] == 10 and counts["embed.rows"] == rows
 
 
