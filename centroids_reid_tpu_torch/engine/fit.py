@@ -120,8 +120,9 @@ def fit(cfg, mode: str, log_dir: str, seed: int = 0, dataset=None,
     ``test_plain_*``), or ``preempted`` when a SIGTERM stopped the run."""
     if is_transformer(cfg):
         refuse("fit", "its training (TransReID's JPM ID and triplet losses "
-               "over five branches, SOLIDER-REID's recipe) is not ported; "
-               "evaluate a checkpoint with TEST.ONLY_TEST True", family(cfg))
+               "over five branches, SOLIDER-REID's recipe, a DINOv2 "
+               "fine-tune) is not ported; evaluate a checkpoint with "
+               "TEST.ONLY_TEST True", family(cfg))
     if cfg.DATALOADER.SAMPLER != "random_identity":
         raise NotImplementedError(
             f"Unknown sampler {cfg.DATALOADER.SAMPLER!r}; only "

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .dinov2 import is_dinov2, make_dinov2
 from .resnet import backbone_emb_size, build_backbone, random_init_
 from .swin import is_swin, make_swin
 from .transreid import is_transformer, make_transreid
@@ -66,12 +67,16 @@ def create_model(cfg, num_classes: int = 0,
     """The model ``MODEL.NAME`` names (a ``ReidModel``, or with
     ``transformer`` the one ``MODEL.TRANSFORMER_TYPE`` names: TransReID's
     ``TransReIDModel``, whose SIE needs the dataset's camera count
-    ``cameras``, or for a ``swin_*`` type SOLIDER-REID's ``SwinReID``),
-    initialised from ``generator`` (seed 0 when None), in eval mode on the
-    CPU."""
+    ``cameras``, for a ``swin_*`` type SOLIDER-REID's ``SwinReID``, for a
+    ``dinov2_*`` type DINOv2's ``DinoV2ReID``), initialised from
+    ``generator`` (seed 0 when None), in eval mode on the CPU."""
     if is_transformer(cfg):
-        model = (make_swin(cfg, num_classes, generator) if is_swin(cfg)
-                 else make_transreid(cfg, num_classes, cameras, generator))
+        if is_swin(cfg):
+            model = make_swin(cfg, num_classes, generator)
+        elif is_dinov2(cfg):
+            model = make_dinov2(cfg, num_classes, generator)
+        else:
+            model = make_transreid(cfg, num_classes, cameras, generator)
         _check_emb_size(cfg, model.emb_size)
         return model
     _check_emb_size(cfg, backbone_emb_size(cfg.MODEL.NAME))

@@ -58,19 +58,23 @@ VIT_WIDTHS = {
 NAME = "transformer"   # MODEL.NAME of the transformer models
 TRANSREID = "TransReID"
 SWIN = "Swin (SOLIDER-REID)"   # models/swin.py
+DINOV2 = "DINOv2"   # models/dinov2.py
 
 
 def is_transformer(cfg) -> bool:
     """``MODEL.NAME transformer``: TransReID's ViT or, by
-    ``MODEL.TRANSFORMER_TYPE``, SOLIDER-REID's Swin (``family``)."""
+    ``MODEL.TRANSFORMER_TYPE``, SOLIDER-REID's Swin or DINOv2
+    (``family``)."""
     return cfg.MODEL.NAME == NAME
 
 
 def family(cfg) -> str:
-    """The transformer ``cfg`` names (a ``swin_*`` type: Swin), as errors
-    name it."""
-    return (SWIN if str(cfg.MODEL.TRANSFORMER_TYPE).startswith("swin_")
-            else TRANSREID)
+    """The transformer ``cfg`` names (a ``swin_*`` type: Swin; a
+    ``dinov2_*`` type: DINOv2), as errors name it."""
+    kind = str(cfg.MODEL.TRANSFORMER_TYPE)
+    if kind.startswith("swin_"):
+        return SWIN
+    return DINOV2 if kind.startswith("dinov2_") else TRANSREID
 
 
 def refuse(what: str, why: str, model: str = TRANSREID):
@@ -129,9 +133,11 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
-def norm_site(x, delta, norm: nn.LayerNorm, to_linear: bool = True):
+def norm_site(x, delta, norm: nn.LayerNorm, to_linear: bool = True,
+              scale=None):
     """One LayerNorm site: ``(x + delta, norm(x + delta))`` in one pass
-    (``delta`` None: no add). The output is written in the dtype its
+    (``delta`` None: no add; with ``scale``, a per-channel LayerScale,
+    ``x + delta * scale``). The output is written in the dtype its
     consumer receives today: autocast's where it feeds a linear (``norm1``
     -> qkv, ``norm2`` -> fc1), LayerNorm's own otherwise (``b1``'s and
     ``b2``'s final norms: fp32 under autocast, else the stream's). Under a profiler ``vit.norms`` counts the site's
@@ -140,7 +146,7 @@ def norm_site(x, delta, norm: nn.LayerNorm, to_linear: bool = True):
     dtype = (torch.get_autocast_dtype(dev)
              if to_linear and torch.is_autocast_enabled(dev) else None)
     count("vit.norms", x.numel() // x.shape[-1])
-    return add_norm(x, delta, norm.weight, norm.bias, norm.eps, dtype)
+    return add_norm(x, delta, norm.weight, norm.bias, norm.eps, dtype, scale)
 
 
 class Block(nn.Module):

@@ -38,7 +38,7 @@ _SOURCES = ("retrieval.cu", "retrieval_int8.cu", "int8_conv.cu",
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_ABI_VERSION = 9
+_ABI_VERSION = 10
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -96,7 +96,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
         fn.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.crt_add_norm.restype = i
-    lib.crt_add_norm.argtypes = [p, i, p, i, p, p, p, p, i, i, i,
+    lib.crt_add_norm.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i,
                                  ctypes.c_float, p]
     lib.crt_window_attn.restype = i
     lib.crt_window_attn.argtypes = [p, p, p, ctypes.c_longlong, i, i, p, p,

@@ -2,25 +2,29 @@
 site (Hopper), K8.
 
 It replaces no TPU kernel: the JAX package has no transformer. TransReID's
-blocks (``models/transreid.py``) and Swin's (``models/swin.py``) under
-bf16 autocast keep the residual stream and the LayerNorms in fp32 and cast
-each LayerNorm's output to bf16 for the next linear: an add, a LayerNorm
-and a cast, three memory-bound passes of 24 bytes an element. One
+blocks (``models/transreid.py``), Swin's (``models/swin.py``) and
+DINOv2's (``models/dinov2.py``) under bf16 autocast keep the residual
+stream and the LayerNorms in fp32 and cast each LayerNorm's output to
+bf16 for the next linear: an add, a LayerNorm and a cast, three
+memory-bound passes of 24 bytes an element. One
 hand-written CUDA kernel (``csrc/add_norm.cu``) makes one pass of 12 (x
 and a bf16 delta read, x_new and a bf16 y written): 498 MB, 0.149 ms at
 3.35 TB/s, at TransReID's [54,016, 768].
 
-``add_norm(x, delta, weight, bias, eps, dtype)`` returns ``(x_new, y)``:
-``x_new = x + delta`` in the residual stream's type (``x`` itself when
-``delta`` is None) and ``y = F.layer_norm(x_new)`` with fp32 statistics,
+``add_norm(x, delta, weight, bias, eps, dtype, scale)`` returns ``(x_new,
+y)``: ``x_new = x + delta`` in the residual stream's type (``x`` itself
+when ``delta`` is None), or ``x + delta * scale`` with a per-channel
+``scale`` [D] in the stream's type (DINOv2's LayerScale, its product
+rounded to the stream's type before the add, as the eager ops round it),
+and ``y = F.layer_norm(x_new)`` with fp32 statistics,
 written in ``dtype`` (None: what ``F.layer_norm`` returns, fp32 under
 autocast, else the stream's type). The stream is fp32, as autocast keeps
 it, or bf16, as in a model cast wholly to bf16 (x, delta, weight and bias
 bf16; the sum rounded to bf16 as PyTorch's bf16 add rounds it).
-``add_norm_plain`` is exactly today's ops
-(``x + delta``, ``F.layer_norm``, ``.to(dtype)``); the wrapper takes it
-for CPU tensors, so the CPU sees the same bits as before, and for CUDA
-tensors launches the kernel or raises. The kernel writes ``x_new`` bit for
+``add_norm_plain`` is exactly today's ops (``x + delta`` or ``x + delta
+* scale``, ``F.layer_norm``, ``.to(dtype)``); the wrapper takes it for CPU
+tensors, so the CPU sees the same bits as before, and for CUDA tensors
+launches the kernel or raises. The kernel writes ``x_new`` bit for
 bit as PyTorch's add; its statistics are summed in another order than
 PyTorch's LayerNorm, so ``y`` can differ by fp32 rounding. The wrapper
 launches through ``_build.launch`` (no Triton: it would add a JIT to a
@@ -41,8 +45,8 @@ from ..utils.profiling import count
 from ._build import aligned, launch, on_cpu
 
 # the row widths the kernel is built for: ViT-B's 768; Swin-B's 128-1024
-# (blocks, norm3) and 512-2048 (patch merging)
-DIMS = (128, 256, 512, 768, 1024, 2048)
+# (blocks, norm3) and 512-2048 (patch merging); DINOv2 ViT-g's 1536
+DIMS = (128, 256, 512, 768, 1024, 1536, 2048)
 _DELTA_KIND = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 _Y_TYPES = (torch.float32, torch.bfloat16)
 _STREAMS = {torch.float32: (None, torch.float32, torch.bfloat16),
@@ -51,16 +55,18 @@ _STREAMS = {torch.float32: (None, torch.float32, torch.bfloat16),
 
 def add_norm_plain(x: torch.Tensor, delta: Optional[torch.Tensor],
                    weight: torch.Tensor, bias: torch.Tensor, eps: float,
-                   dtype: Optional[torch.dtype] = None
+                   dtype: Optional[torch.dtype] = None,
+                   scale: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x + delta, F.layer_norm(x + delta).to(dtype))``, op by op."""
+    """``(x + delta, F.layer_norm(x + delta).to(dtype))``, op by op; with
+    ``scale``, ``x + delta * scale`` for the sum."""
     if delta is not None:
-        x = x + delta
+        x = x + (delta if scale is None else delta * scale)
     y = F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
     return x, (y if dtype is None else y.to(dtype))
 
 
-def _launch(x, delta, weight, bias, eps: float, dtype):
+def _launch(x, delta, weight, bias, eps: float, dtype, scale=None):
     """Check the operands, then launch K8."""
     d = x.shape[-1]
     if x.dtype not in _STREAMS:
@@ -82,13 +88,17 @@ def _launch(x, delta, weight, bias, eps: float, dtype):
         # would skip the rounding that the eager ops' bf16 output has
         raise TypeError("a bf16 stream's LayerNorm is bf16 outside "
                         "autocast: K8 writes its y in bf16 there")
-    for what, t in (("weight", weight), ("bias", bias)):
+    if scale is not None and delta is None:
+        raise ValueError("a scale multiplies a delta: none was given")
+    for what, t in (("weight", weight), ("bias", bias), ("scale", scale)):
+        if t is None:
+            continue
         if t.dtype != x.dtype or tuple(t.shape) != (d,):
             raise ValueError(f"{what} must be {x.dtype} [{d}], as the "
                              f"stream, got {t.dtype} {tuple(t.shape)}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (x, delta, weight, bias)):
+            for t in (x, delta, weight, bias, scale)):
         raise RuntimeError("K8 has no backward: call it under no_grad or "
                            "inference_mode")
     x = aligned(x)
@@ -101,9 +111,12 @@ def _launch(x, delta, weight, bias, eps: float, dtype):
         return x_new, y
     rows = x.numel() // d
     weight, bias = aligned(weight), aligned(bias)
+    if scale is not None:
+        scale = aligned(scale)
     launch("add_norm", x.data_ptr(), int(x.dtype == torch.bfloat16),
            0 if delta is None else delta.data_ptr(),
            _DELTA_KIND[None if delta is None else delta.dtype],
+           0 if scale is None else scale.data_ptr(),
            weight.data_ptr(), bias.data_ptr(), x_new.data_ptr(),
            y.data_ptr(), int(dtype == torch.bfloat16), rows, d, float(eps))
     count("vit.norms_fused", rows)
@@ -112,17 +125,20 @@ def _launch(x, delta, weight, bias, eps: float, dtype):
 
 def add_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
              weight: torch.Tensor, bias: torch.Tensor, eps: float,
-             dtype: Optional[torch.dtype] = None
+             dtype: Optional[torch.dtype] = None,
+             scale: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8: ``(x + delta, LayerNorm(x + delta))`` in one pass over ``x``
     [..., D] (the stream: fp32, or bf16) and ``delta`` (its shape, fp32 or
     bf16 with an fp32 stream, bf16 with a bf16 one, or None), the
     LayerNorm's ``weight`` and ``bias`` [D] in the stream's type; ``y`` in
     ``dtype`` (fp32 or bf16; None is ``F.layer_norm``'s own: fp32 under
-    autocast, else the stream's). The plain version for CPU tensors."""
-    if on_cpu(x, delta, weight, bias):
-        return add_norm_plain(x, delta, weight, bias, eps, dtype)
+    autocast, else the stream's); ``scale`` [D] in the stream's type, or
+    None, multiplies ``delta`` before the add. The plain version for CPU
+    tensors."""
+    if on_cpu(x, delta, weight, bias, scale):
+        return add_norm_plain(x, delta, weight, bias, eps, dtype, scale)
     if dtype is None:
         dtype = (torch.float32 if torch.is_autocast_enabled(x.device.type)
                  else x.dtype)
-    return _launch(x, delta, weight, bias, eps, dtype)
+    return _launch(x, delta, weight, bias, eps, dtype, scale)

@@ -1,16 +1,16 @@
 // The residual add, LayerNorm and cast of one pre-norm site of a ViT block
 // for Hopper (sm_90a):
 //
-//   K8 crt_add_norm   x_new = x + delta (in the residual stream's type,
-//                     fp32 or bf16), y = LayerNorm(x_new) with fp32
-//                     statistics, y written in fp32 or bf16, in one pass
-//                     over each row
+//   K8 crt_add_norm   x_new = x + delta, or x + scale * delta (in the
+//                     residual stream's type, fp32 or bf16), y =
+//                     LayerNorm(x_new) with fp32 statistics, y written in
+//                     fp32 or bf16, in one pass over each row
 //
 // It replaces no TPU kernel: the JAX package has no transformer. It was
 // added for TransReID's blocks (models/transreid.py) and runs every
-// LayerNorm of Swin's too (models/swin.py), where bf16 autocast keeps the
-// residual stream and the LayerNorms in fp32 and casts each LayerNorm's
-// output to bf16 for the next linear: three memory-bound passes a site
+// LayerNorm of Swin's (models/swin.py) and DINOv2's (models/dinov2.py)
+// too, where bf16 autocast keeps the residual stream and the LayerNorms
+// in fp32 and casts each LayerNorm's output to bf16 for the next linear: three memory-bound passes a site
 // (the add: read 4 + 2 B, write 4; the LayerNorm: read 4, write 4; the
 // cast: read 4, write 2), 24 bytes an element, about as much card time in
 // an evaluation as the GEMMs.
@@ -33,7 +33,8 @@
 // arrays have fixed sizes. The widths dispatched are those of the
 // configurations that run it: 768 (ViT-B, TransReID's) and Swin-B's 128,
 // 256, 512 and 1,024 (its blocks and norm3) and 512, 1,024 and 2,048 (its
-// patch merging's 4C). Every width takes the same layout, one warp a row:
+// patch merging's 4C), and 1,536 (DINOv2 ViT-g/14, 48 fp32 values a
+// lane). Every width takes the same layout, one warp a row:
 // at 128 a row is 16 chunks, so half the lanes hold none (the row is 512
 // or 256 bytes, less than a warp's 16-byte accesses cover); at 2,048 a lane
 // holds 8 chunks, 64 fp32 values: ptxas gives 193-195 registers (an fp32
@@ -45,6 +46,14 @@
 // x, delta, x_new, weight and bias, and the same fp32 arithmetic inside,
 // as PyTorch's bf16 add and LayerNorm compute; it moves 8 bytes an element
 // with delta and a bf16 y.
+//
+// LayerScale (DINOv2): with a per-channel ``scale`` [D] in the stream's
+// type, x_new = x + scale * delta, the product rounded to the stream's
+// type before the add, as eager ``x + delta * gamma`` computes it (an fp32
+// gamma promotes a bf16 delta to fp32; a bf16 stream's product is a bf16
+// tensor); __fmul_rn and __fadd_rn keep nvcc from contracting the two into
+// an FMA, which would skip the product's rounding. SCALE is a template
+// flag: a launch without it compiles to the kernel it was before.
 //
 // Numerics follow what autocast computes today: x + delta in fp32 (a bf16
 // delta widened exactly, so x_new is bit for bit PyTorch's add; with a bf16
@@ -62,9 +71,9 @@
 //
 // Shape contract (checked by ops/add_norm.py): x [rows, D] row-major, fp32
 // or bf16 (the stream's type); delta [rows, D] fp32 or bf16 with an fp32
-// stream, bf16 with a bf16 one (or null); w and b [D] and x_out [rows, D]
-// (written only with delta) in the stream's type; y [rows, D] fp32 or
-// bf16; all 16-byte aligned.
+// stream, bf16 with a bf16 one (or null); scale [D] (or null; only with
+// delta), w and b [D] and x_out [rows, D] (written only with delta) in the
+// stream's type; y [rows, D] fp32 or bf16; all 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +88,8 @@ constexpr int VEC = 8;     // elements a lane moves at once
 
 enum Delta { kNone = 0, kF32 = 1, kBF16 = 2 };
 
+// scale last: the fields before it keep their offsets, so a launch
+// without a scale reads its parameters where it did before there was one
 struct Params {
   const void* x;
   const void* delta;
@@ -88,6 +99,7 @@ struct Params {
   void* y;
   int rows;
   float eps;
+  const void* scale;
 };
 
 // Streamed (read once): x and delta.
@@ -152,11 +164,16 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-template <int D, bool X_BF16, int DELTA, bool Y_BF16>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int D, bool X_BF16, int DELTA, bool Y_BF16, bool SCALE>
 __global__ void __launch_bounds__(WARPS * 32)
     add_norm_kernel(const Params p) {
   static_assert(D % VEC == 0, "whole 16-byte chunks");
   static_assert(!X_BF16 || DELTA != kF32, "a bf16 stream takes a bf16 delta");
+  static_assert(!SCALE || DELTA != kNone, "a scale multiplies a delta");
   using TX = std::conditional_t<X_BF16, __nv_bfloat16, float>;
   using TY = std::conditional_t<Y_BF16, __nv_bfloat16, float>;
   const TX* x = static_cast<const TX*>(p.x);
@@ -183,12 +200,22 @@ __global__ void __launch_bounds__(WARPS * 32)
         } else {
           load8(static_cast<const float*>(p.delta) + base + e, d);
         }
+        if constexpr (SCALE) {
+          float g[VEC];
+          load8_cached(static_cast<const TX*>(p.scale) + e, g);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) v[i][j] += d[j];
+          for (int j = 0; j < VEC; ++j) {
+            float prod = __fmul_rn(d[j], g[j]);
+            if constexpr (X_BF16) prod = round_bf16(prod);
+            v[i][j] = __fadd_rn(v[i][j], prod);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) v[i][j] += d[j];
+        }
         if constexpr (X_BF16) {
 #pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            v[i][j] = __bfloat162float(__float2bfloat16_rn(v[i][j]));
+          for (int j = 0; j < VEC; ++j) v[i][j] = round_bf16(v[i][j]);
         }
       }
     } else {
@@ -234,18 +261,28 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <int D, bool X_BF16, int DELTA, bool Y_BF16>
+template <int D, bool X_BF16, int DELTA, bool Y_BF16, bool SCALE>
 int launch(const Params& p, cudaStream_t stream) {
   const int blocks = (p.rows + WARPS - 1) / WARPS;
-  add_norm_kernel<D, X_BF16, DELTA, Y_BF16>
+  add_norm_kernel<D, X_BF16, DELTA, Y_BF16, SCALE>
       <<<blocks, WARPS * 32, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int D, bool X_BF16, int DELTA, bool Y_BF16>
+int launch_scale(const Params& p, cudaStream_t stream) {
+  if constexpr (DELTA == kNone) {
+    return launch<D, X_BF16, DELTA, Y_BF16, false>(p, stream);
+  } else {
+    return p.scale ? launch<D, X_BF16, DELTA, Y_BF16, true>(p, stream)
+                   : launch<D, X_BF16, DELTA, Y_BF16, false>(p, stream);
+  }
+}
+
 template <int D, bool X_BF16, int DELTA>
 int launch_y(const Params& p, int y_bf16, cudaStream_t stream) {
-  return y_bf16 ? launch<D, X_BF16, DELTA, true>(p, stream)
-                : launch<D, X_BF16, DELTA, false>(p, stream);
+  return y_bf16 ? launch_scale<D, X_BF16, DELTA, true>(p, stream)
+                : launch_scale<D, X_BF16, DELTA, false>(p, stream);
 }
 
 template <int D>
@@ -272,18 +309,20 @@ extern "C" {
 
 // x_bf16: the stream's type (x, w, b, x_out) is bf16 (1) or fp32 (0);
 // delta_kind: 0 none (x_out not written), 1 fp32 (fp32 stream only), 2
-// bf16; y_bf16: y's type is bf16 (1) or fp32 (0). D must be 128, 256,
-// 512, 768, 1024 or 2048.
+// bf16; scale: null, or [D] in the stream's type multiplying delta (delta
+// needed); y_bf16: y's type is bf16 (1) or fp32 (0). D must be 128, 256,
+// 512, 768, 1024, 1536 or 2048.
 int crt_add_norm(const void* x, int x_bf16, const void* delta,
-                 int delta_kind, const void* w, const void* b, void* x_out,
-                 void* y, int y_bf16, int rows, int D, float eps,
-                 void* stream) {
+                 int delta_kind, const void* scale, const void* w,
+                 const void* b, void* x_out, void* y, int y_bf16, int rows,
+                 int D, float eps, void* stream) {
   if (rows < 0 || delta_kind < kNone || delta_kind > kBF16
       || (x_bf16 && delta_kind == kF32)
-      || (delta_kind != kNone && (delta == nullptr || x_out == nullptr)))
+      || (delta_kind != kNone && (delta == nullptr || x_out == nullptr))
+      || (delta_kind == kNone && scale != nullptr))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const Params p{x, delta, w, b, x_out, y, rows, eps};
+  const Params p{x, delta, w, b, x_out, y, rows, eps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128: return launch_delta<128>(p, x_bf16, delta_kind, y_bf16, s);
@@ -291,6 +330,7 @@ int crt_add_norm(const void* x, int x_bf16, const void* delta,
     case 512: return launch_delta<512>(p, x_bf16, delta_kind, y_bf16, s);
     case 768: return launch_delta<768>(p, x_bf16, delta_kind, y_bf16, s);
     case 1024: return launch_delta<1024>(p, x_bf16, delta_kind, y_bf16, s);
+    case 1536: return launch_delta<1536>(p, x_bf16, delta_kind, y_bf16, s);
     case 2048: return launch_delta<2048>(p, x_bf16, delta_kind, y_bf16, s);
   }
   return (int)cudaErrorInvalidValue;

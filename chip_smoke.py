@@ -715,9 +715,10 @@ def phase_compare_int8() -> dict:
     return errs
 
 
-# K8's site shapes at a batch of 256: (rows, width, a bf16 branch added or
-# none, y in bf16 or fp32, what they are); TransReID's first (the kernels
-# line reads the first), then Swin-B's at 384x128
+# K8's site shapes at a batch of 256: (rows, width, a bf16 branch added
+# (True), added times a LayerScale ("scaled") or none, y in bf16 or fp32,
+# what they are); TransReID's first (the kernels line reads the first),
+# then Swin-B's at 384x128, then DINOv2 ViT-g's at 252x126
 K8_SHAPES = ((256 * 211, 768, True, True, "[256, 211] tokens"),
              (1024 * 53, 768, True, True, "b2's [1024, 53] groups"),
              (256 * 3072, 128, False, False, "Swin patch norm"),
@@ -728,7 +729,10 @@ K8_SHAPES = ((256 * 211, 768, True, True, "[256, 211] tokens"),
              (256 * 192, 1024, False, True, "Swin merge 2 (4C)"),
              (256 * 48, 1024, True, True, "Swin stage-4 blocks"),
              (256 * 48, 1024, True, False, "Swin norm3"),
-             (256 * 48, 2048, False, True, "Swin merge 3 (4C)"))
+             (256 * 48, 2048, False, True, "Swin merge 3 (4C)"),
+             (256 * 167, 1536, "scaled", True, "DINOv2 blocks"),
+             (256 * 167, 1536, False, True, "DINOv2 block 0's norm1"),
+             (256 * 167, 1536, "scaled", False, "DINOv2 final norm"))
 K8_EMBED_BATCHES = 3   # of TEST.IMS_PER_BATCH (256) images
 # the benchmark cells market-transreid-eval's and market-swin-eval's
 # configurations: (file, LayerNorm sites a batch, rows of those sites an
@@ -738,19 +742,25 @@ K8_CONFIGS = (("portbench/configs/market-vit-transreid.json", 28,
               ("portbench/configs/market-swin-solider.json", 53,
                # the patch norm, two a block, three merges, norm3
                3072 + 2 * (2 * 3072 + 2 * 768 + 18 * 192 + 2 * 48)
-               + 768 + 192 + 48 + 48))
+               + 768 + 192 + 48 + 48),
+              # two a block and the final norm, over 167 tokens
+              ("portbench/configs/market-dinov2-vitg14-reg.json", 81,
+               81 * 167))
 
 
 def phase_k8(gpu: str) -> dict:
     """K8 at TransReID's two site shapes ([54,016, 768] and [54,272, 768],
-    a bf16 branch, a bf16 output) and Swin-B's nine (widths 128 to 2,048,
-    with or without a branch, y bf16 or fp32): held against its plain
+    a bf16 branch, a bf16 output), Swin-B's nine (widths 128 to 2,048,
+    with or without a branch, y bf16 or fp32) and DINOv2 ViT-g's three
+    ([42,752, 1,536]: a branch times its LayerScale, none, and the final
+    norm's fp32 y): held against its plain
     version (the sum bit for bit, y within one bf16 ulp, or 2e-6 in fp32),
     then timed (CUDA events) beside its bound, its plain version and
     autocast's eager add, LayerNorm and cast (``library_ms``). Then the
     main path: each benchmark cell's transformer (TransReID's ViT-B/16 at
     256x128, SIE, JPM; Swin-B at 384x128; bf16 autocast) built by
     ``create_model`` from the cell's configuration, ``extract_embeddings``
+    (and DINOv2 ViT-g/14 at 252x126)
     over K8_EMBED_BATCHES card-resident batches: its sites' launches a
     batch, every site's rows fused (``vit.norms_fused`` counted at the
     launch, against ``vit.norms`` at the sites); Swin's 24 K9 launches a
@@ -778,12 +788,15 @@ def phase_k8(gpu: str) -> dict:
     for rows, d, branch, y_bf16, what in K8_SHAPES:
         x = 2.0 * randn(rows, d) + randn(rows, 1)
         delta = randn(rows, d).to(bf16) if branch else None
+        # DINOv2's LayerScale gammas: U(0.05, 0.5) a channel, as seeded
+        sc = (0.05 + 0.45 * torch.rand(d, generator=gen, device="cuda")
+              if branch == "scaled" else None)
         w, b = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
         ty = bf16 if y_bf16 else torch.float32
-        s, y = K8.add_norm(x, delta, w, b, 1e-6, ty)
-        ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, ty)
-        require(torch.equal(s, ps), f"K8's sum differs from x + delta at "
-                f"{what}")
+        s, y = K8.add_norm(x, delta, w, b, 1e-6, ty, sc)
+        ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, ty, sc)
+        require(torch.equal(s, ps), f"K8's sum differs from x + delta "
+                f"(times its scale) at {what}")
         # one bf16 ulp at |y|, or 2e-6 near 0, where fp32 rounding of the
         # statistics outweighs the spacing of bf16 values; an fp32 y
         # within 2e-6
@@ -804,17 +817,19 @@ def phase_k8(gpu: str) -> dict:
 
         def autocast_chain():
             with torch.autocast("cuda", dtype=bf16):
-                s = x if delta is None else x + delta
+                s = x if delta is None else x + (
+                    delta if sc is None else delta * sc)
                 return F.layer_norm(s, (d,), w, b, 1e-6).to(ty)
 
         k_ms, p_ms, lib_ms = time_pair(
-            "add_norm", lambda: K8.add_norm(x, delta, w, b, 1e-6, ty),
-            lambda: K8.add_norm_plain(x, delta, w, b, 1e-6, ty),
+            "add_norm", lambda: K8.add_norm(x, delta, w, b, 1e-6, ty, sc),
+            lambda: K8.add_norm_plain(x, delta, w, b, 1e-6, ty, sc),
             f"[{rows}, {d}] ({what})", library=autocast_chain)
         # x and delta read, the sum (with a branch) and y written; about 9
         # fp32 operations an element (add, mean, variance, normalise,
         # scale, shift)
-        moved = [x, w, b, y] + ([delta, s] if branch else [])
+        moved = [x, w, b, y] + ([delta, s] if branch else []) + (
+            [sc] if sc is not None else [])
         b_ms, b_by = bound(f"add_norm [{rows}, {d}]", nbytes(*moved),
                            9.0 * x.numel(), "fp32")
         log(f"add_norm [{rows}, {d}] ({what}): {k_ms:.4f} ms, "
@@ -824,13 +839,13 @@ def phase_k8(gpu: str) -> dict:
             f"ms [{gpu}]")
         if "add_norm" not in times:
             host = host_us_per_launch(
-                lambda: K8.add_norm(x, delta, w, b, 1e-6, ty))
+                lambda: K8.add_norm(x, delta, w, b, 1e-6, ty, sc))
             log(f"add_norm: {host:.1f} us of host time a launch (enqueue, "
                 f"50 launches)")
             times["add_norm"] = {"ms": k_ms, "plain_ms": p_ms,
                                  "library_ms": lib_ms, "bound_ms": b_ms,
                                  "bound_by": b_by, "host_us": host}
-        del x, delta, s, y, ps, py, err, ulp
+        del x, delta, sc, s, y, ps, py, err, ulp
 
     per_batch, k9_launches = [], 0
     for path, sites, rows in K8_CONFIGS:

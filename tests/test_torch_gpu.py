@@ -1537,7 +1537,10 @@ K8_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
             (256 * 48, 1024, torch.bfloat16, torch.float32),
             (256 * 48, 2048, None, torch.bfloat16),
             (33, 128, torch.bfloat16, torch.bfloat16),
-            (7, 2048, torch.float32, torch.float32)]
+            (7, 2048, torch.float32, torch.float32),
+            # DINOv2 ViT-g's block 0 norm1 (no branch) at 252x126
+            (256 * 167, 1536, None, torch.bfloat16),
+            (7, 1536, torch.bfloat16, torch.bfloat16)]
 # A bf16 residual stream (a model cast wholly to bf16): bf16 x, weight
 # and bias, a bf16 branch or none, y bf16 (LayerNorm's own) or fp32.
 K8_BF16_CASES = [(256 * 211, 768, torch.bfloat16, torch.bfloat16),
@@ -1594,14 +1597,62 @@ def test_add_norm_kernel_bf16_stream_matches_plain(cuda, rows, d,
                                       stream=torch.bfloat16), y_dtype)
 
 
-def _hold_k8_to_plain(x, delta, w, b, y_dtype):
+# K8 with a LayerScale on the branch (DINOv2): (rows, D, delta dtype, y
+# dtype, stream). ViT-g's sites at 252x126, batch 256: the blocks' (a bf16
+# branch times its fp32 gamma, a bf16 y), the final norm's (an fp32 y);
+# fp32 throughout (autocast off); a bf16 stream (the bf16 control, bf16
+# gamma); ragged rows; another width.
+K8_SCALED_CASES = [
+    (256 * 167, 1536, torch.bfloat16, torch.bfloat16, torch.float32),
+    (256 * 167, 1536, torch.bfloat16, torch.float32, torch.float32),
+    (4096, 1536, torch.float32, torch.float32, torch.float32),
+    (256 * 167, 1536, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (33, 1536, torch.bfloat16, torch.float32, torch.bfloat16),
+    (7, 1536, torch.bfloat16, torch.bfloat16, torch.float32),
+    (4096, 768, torch.bfloat16, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("rows,d,delta_dtype,y_dtype,stream",
+                         K8_SCALED_CASES)
+def test_add_norm_kernel_with_scale_matches_plain(cuda, rows, d, delta_dtype,
+                                                  y_dtype, stream):
+    """K8 with a per-channel ``scale`` on the branch (DINOv2's LayerScale,
+    gammas U(0.05, 0.5)) against ``add_norm_plain``: ``x + delta * scale``
+    bit for bit (one multiply rounded to the stream's type, then one add:
+    no FMA), ``y`` as in the cases without a scale. A bf16 stream's fp32
+    ``y`` is LayerNorm's own only under autocast, so that case runs
+    there."""
+    x, delta, w, b = _k8_inputs(cuda, rows, d, delta_dtype, stream=stream)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    scale = (0.05 + 0.45 * torch.rand(d, generator=g, device=cuda)).to(
+        stream)
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=stream == torch.bfloat16
+                        and y_dtype == torch.float32):
+        _hold_k8_to_plain(x, delta, w, b, y_dtype, scale)
+
+
+def test_add_norm_kernel_refuses_a_scale_without_a_branch(cuda):
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+
+    x, _, w, b = _k8_inputs(cuda, 16, 1536, None)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="scale multiplies a delta"):
+        K8.add_norm(x, None, w, b, 1e-6, torch.bfloat16, torch.ones_like(w))
+    with pytest.raises(ValueError, match="scale must be"):
+        K8.add_norm(x, x.to(torch.bfloat16), w, b, 1e-6, torch.bfloat16,
+                    torch.ones(768, device=cuda))
+    assert launch_counts()["add_norm"] == 0
+
+
+def _hold_k8_to_plain(x, delta, w, b, y_dtype, scale=None):
     from centroids_reid_tpu_torch.ops import add_norm as K8
 
     reset_launch_counts()
-    s, y = K8.add_norm(x, delta, w, b, 1e-6, y_dtype)
+    s, y = K8.add_norm(x, delta, w, b, 1e-6, y_dtype, scale)
     torch.cuda.synchronize()
     assert launch_counts()["add_norm"] == 1
-    ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, y_dtype)
+    ps, py = K8.add_norm_plain(x, delta, w, b, 1e-6, y_dtype, scale)
     assert torch.equal(s, ps) and s.dtype == x.dtype
     if delta is None:
         assert s is x
@@ -1851,6 +1902,93 @@ def test_swin_embed_runs_k8_at_every_site(cuda, monkeypatch):
     assert max(errs[1:]) < _swin_limit(), errs
 
 
+
+
+def _dinov2_limit():
+    """The cell market-dinov2g-eval's ``emb_rel_err`` limit."""
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench", "limits", "market-dinov2g-eval.json")
+    with open(path) as f:
+        return float(json.load(f)["emb_rel_err"])
+
+
+def test_dinov2_embed_runs_k8_at_every_site(cuda, monkeypatch):
+    """One DINOv2 ViT-g/14 embed (4 registers, the published widths,
+    252x126, seeded weights drawn on the card) of a 4-image batch: 81 K8
+    launches (two a block, the final norm), every site's rows fused
+    (``vit.norms_fused`` == ``vit.norms``), ``dino.tokens`` 4 x 167. In
+    fp32 (autocast off, TF32 off) within 1e-4 (relative, per row) of the
+    plain fp32 reference (``portbench/reference/dinov2.py``) on the card.
+    Under bf16 autocast within the benchmark cell's ``emb_rel_err`` limit
+    of that reference, as the same model with its sites on the eager ops
+    (``add_norm_plain`` patched in, none fused) is."""
+    import importlib.util
+    import os
+
+    from centroids_reid_tpu_torch.data.transforms import normalize_batch
+    from centroids_reid_tpu_torch.models import dinov2 as D
+    from centroids_reid_tpu_torch.models import transreid as T
+    from centroids_reid_tpu_torch.ops import add_norm as K8
+    from centroids_reid_tpu_torch.utils import profiling
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench", "reference", "dinov2.py")
+    spec = importlib.util.spec_from_file_location("ref_dinov2", path)
+    ref_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref_mod)
+    with torch.device(cuda):
+        m = D.init_dinov2(D.DinoV2ReID(), torch.Generator(
+            device=cuda).manual_seed(2)).eval()
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    imgs = torch.randint(0, 256, (4, 252, 126, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(3)).to(cuda)
+    x = normalize_batch(imgs, mean, std).permute(0, 3, 1, 2)
+    ref = ref_mod.embed(m.state_dict(), imgs, dict(
+        depth=40, num_heads=24, patch_size=14, num_register_tokens=4,
+        interpolate_antialias=True, ln_eps=1e-6, neck_feat="before",
+        pixel_mean=mean, pixel_std=std), block=4)
+    sites = 4 * 167 * 81
+
+    def rel(a, b):
+        return float(((a.float() - b.float()).norm(dim=1)
+                      / b.float().norm(dim=1)).max())
+
+    def traced(mixed):
+        m.mixed_precision = mixed
+        reset_launch_counts()
+        profiling.reset()
+        with torch.no_grad(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+            e = m.embed(x)
+            torch.cuda.synchronize()
+        counts = profiling.counts()
+        profiling.reset()
+        return e, launch_counts()["add_norm"], counts
+
+    fused, launches, counts = traced(True)
+    assert launches == 81
+    assert counts["vit.norms"] == counts["vit.norms_fused"] == sites
+    assert counts["dino.tokens"] == 4 * 167
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "add_norm", K8.add_norm_plain)
+        eager, launches, counts = traced(True)
+    assert launches == 0
+    assert counts["vit.norms"] == sites and "vit.norms_fused" not in counts
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, launches, _ = traced(False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert launches == 81
+    errs = (rel(card, ref), rel(fused, ref), rel(eager, ref))
+    print(f"DINOv2 ViT-g embed: card fp32, fused bf16, eager bf16 against "
+          f"the fp32 reference: {errs}")
+    assert errs[0] < 1e-4, errs
+    assert max(errs[1:]) < _dinov2_limit(), errs
 
 # K9: Swin-B's four stage maps at 384x128 and their heads (width 32)
 K9_STAGES = [((96, 32), 4), ((48, 16), 8), ((24, 8), 16), ((12, 4), 32)]
